@@ -24,7 +24,21 @@ package).  Phases, each of which fails the run on any error:
    T=20: warm==cold==fifo, pipelined==sequential, continuous==depth, obs
    on==off, all bitwise) and the batched engine against its per-request
    reference, bitwise;
-7. a ``kernels`` JSON line, the card line again, and the result line.
+7. flash attention and the SSD scan against their plain versions on the
+   card at the JAX package's test shapes (tests/test_kernels.py sweeps),
+   float32 and bfloat16, with those tests' tolerances;
+8. the DiT path: server and three client Zamba2-1.2B DiTs at full width
+   (configs/zamba2_1p2b.py, bf16, 38 Mamba2 layers, the shared
+   attention+MLP block every 6) on 32x32x3 images in 4x4 patches (64
+   tokens), threefry-initialised on the card.  The flash and SSD kernels
+   are held against their plain versions on the inputs the first forward
+   feeds them and timed there; then, with every launch counter zeroed just
+   before, one per-request Alg.-2 sample (T=1000, cut 250, batch 4) and
+   one ``ServeRuntime`` pass (T=120, cuts 15/30/60, three requests of
+   batch 4, max_wave 4, depth policy, cache on), counters read just
+   after: 6 flash and 38 SSD launches per forward.  The pass's outputs
+   must equal ``sample_plan_reference`` bitwise on the card;
+9. a ``kernels`` JSON line, the card line again, and the result line.
 
 Exits nonzero, printing no result line, without a CUDA device or outside
 a checkout.
@@ -39,12 +53,33 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 TOL_BF16 = dict(atol=5e-2, rtol=5e-2)   # the JAX package's kernel tolerance
+TOL_FLASH = dict(atol=2e-5, rtol=2e-3)  # tests/test_kernels.py TOL (fp32)
+TOL_SSD = dict(atol=1e-4, rtol=1e-3)    # tests/test_kernels.py ssd (fp32)
+# bf16 SSD at the DiT's shape: the plain version rounds five intermediates
+# (C·B, the decay, dt·x, e^L, the carried state) to bf16, so its error
+# grows with |y|; the kernel keeps them in float32.  TOL_BF16's atol scaled
+# to the output's range: max |kernel - plain| <= 5e-2 * max(1, max |plain|).
+SSD_BF16_RANGE = 5e-2
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor rate
 FP32_ULPS = 1          # kernel vs plain in fp32 (the kernel forbids FMAs)
 UNET_RTOL = 1e-4       # card vs CPU forward, relative to max |output|
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 IMG = (32, 32, 3)
 B = 4
+DIT_ARCH = "zamba2-1.2b"
+FLASH_SWEEP = [(2, 4, 2, 64, 32), (1, 4, 4, 100, 16), (2, 8, 2, 128, 64),
+               (1, 2, 1, 48, 8)]          # test_flash_attention_sweep
+FLASH_WINDOWS = [8, 24, 64]               # test_flash_attention_window
+SSD_SWEEP = [(2, 64, 4, 16, 8, 16), (1, 48, 2, 8, 4, 16),
+             (2, 100, 3, 16, 8, 32), (1, 32, 1, 4, 4, 8)]  # test_ssd_scan_sweep
+# the DiT main path: one per-request sample at the paper's T, then one
+# serve pass at a cut T: the full-width forward is ~68 ms of host-bound
+# eager launches, so a T=1000 pass with its reference would take ~10 min
+# and the script must end well inside its 1200 s limit
+DIT_SAMPLE_T, DIT_SAMPLE_CUT = 1000, 250
+DIT_T = 120                     # the serve pass's T
+DIT_CUTS = [15, 30, 60]         # its three clients' cuts (T/8, T/4, T/2)
 
 
 def log(*a):
@@ -97,6 +132,51 @@ def _ulps(a, b):
                .abs().max().item())
 
 
+def _bound(nbytes: float, flops: float, flops_per_s: float):
+    """(least time in ms, "bytes" or "operations") on this card."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _rate(dtype) -> float:
+    import torch
+    return BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+
+
+def flash_bound(q, k, causal: bool, window: int):
+    """q, k, v read once, out written once; 4·dh flops per (query, key)
+    pair that the masks keep."""
+    import torch
+    Bq, H, S, dh = q.shape
+    i = torch.arange(S)[:, None]
+    j = torch.arange(S)[None, :]
+    keep = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        keep &= j <= i
+    if window > 0:
+        keep &= (i - j) < window
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    flops = 4 * Bq * H * dh * int(keep.sum())
+    return _bound(nbytes, flops, _rate(q.dtype))
+
+
+def ssd_bound(x, Bm, chunk: int):
+    """x, dt, A, B, C read once, y and the float32 state written once; per
+    (batch, head, tile of q steps) the kernel's products: C·B and the
+    scores times dt·x on and below the diagonal, C·state and dt·xᵀB."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    q = min(chunk, 64)
+    tiles = -(-s // q)
+    it = x.element_size()
+    nbytes = (2 * x.numel() + 2 * Bm.numel()) * it + (b * s * h + h) * 4 + \
+        b * h * p * n * 4
+    flops = b * h * tiles * ((n + p) * q * (q + 1) + 4 * q * p * n)
+    return _bound(nbytes, flops, _rate(x.dtype))
+
+
 def phase_kernels():
     """Kernel vs plain on the card; returns per-entry records at the
     serve path's shapes."""
@@ -128,12 +208,8 @@ def phase_kernels():
         return err
 
     def bound_ms(K, per, itemsize):
-        nbytes = 4 * K * per * itemsize + 12 * K
-        flops = 5 * K * per
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS_PER_S * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                     else "operations")
+        return _bound(4 * K * per * itemsize + 12 * K, 5 * K * per,
+                      FP32_FLOPS_PER_S)
 
     for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
@@ -229,30 +305,44 @@ def phase_unet():
     if err > UNET_RTOL * scale:
         raise AssertionError(f"unet card vs cpu: {err} > {UNET_RTOL}*{scale}")
     log(f"unet/forward_ms (B={B}, wall per call, eager): {fwd_ms:.3f}")
-    unet_device_ms(gpu, xs)
+    device_ms("unet", lambda: gpu(*xs))
     return fwd_ms
 
 
-def unet_device_ms(model, xs):
-    """Device time of one forward from torch.profiler (summed kernel
-    time), printed for the time breakdown; 'not measured' if the
-    profiler reports no device time on this machine."""
+def device_rows(rows):
+    """The rows of a kineto ``key_averages()`` that are device activity
+    (kernels, copies, sets).  A CPU op's row repeats, as its self device
+    time, the time of the kernels it launched, so a sum over every row
+    counts each such kernel twice; a kernel launched outside any torch op
+    (the port's ctypes kernels) has only its device row."""
+    from torch.autograd import DeviceType
+    return [e for e in rows if e.device_type == DeviceType.CUDA and
+            not getattr(e, "is_user_annotation", False)]
+
+
+def device_ms(tag: str, fn, n: int = 5, top: int = 0) -> None:
+    """Device time of one ``fn()`` from torch.profiler (kernel time summed
+    over n calls, per call) and, with ``top``, its largest device kernels,
+    printed for the time breakdown; 'not measured' if the profiler
+    reports no device time on this machine."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
                                               ProfilerActivity.CUDA]) as p:
-        for _ in range(5):
-            model(*xs)
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0.0)
-                   for e in p.key_averages())
-    n_dev = sum(e.count for e in p.key_averages()
-                if getattr(e, "self_device_time_total", 0.0) > 0)
+    rows = device_rows(p.key_averages())
+    total_us = sum(e.self_device_time_total for e in rows)
     if total_us > 0:
-        log(f"unet/device_ms per forward (profiler): {total_us / 5e3:.3f} "
-            f"over {n_dev / 5:.0f} device events")
+        log(f"{tag}/device_ms per forward (profiler): "
+            f"{total_us / (n * 1e3):.3f} over "
+            f"{sum(e.count for e in rows) / n:.0f} device events")
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
+            log(f"{tag}/device_top: {e.self_device_time_total / n:9.1f} us "
+                f"per forward, {e.count / n:5.0f} calls  {e.key[:70]}")
     else:
-        log("unet/device_ms per forward: not measured (profiler reported "
+        log(f"{tag}/device_ms per forward: not measured (profiler reported "
             "no device time)")
 
 
@@ -402,6 +492,266 @@ def phase_contracts():
         "GM/ICM/mid cuts)")
 
 
+def phase_flash_ssd():
+    """Flash attention and the SSD scan against their plain versions on
+    the card at the JAX package's test shapes, float32 and bfloat16."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+
+    def check(out, ref, tol, what):
+        err = (out.float() - ref.float()).abs().max().item()
+        if not torch.allclose(out.float(), ref.float(), **tol):
+            raise AssertionError(f"{what}: max abs {err:.3g} beyond {tol}")
+        return err
+
+    flash_cases = [(shape, c, 0) for shape in FLASH_SWEEP
+                   for c in (True, False)] + \
+        [((1, 4, 1, 96, 32), c, w) for w in FLASH_WINDOWS
+         for c in (True, False)]
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        tol = TOL_FLASH if dtype == torch.float32 else TOL_BF16
+        errs = []
+        for (Bq, H, Hkv, S, dh), causal, window in flash_cases:
+            q = rn(Bq, H, S, dh).to(dtype)
+            k, v = rn(Bq, Hkv, S, dh).to(dtype), rn(Bq, Hkv, S, dh).to(dtype)
+            out = fops.flash_attention(q, k, v, causal=causal, window=window)
+            ref = attention_ref(q, k, v, causal=causal, window=window)
+            errs.append(check(out, ref, tol, f"flash_attention "
+                              f"{(Bq, H, Hkv, S, dh)} causal {causal} "
+                              f"window {window} {tag}"))
+        log(f"kernel/flash_attention {tag}: {len(flash_cases)} cases "
+            f"(sweep x causal, window 8/24/64 x causal) max_abs_err "
+            f"{max(errs):.3g} within {tol}")
+        tol = TOL_SSD if dtype == torch.float32 else TOL_BF16
+        errs = []
+        for b, s, h, p, n, chunk in SSD_SWEEP:
+            x = rn(b, s, h, p).to(dtype)
+            dt = F.softplus(rn(b, s, h) - 1)
+            A = -torch.exp(rn(h))
+            Bm, Cm = rn(b, s, n).to(dtype), rn(b, s, n).to(dtype)
+            y, fs = sops.ssd_scan(x, dt, A, Bm, Cm, chunk)
+            yr, fr = ssd_chunked(x, dt, A, Bm, Cm, chunk)
+            what = f"ssd_scan {(b, s, h, p, n, chunk)} {tag}"
+            errs.append(max(check(y, yr, tol, what + " y"),
+                            check(fs, fr, tol, what + " state")))
+        log(f"kernel/ssd_scan {tag}: {len(SSD_SWEEP)} sweep shapes "
+            f"max_abs_err {max(errs):.3g} within {tol}")
+
+
+def phase_dit():
+    """The DiT path at full width.  Returns (kernel records at the DiT's
+    shapes, launches of the path's run)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import prng
+    from repro_torch.core.dit import DiTConfig, init_dit, make_dit_apply
+    from repro_torch.core.sample_plan import (SampleRequest, plan_requests,
+                                              stable_group_seed)
+    from repro_torch.core.sampler import (make_per_request_sampler,
+                                          sample_plan_reference)
+    from repro_torch.core.schedules import DiffusionSchedule
+    from repro_torch.device import deterministic_cuda
+    from repro_torch.kernels.ddpm_step import kernel as dkernel
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssd_scan import kernel as skernel
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    from repro_torch.models.hybrid import _grouping
+    from repro_torch.serve import ServeConfig, ServeRuntime
+
+    deterministic_cuda()
+    arch = get_arch(DIT_ARCH)
+    dcfg = DiTConfig(image_size=IMG[0], channels=IMG[2], patch_size=4,
+                     n_classes=8)
+    apply_fn = make_dit_apply(arch, dcfg)
+    per_fwd = {"flash_attention": _grouping(arch)[1],
+               "ssd_scan": arch.n_layers}
+    key = prng.PRNGKey(0, device="cuda")
+    ks, *kc = prng.split(key, len(DIT_CUTS) + 1)
+    t0 = time.perf_counter()
+    sp = init_dit(ks, arch, dcfg, "cuda")
+    cp = [init_dit(k, arch, dcfg, "cuda") for k in kc]
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in sp.parameters())
+    log(f"dit/init: {len(cp) + 1} {arch.name} DiTs of {n_params} parameters "
+        f"({arch.dtype}, {dcfg.n_patches} tokens) in "
+        f"{time.perf_counter() - t0:.2f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((B,) + IMG).astype(
+        np.float32)).cuda()
+    t = torch.from_numpy(rng.uniform(1.0, DIT_T, B).astype(np.float32)).cuda()
+    y = torch.from_numpy(np.eye(dcfg.n_classes, dtype=np.float32)[
+        rng.integers(0, dcfg.n_classes, B)]).cuda()
+
+    # the inputs the first forward feeds each kernel
+    captured = {}
+
+    def capture(name, fn):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            if name not in captured:
+                captured[name] = ([a.clone() if torch.is_tensor(a) else a
+                                   for a in args], dict(kw), out)
+            return out
+        return wrapped
+
+    orig = (fops.flash_attention, sops.ssd_scan)
+    fops.flash_attention = capture("flash_attention", orig[0])
+    sops.ssd_scan = capture("ssd_scan", orig[1])
+    try:
+        with torch.no_grad():
+            eps = apply_fn(sp, x, t, y)
+        torch.cuda.synchronize()
+    finally:
+        fops.flash_attention, sops.ssd_scan = orig
+    if eps.shape != x.shape or not torch.isfinite(eps).all():
+        raise AssertionError(f"dit: bad forward {tuple(eps.shape)}")
+
+    records = {}
+    (q, k, v), kw, out = captured["flash_attention"]
+    if kw != {"causal": False, "window": 0}:
+        raise AssertionError(f"dit: shared block called attention with {kw}")
+    ref = attention_ref(q, k, v, **kw)
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.allclose(out.float(), ref.float(), **TOL_BF16):
+        raise AssertionError(f"dit flash_attention: max abs {err:.3g}")
+    qc, kc_, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    ms = time_ms(lambda: fkernel.launch(qc, kc_, vc, False, 0))
+    plain = time_ms(lambda: attention_ref(q, k, v, **kw))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qc, kc_, vc))
+    bnd, by = flash_bound(q, k, False, 0)
+    records["flash_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                      bound_ms=bnd, bound_by=by,
+                                      library_ms=lib)
+    log(f"kernel/flash_attention at the DiT's {tuple(q.shape)} {q.dtype}: "
+        f"max_abs_err {err:.3g} kernel {ms * 1e3:.2f} us plain "
+        f"{plain * 1e3:.2f} us sdpa {lib * 1e3:.2f} us bound "
+        f"{bnd * 1e3:.3f} us ({by})")
+
+    (xs, dt, A, Bm, Cm, chunk), _, (yk, fk) = captured["ssd_scan"]
+    yr, fr = ssd_chunked(xs, dt, A, Bm, Cm, chunk)
+    errs = []
+    for name, a, r in (("y", yk, yr), ("state", fk, fr)):
+        e = (a.float() - r.float()).abs().max().item()
+        lim = SSD_BF16_RANGE * max(1.0, r.float().abs().max().item())
+        if not e <= lim:
+            raise AssertionError(f"dit ssd_scan {name}: max abs {e:.3g} > "
+                                 f"{lim:.3g}")
+        errs.append(e)
+        log(f"kernel/ssd_scan at the DiT's shape, {name}: max_abs_err "
+            f"{e:.3g} (limit {lim:.3g}, max |plain| "
+            f"{r.float().abs().max().item():.3g})")
+    cargs = (xs.contiguous(), dt.float().contiguous(), A.float().contiguous(),
+             Bm.to(xs.dtype).contiguous(), Cm.to(xs.dtype).contiguous())
+    ms = time_ms(lambda: skernel.launch(*cargs, chunk))
+    plain = time_ms(lambda: ssd_chunked(xs, dt, A, Bm, Cm, chunk))
+    bnd, by = ssd_bound(xs, Bm, chunk)
+    records["ssd_scan"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain,
+                               bound_ms=bnd, bound_by=by, library_ms=None)
+    log(f"kernel/ssd_scan at the DiT's {tuple(xs.shape)} n {Bm.shape[-1]} "
+        f"chunk {chunk} {xs.dtype}: kernel {ms * 1e3:.2f} us plain "
+        f"{plain * 1e3:.2f} us bound {bnd * 1e3:.3f} us ({by}); "
+        "library_ms: null (no PyTorch call computes the SSD scan)")
+
+    with torch.no_grad():
+        fkernel.reset_counts()
+        skernel.reset_counts()
+        apply_fn(sp, x, t, y)
+        one = {**fkernel.COUNTS, **skernel.COUNTS}
+        if one != per_fwd:
+            raise AssertionError(f"dit: launches per forward {one} != "
+                                 f"{per_fwd}")
+        fwd_ms = time_ms(lambda: apply_fn(sp, x, t, y), iters=20, warmup=3)
+    log(f"dit/forward_ms (B={B}, wall per call, eager): {fwd_ms:.3f}; "
+        f"launches per forward {one}")
+    device_ms("dit", lambda: apply_fn(sp, x, t, y), top=10)
+
+    # --- the main path: one per-request sample, then one serve pass
+    T = DIT_T
+    sched = DiffusionSchedule.linear(T, device="cuda")
+    sample_sched = DiffusionSchedule.linear(DIT_SAMPLE_T, device="cuda")
+    eye = np.eye(dcfg.n_classes, dtype=np.float32)
+    queue = [SampleRequest(client=c, t_cut=cut,
+                           y=np.broadcast_to(eye[c], (B, dcfg.n_classes))
+                           .copy())
+             for c, cut in enumerate(DIT_CUTS)]
+    rt = ServeRuntime(ServeConfig(T=T, image_shape=IMG, max_wave=4,
+                                  policy="depth", cache=True),
+                      sp, cp, apply_fn, sched, key, device="cuda")
+    sampler = make_per_request_sampler(sample_sched, apply_fn, (B,) + IMG)
+    y1 = torch.from_numpy(queue[1].y).cuda()
+    steps = rt.registry.counter("scan_steps")
+    steps0 = steps.value
+    torch.cuda.synchronize()
+    for kmod in (dkernel, fkernel, skernel):     # --- main path starts
+        kmod.reset_counts()
+    t0 = time.perf_counter()
+    single = sampler(DIT_SAMPLE_CUT)(sp, cp[1], prng.fold_in(key, 7), y1)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    outs, rep = rt.process(queue)
+    torch.cuda.synchronize()
+    launches = {**dkernel.COUNTS, **fkernel.COUNTS, **skernel.COUNTS}
+    n_steps = steps.value - steps0               # --- main path ends
+
+    if tuple(single.shape) != (B,) + IMG or not torch.isfinite(single).all():
+        raise AssertionError("dit: per-request sample not finite")
+    for o in outs:
+        if tuple(o.shape) != (B,) + IMG or not torch.isfinite(o).all():
+            raise AssertionError(f"dit pass: bad output {tuple(o.shape)}")
+    calls = rep["server_calls_physical"] + rep["client_calls_physical"]
+    forwards = DIT_SAMPLE_T + calls
+    log(f"dit/per_request_sample: T={DIT_SAMPLE_T} cut {DIT_SAMPLE_CUT} "
+        f"batch {B} wall_s {single_s:.3f} ({DIT_SAMPLE_T} forwards)")
+    log(f"dit/pass: wall_s {rep['wall_s']:.3f} req_per_s "
+        f"{rep['req_per_s']:.4f} samples_per_s {rep['samples_per_s']:.4f} "
+        f"waves {rep['waves']} server_calls_physical "
+        f"{rep['server_calls_physical']} client_calls_physical "
+        f"{rep['client_calls_physical']} scan steps {n_steps}; model calls "
+        f"x forward wall {calls * fwd_ms / 1e3:.2f} s")
+    log(f"dit/launches: {launches} for {forwards} forwards, {n_steps} "
+        f"batched and {DIT_SAMPLE_T} per-request steps")
+    for name, n in per_fwd.items():
+        if launches[name] != n * forwards:
+            raise AssertionError(f"dit: {name} launches {launches[name]} != "
+                                 f"{n} x {forwards} forwards")
+    if launches["ddpm_step"] != DIT_SAMPLE_T or \
+            launches["ddpm_step_batched"] != n_steps:
+        raise AssertionError(f"dit: ddpm launches {launches} != steps "
+                             f"{DIT_SAMPLE_T} / {n_steps}")
+
+    t0 = time.perf_counter()
+    for rid, req in enumerate(queue):       # a fresh runtime: rid = order
+        plan = plan_requests([req], T, adjusted=rt.config.adjusted,
+                             n_clients=len(cp),
+                             server_stride=rt.config.server_stride,
+                             group_seed_fn=stable_group_seed,
+                             request_seeds=[rid], device="cuda")
+        ref_out, _ = sample_plan_reference(sp, cp, key, plan, sched,
+                                           apply_fn, IMG)
+        if not torch.equal(ref_out[0], outs[rid]):
+            diff = (ref_out[0] - outs[rid]).abs().max().item()
+            raise AssertionError(f"dit pass request {rid} != "
+                                 f"sample_plan_reference (max abs {diff})")
+    log(f"dit/pass_vs_reference: bitwise equal, {len(queue)} requests "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return records, launches
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").is_file():
@@ -420,17 +770,30 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     phase_build()
     records = phase_kernels()
+    phase_flash_ssd()
     fwd_ms = phase_unet()
     launches = phase_main_path(fwd_ms)
     phase_contracts()
+    dit_records, dit_launches = phase_dit()
+    records.update(dit_records)
+    # launches of both main paths (each counted from zero just before it)
+    launches = {name: launches.get(name, 0) + n
+                for name, n in dit_launches.items()}
     replaces = {"ddpm_step": "src/repro/kernels/ddpm_step/kernel.py:43",
                 "ddpm_step_batched":
-                    "src/repro/kernels/ddpm_step/kernel.py:85"}
+                    "src/repro/kernels/ddpm_step/kernel.py:85",
+                "flash_attention":
+                    "src/repro/kernels/flash_attention/kernel.py:76",
+                "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:69"}
+    sources = {"ddpm_step": "ddpm_step.cu", "ddpm_step_batched":
+               "ddpm_step.cu", "flash_attention": "flash_attention.cu",
+               "ssd_scan": "ssd_scan.cu"}
     kernels = [dict(name=name, route="cuda",
-                    source="src/repro_torch/csrc/ddpm_step.cu",
+                    source=f"src/repro_torch/csrc/{sources[name]}",
                     replaces=replaces[name], launches=launches[name],
-                    library_ms=None, **records[name])
-               for name in ("ddpm_step_batched", "ddpm_step")]
+                    **{"library_ms": None, **records[name]})
+               for name in ("ddpm_step_batched", "ddpm_step",
+                            "flash_attention", "ssd_scan")]
     log(f"total_s: {time.perf_counter() - t_start:.1f}")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

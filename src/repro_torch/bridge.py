@@ -8,6 +8,10 @@ JAX side — no JAX is imported here) and:
   module: HWIO conv kernels become OIHW, ``(in, out)`` dense weights
   become ``nn.Linear``'s ``(out, in)``, GroupNorm ``scale``/``bias``
   become ``weight``/``bias``; ``None`` attention slots stay ``None``.
+* ``load_dit`` copies a ``core/dit.py`` parameter tree into a DiT
+  module the same way, with its layer stacks unstacked; a bare array
+  (``pos``, ``A_log``, an RMSNorm ``scale``) goes into the parameter of
+  the same name, and bf16 leaves come in exactly through float32.
 * ``unstack`` splits params stacked on a leading client axis k (the
   JAX package's stacked-clients layout) into k per-client trees.
 * ``to_torch`` turns any numpy tree (e.g. a toy denoiser's ``{"a", "b"}``)
@@ -69,6 +73,8 @@ def to_torch(tree, device=None):
 
 def _copy(param: torch.Tensor, value: np.ndarray, name: str) -> None:
     value = np.array(value, copy=True)
+    if value.dtype.name == "bfloat16":       # ml_dtypes: exact in float32
+        value = value.astype(np.float32)
     if tuple(param.shape) != value.shape:
         raise ValueError(f"{name}: module {tuple(param.shape)} vs "
                          f"params {value.shape}")
@@ -81,7 +87,9 @@ def _load(module: nn.Module, tree, name: str) -> None:
         if (tree is None) != (module is None):
             raise ValueError(f"{name}: None slot on one side only")
         return
-    if isinstance(module, nn.Conv2d):
+    if isinstance(module, torch.Tensor):        # a bare parameter
+        _copy(module, _check_numpy(tree), name)
+    elif isinstance(module, nn.Conv2d):
         _copy(module.weight, _check_numpy(tree["w"]).transpose(3, 2, 0, 1),
               name + ".w")
         _copy(module.bias, _check_numpy(tree["b"]), name + ".b")
@@ -106,12 +114,32 @@ def _load(module: nn.Module, tree, name: str) -> None:
                         f"{type(module).__name__}")
 
 
-def load_unet(model: nn.Module, params) -> nn.Module:
-    """Copy a JAX-layout U-Net parameter tree (numpy leaves) into
-    ``model`` in place; every parameter of the module must be covered."""
+def load_params(model: nn.Module, params) -> nn.Module:
+    """Copy a JAX-layout parameter tree (numpy leaves) into the module of
+    the same layout in place; every parameter of the module must be
+    covered."""
     _load(model, params, "params")
     n_tree = sum(_check_numpy(a).size for a in leaves(params))
     n_model = sum(p.numel() for p in model.parameters())
     if n_tree != n_model:
         raise ValueError(f"params hold {n_tree} values, module {n_model}")
     return model
+
+
+def load_unet(model: nn.Module, params) -> nn.Module:
+    """Copy a JAX-layout U-Net parameter tree (numpy leaves) into
+    ``model`` in place; every parameter of the module must be covered."""
+    return load_params(model, params)
+
+
+def load_dit(model: nn.Module, params) -> nn.Module:
+    """Copy a JAX-layout DiT parameter tree (core/dit.init_dit, numpy
+    leaves) into a ``core.dit.DiT`` in place.  The layer stacks
+    (``mamba``, ``layers``) carry a leading layer axis in JAX
+    (``stacked_init``); they are unstacked into the module's layer lists.
+    Every parameter of the module must be covered."""
+    tree = dict(params)
+    for stack in ("mamba", "layers"):
+        if stack in tree:
+            tree[stack] = unstack(tree[stack])
+    return load_params(model, tree)

@@ -1,0 +1,15 @@
+"""Minitron-4B — width/depth-pruned Nemotron [arXiv:2407.14679]."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="minitron-4b",
+    family="dense",
+    n_layers=32,
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=8,
+    d_ff=9216,
+    vocab_size=256_000,
+    head_dim=128,
+    source="Minitron [arXiv:2407.14679]",
+)

@@ -18,7 +18,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Any, Dict, Sequence, Tuple
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
@@ -28,6 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # path -> (library, seconds the build took here (0.0 if reused), nvcc log)
 _LOADED: Dict[str, Tuple[ctypes.CDLL, float, str]] = {}
+# (source, symbol) -> the bound C entry point
+_BOUND: Dict[Tuple[str, str], Any] = {}
 
 
 def _nvcc() -> str:
@@ -73,3 +75,17 @@ def load(source: str) -> Tuple[ctypes.CDLL, float, str]:
     entry = (ctypes.CDLL(str(out)), seconds, log)
     _LOADED[str(out)] = entry
     return entry
+
+
+def bind(source: str, symbol: str, argtypes: Sequence) -> Any:
+    """The C entry point ``symbol`` of ``csrc/<source>`` (returning an
+    int), built and bound on first use and reused afterwards, so a launch
+    hashes no source."""
+    fn = _BOUND.get((source, symbol))
+    if fn is None:
+        lib, _, _ = load(source)
+        fn = getattr(lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _BOUND[(source, symbol)] = fn
+    return fn

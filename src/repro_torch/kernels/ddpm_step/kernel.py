@@ -22,27 +22,12 @@ SOURCE = "ddpm_step.cu"
 COUNTS: Dict[str, int] = {"ddpm_step": 0, "ddpm_step_batched": 0}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SLABS = 65535          # grid.y
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
 
 
 def reset_counts() -> None:
     for name in COUNTS:
         COUNTS[name] = 0
-
-
-_launcher = []               # the bound C entry point, once loaded
-
-
-def _launch_fn():
-    """The library's ``ddpm_step_launch``, built and bound on first use
-    and reused afterwards (no source hashing on the launch path)."""
-    if not _launcher:
-        lib, _, _ = build.load(SOURCE)
-        fn = lib.ddpm_step_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _launcher.append(fn)
-    return _launcher[0]
 
 
 def launch(x_t: torch.Tensor, eps_pred: torch.Tensor, noise: torch.Tensor,
@@ -77,7 +62,7 @@ def launch(x_t: torch.Tensor, eps_pred: torch.Tensor, noise: torch.Tensor,
     per = x_t.numel() // K
     if per == 0:
         return out
-    rc = _launch_fn()(
+    rc = build.bind(SOURCE, "ddpm_step_launch", _ARGTYPES)(
         x_t.data_ptr(), eps_pred.data_ptr(), noise.data_ptr(),
         coef.data_ptr(), out.data_ptr(), K, per, _DTYPE_CODES[x_t.dtype],
         torch.cuda.current_stream(dev).cuda_stream)

@@ -1,12 +1,25 @@
-"""Shared building blocks: the sinusoidal timestep embedding and the
-dense-weight initialiser (threefry-keyed, equal to the JAX package's for
-the same key)."""
+"""Shared building blocks: the dense-weight initialiser (threefry-keyed,
+equal to the JAX package's for the same key), the sinusoidal timestep
+embedding, RMSNorm and the two MLPs.
+
+Parameters live in ``nn.Module``s whose attribute names are the JAX
+package's parameter keys (``scale``, ``w_gate``, ``w_up`` …), so
+bridge.py maps a JAX tree onto a module name by name.  A JAX ``(in, out)``
+dense weight is an ``nn.Linear`` without bias, which stores ``(out, in)``.
+The functions keep the JAX names and take the module where JAX takes its
+parameter dict (``rmsnorm(params, x, eps)``, ``mlp_apply(params, x,
+mlp_type)``); each ``*_init(key, …)`` builds the module on the key's
+device and draws its weights in JAX's key order.  Forward only.
+"""
 from __future__ import annotations
 
 import math
 from typing import Optional
 
 import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from torch.nn.utils import skip_init
 
 from repro_torch.core import prng
 
@@ -20,6 +33,29 @@ def dense_init(key: torch.Tensor, d_in: int, d_out: int,
     return (prng.normal(key, (d_in, d_out)) * scale).to(dtype)
 
 
+def dense(d_in: int, d_out: int, dtype, device=None) -> nn.Linear:
+    """An uninitialised bias-free ``nn.Linear`` (filled by an init or by
+    bridge.py)."""
+    return skip_init(nn.Linear, d_in, d_out, bias=False,
+                     device="cpu" if device is None else device, dtype=dtype)
+
+
+def fill(param: torch.Tensor, value: torch.Tensor) -> None:
+    """Copy ``value`` into a parameter in place (shapes must match)."""
+    if param.shape != value.shape:
+        raise ValueError(f"fill: parameter {tuple(param.shape)} vs value "
+                         f"{tuple(value.shape)}")
+    with torch.no_grad():
+        param.copy_(value)
+
+
+def fill_dense(lin: nn.Linear, key: torch.Tensor,
+               scale: Optional[float] = None) -> None:
+    """``dense_init`` into an ``nn.Linear`` (transposed to (out, in))."""
+    fill(lin.weight, dense_init(key, lin.in_features, lin.out_features,
+                                lin.weight.dtype, scale).t())
+
+
 def sinusoidal_embedding(positions: torch.Tensor, dim: int,
                          max_period: float = 10_000.0) -> torch.Tensor:
     """(...,) positions -> (..., dim) sinusoidal embedding (float32)."""
@@ -31,3 +67,100 @@ def sinusoidal_embedding(positions: torch.Tensor, dim: int,
     if dim % 2:
         emb = torch.nn.functional.pad(emb, (0, 1))
     return emb
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, dtype, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, dtype=dtype, device=device))
+
+    def forward(self, x, eps: float = 1e-5):
+        return rmsnorm(self, x, eps)
+
+
+def rmsnorm_init(d: int, dtype, device=None) -> RMSNorm:
+    return RMSNorm(d, dtype, device)
+
+
+def rmsnorm(params: RMSNorm, x: torch.Tensor, eps: float = 1e-5):
+    """JAX's two forms.  float32: x · rsqrt(mean(x²) + eps) · scale.  Any
+    other type (``_rmsnorm_lowmem``): the row statistic in float32, then
+    two products each rounded in x's type."""
+    scale = params.scale
+    if x.dtype == torch.float32:
+        var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+        return x * torch.rsqrt(var + eps) * scale
+    x32 = x.float()
+    var = (x32 * x32).sum(dim=-1, keepdim=True) / x.shape[-1]
+    inv = torch.rsqrt(var + eps)
+    return x * inv.to(x.dtype) * scale.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+class SwiGLU(nn.Module):
+    def __init__(self, d: int, f: int, dtype, device=None):
+        super().__init__()
+        self.w_gate = dense(d, f, dtype, device)
+        self.w_up = dense(d, f, dtype, device)
+        self.w_down = dense(f, d, dtype, device)
+
+    def forward(self, x):
+        return swiglu(self, x)
+
+
+class GeluMLP(nn.Module):
+    def __init__(self, d: int, f: int, dtype, device=None):
+        super().__init__()
+        self.w1 = dense(d, f, dtype, device)
+        self.w2 = dense(f, d, dtype, device)
+
+    def forward(self, x):
+        return gelu_mlp(self, x)
+
+
+def swiglu(params: SwiGLU, x):
+    return params.w_down(F.silu(params.w_gate(x)) * params.w_up(x))
+
+
+def gelu_mlp(params: GeluMLP, x):
+    # jax.nn.gelu defaults to the tanh approximation
+    return params.w2(F.gelu(params.w1(x), approximate="tanh"))
+
+
+def make_mlp(d: int, f: int, dtype, mlp_type: str, device=None) -> nn.Module:
+    """The uninitialised MLP of ``mlp_type`` (swiglu | gelu)."""
+    cls = SwiGLU if mlp_type == "swiglu" else GeluMLP
+    return cls(d, f, dtype, device)
+
+
+def mlp_init(key: torch.Tensor, d: int, f: int, dtype,
+             mlp_type: str) -> nn.Module:
+    m = make_mlp(d, f, dtype, mlp_type, key.device)
+    fill_mlp(m, key)
+    return m
+
+
+def fill_mlp(m: nn.Module, key: torch.Tensor) -> None:
+    """Draw an MLP's weights as JAX's ``mlp_init`` does for ``key``."""
+    if isinstance(m, SwiGLU):
+        k1, k2, k3 = prng.split(key, 3)
+        fill_dense(m.w_gate, k1)
+        fill_dense(m.w_up, k2)
+        fill_dense(m.w_down, k3)
+    else:
+        k1, k2 = prng.split(key)
+        fill_dense(m.w1, k1)
+        fill_dense(m.w2, k2)
+
+
+def mlp_apply(params: nn.Module, x, mlp_type: str):
+    return swiglu(params, x) if mlp_type == "swiglu" else gelu_mlp(params, x)

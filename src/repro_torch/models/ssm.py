@@ -1,0 +1,110 @@
+"""Mamba2 (SSD, state-space duality) mixer layer [arXiv:2405.21060].
+
+The port of the JAX package's ``models/ssm.py`` for the full-sequence
+path: ``mamba_init``, ``_causal_conv`` and ``mamba_forward``.  The chunked
+scan goes through ``kernels.ssd_scan.ops`` (the CUDA kernel on the card;
+on the CPU its plain version, the port of ``ssd_chunked``).  The decode
+step (``ssd_decode_step``, ``mamba_decode``) comes with the LM slice.
+
+Shapes per layer: d_inner = expand · d_model, P = ssm_head_dim,
+H = d_inner / P, N = ssm_state; x, B and C go through the depthwise conv.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import prng
+from repro_torch.core.schedules import linspace_f32
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.models.layers import (dense, fill, fill_dense, rmsnorm,
+                                       rmsnorm_init)
+
+
+class Mamba(nn.Module):
+    """One Mamba2 mixer; attribute names are the JAX parameter keys.  The
+    input projections stay split (z / x / BC / dt) as in JAX."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device=None):
+        super().__init__()
+        d, di, n, h = (cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state,
+                       cfg.ssm_n_heads)
+        K = cfg.ssm_conv_kernel
+        f32 = torch.float32
+        empty = lambda *shape, dt=dtype: nn.Parameter(
+            torch.empty(shape, dtype=dt, device=device))
+        self.norm = rmsnorm_init(d, dtype, device)
+        self.z_proj = dense(d, di, dtype, device)
+        self.x_proj = dense(d, di, dtype, device)
+        self.bc_proj = dense(d, 2 * n, dtype, device)
+        self.dt_proj = dense(d, h, dtype, device)
+        self.conv_x_w = empty(K, di)              # JAX (K, C) layout
+        self.conv_x_b = empty(di)
+        self.conv_bc_w = empty(K, 2 * n)
+        self.conv_bc_b = empty(2 * n)
+        self.A_log = empty(h, dt=f32)
+        self.D = empty(h, dt=f32)
+        self.dt_bias = empty(h, dt=f32)
+        self.out_norm = rmsnorm_init(di, dtype, device)
+        self.out_proj = dense(di, d, dtype, device)
+
+
+def fill_mamba(m: Mamba, key: torch.Tensor, cfg: ArchConfig) -> None:
+    """Draw a mixer's weights as JAX's ``mamba_init`` does for ``key``."""
+    h, K = cfg.ssm_n_heads, cfg.ssm_conv_kernel
+    dev = key.device
+    k1, k2, k3, k4, k5, k6 = prng.split(key, 6)
+    conv_scale = 1.0 / math.sqrt(K)
+    fill_dense(m.z_proj, k1)
+    fill_dense(m.x_proj, k2)
+    fill_dense(m.bc_proj, k3)
+    fill_dense(m.dt_proj, k4)
+    fill(m.conv_x_w, prng.normal(k5, tuple(m.conv_x_w.shape)) * conv_scale)
+    fill(m.conv_bc_w, prng.normal(k6, tuple(m.conv_bc_w.shape)) * conv_scale)
+    fill(m.conv_x_b, torch.zeros_like(m.conv_x_b))
+    fill(m.conv_bc_b, torch.zeros_like(m.conv_bc_b))
+    fill(m.A_log, torch.log(torch.from_numpy(linspace_f32(1.0, 16.0, h))
+                            ).to(dev))
+    fill(m.D, torch.ones_like(m.D))
+    fill(m.dt_bias, torch.full((h,), math.log(math.expm1(0.01)),
+                               dtype=torch.float32, device=dev))
+    fill_dense(m.out_proj, prng.fold_in(k1, 7))
+
+
+def mamba_init(key: torch.Tensor, cfg: ArchConfig, dtype) -> Mamba:
+    m = Mamba(cfg, dtype, key.device)
+    fill_mamba(m, key, cfg)
+    return m
+
+
+def _causal_conv(xBC, w, b):
+    """Depthwise causal conv then SiLU.  xBC: (B, S, C); w: (K, C)."""
+    K, C = w.shape
+    lhs = F.pad(xBC.transpose(1, 2), (K - 1, 0))          # (B, C, S+K-1)
+    out = F.conv1d(lhs, w.t().unsqueeze(1), groups=C)     # (B, C, S)
+    return F.silu(out.transpose(1, 2) + b)
+
+
+def mamba_forward(params: Mamba, x, cfg: ArchConfig):
+    """Full-sequence mixer with its residual.  x: (B, S, D)."""
+    B_, S, _ = x.shape
+    di, n, h, p = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_n_heads,
+                   cfg.ssm_head_dim)
+    xn = rmsnorm(params.norm, x, cfg.norm_eps)
+    z = params.z_proj(xn)
+    xc = _causal_conv(params.x_proj(xn), params.conv_x_w, params.conv_x_b)
+    bc = _causal_conv(params.bc_proj(xn), params.conv_bc_w,
+                      params.conv_bc_b)
+    xs = xc.reshape(B_, S, h, p)
+    Bm, Cm = bc[..., :n], bc[..., n:]
+    dt = F.softplus(params.dt_proj(xn).float() + params.dt_bias)
+    A = -torch.exp(params.A_log)
+    y, _ = ssd_ops.ssd_scan(xs, dt, A, Bm, Cm, min(cfg.ssm_chunk, S))
+    y = y + xs * params.D[None, None, :, None].to(y.dtype)
+    y = y.reshape(B_, S, di)
+    y = rmsnorm(params.out_norm, y * F.silu(z), cfg.norm_eps)
+    return x + params.out_proj(y)
