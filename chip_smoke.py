@@ -38,13 +38,32 @@ package).  Phases, each of which fails the run on any error:
    batch 4, max_wave 4, depth policy, cache on), counters read just
    after: 6 flash and 38 SSD launches per forward.  The pass's outputs
    must equal ``sample_plan_reference`` bitwise on the card;
-9. a ``kernels`` JSON line, the card line again, and the result line.
+9. the grouped matmul against its plain version on the card at the JAX
+   package's test shapes (tests/test_kernels.py sweep), float32 and
+   bfloat16, with contiguous tokens and tokens broadcast to every expert
+   (expert stride 0);
+10. the MoE path: the Zamba2 models are freed, then server and three
+   client DiTs with DBRX-132B blocks at full width (configs/dbrx_132b.py:
+   d_model 6144, 48 query / 8 KV heads of 128, 16 experts of FFN width
+   10,752, top-4, bf16) cut to 2 blocks (MOE_LAYERS), on the same 64
+   tokens, threefry-initialised on the card.  Flash attention at head dim
+   128 and the three grouped-matmul launches of the first block are held
+   against their plain versions on the inputs the first forward feeds
+   them and timed there, beside ``torch.bmm``; then, with every launch
+   counter zeroed just before, one per-request Alg.-2 sample (T=1000, cut
+   250) and one ``ServeRuntime`` pass (T=120, cuts 15/30/60), counters
+   read just after: 6 grouped-matmul and 2 flash launches per forward.
+   The pass's outputs must equal ``sample_plan_reference`` bitwise;
+11. a ``kernels`` JSON line, the card line again, and the result line.
 
 Exits nonzero, printing no result line, without a CUDA device or outside
 a checkout.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -80,6 +99,21 @@ SSD_SWEEP = [(2, 64, 4, 16, 8, 16), (1, 48, 2, 8, 4, 16),
 DIT_SAMPLE_T, DIT_SAMPLE_CUT = 1000, 250
 DIT_T = 120                     # the serve pass's T
 DIT_CUTS = [15, 30, 60]         # its three clients' cuts (T/8, T/4, T/2)
+GMM_SWEEP = [(4, 32, 64, 48), (2, 100, 50, 70), (8, 16, 16, 16),
+             (1, 7, 9, 11)]     # test_grouped_matmul_sweep (E, C, D, F)
+TOL_GMM = dict(atol=1e-4, rtol=1e-3)      # that test's fp32 tolerance
+# the MoE path: DBRX-132B at its published widths, 40 blocks cut to 2 so
+# that four models (server + 3 clients, 13.19 GB each in bf16) fit the
+# card's 80 GB; three blocks each would take 78.8 GB
+MOE_ARCH, MOE_LAYERS = "dbrx-132b", 2
+REPLACES = {"ddpm_step": "src/repro/kernels/ddpm_step/kernel.py:43",
+            "ddpm_step_batched": "src/repro/kernels/ddpm_step/kernel.py:85",
+            "flash_attention": "src/repro/kernels/flash_attention/kernel.py:76",
+            "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:69",
+            "grouped_matmul": "src/repro/kernels/grouped_matmul/kernel.py:39"}
+SOURCES = {"ddpm_step": "ddpm_step.cu", "ddpm_step_batched": "ddpm_step.cu",
+           "flash_attention": "flash_attention.cu",
+           "ssd_scan": "ssd_scan.cu", "grouped_matmul": "grouped_matmul.cu"}
 
 
 def log(*a):
@@ -175,6 +209,40 @@ def ssd_bound(x, Bm, chunk: int):
         b * h * p * n * 4
     flops = b * h * tiles * ((n + p) * q * (q + 1) + 4 * q * p * n)
     return _bound(nbytes, flops, _rate(x.dtype))
+
+
+def gmm_work(E: int, C: int, D: int, F: int, itemsize: int,
+             shared_tokens: bool):
+    """(bytes, flops) of a grouped matmul (E, C, D) @ (E, D, F): the
+    tokens read once (one (C, D) set when they are broadcast to every
+    expert), the weights read once, the output written once; 2·E·C·D·F
+    flops."""
+    tokens = (1 if shared_tokens else E) * C * D
+    return (tokens + E * D * F + E * C * F) * itemsize, 2 * E * C * D * F
+
+
+def gmm_bound(E: int, C: int, D: int, F: int, itemsize: int,
+              shared_tokens: bool):
+    """(least time in ms, what binds it) of a grouped matmul on this
+    card; bf16 (itemsize 2) at the tensor rate, float32 at the CUDA-core
+    rate."""
+    return _bound(*gmm_work(E, C, D, F, itemsize, shared_tokens),
+                  BF16_FLOPS_PER_S if itemsize == 2 else FP32_FLOPS_PER_S)
+
+
+def kernels_line(records, launches):
+    """The ``kernels`` JSON object: one entry per kernel with its route,
+    source, the TPU kernel it replaces, its main-path launches and the
+    numbers measured in this run."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return {"kernels": [
+        dict(name=name, route="cuda",
+             source=f"src/repro_torch/csrc/{SOURCES[name]}",
+             replaces=REPLACES[name], launches=launches[name],
+             **{k: records[name].get(k) for k in keys})
+        for name in ("ddpm_step_batched", "ddpm_step", "flash_attention",
+                     "ssd_scan", "grouped_matmul")]}
 
 
 def phase_kernels():
@@ -546,22 +614,189 @@ def phase_flash_ssd():
             f"max_abs_err {max(errs):.3g} within {tol}")
 
 
-def phase_dit():
-    """The DiT path at full width.  Returns (kernel records at the DiT's
-    shapes, launches of the path's run)."""
+@contextlib.contextmanager
+def capture_calls(targets, limit: int = 1, clone: bool = True):
+    """While active, each op of ``targets`` ({name: (module, attribute)})
+    keeps the (args, kwargs, output) of its first ``limit`` calls in the
+    yielded {name: [...]}; tensor arguments are cloned unless ``clone``
+    is False (a model's weights are passed as they are)."""
+    import torch
+    captured = {name: [] for name in targets}
+    orig = {name: getattr(mod, attr)
+            for name, (mod, attr) in targets.items()}
+
+    def wrap(name, fn):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            if len(captured[name]) < limit:
+                captured[name].append((
+                    [a.clone() if clone and torch.is_tensor(a) else a
+                     for a in args], dict(kw), out))
+            return out
+        return wrapped
+
+    for name, (mod, attr) in targets.items():
+        setattr(mod, attr, wrap(name, orig[name]))
+    try:
+        yield captured
+    finally:
+        for name, (mod, attr) in targets.items():
+            setattr(mod, attr, orig[name])
+
+
+def init_dits(tag, arch, dcfg, key):
+    """Server and client DiTs drawn on the card from ``split(key, 4)``."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core.dit import init_dit
+    ks, *kc = prng.split(key, len(DIT_CUTS) + 1)
+    t0 = time.perf_counter()
+    sp = init_dit(ks, arch, dcfg, "cuda")
+    cp = [init_dit(k, arch, dcfg, "cuda") for k in kc]
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in sp.parameters())
+    log(f"{tag}/init: {len(cp) + 1} {arch.name} DiTs of {n_params} "
+        f"parameters ({arch.dtype}, {arch.n_layers} layers, "
+        f"{dcfg.n_patches} tokens) in {time.perf_counter() - t0:.2f} s; "
+        f"device memory {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    return sp, cp
+
+
+def dit_inputs(n_classes: int):
+    """One forward's (x, t, y) of batch B on the card, from numpy seed 0."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
-    from repro_torch.configs.base import get_arch
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((B,) + IMG).astype(
+        np.float32)).cuda()
+    t = torch.from_numpy(rng.uniform(1.0, DIT_T, B).astype(np.float32)).cuda()
+    y = torch.from_numpy(np.eye(n_classes, dtype=np.float32)[
+        rng.integers(0, n_classes, B)]).cuda()
+    return x, t, y
+
+
+def dit_forward_stats(tag, apply_fn, sp, xty, per_fwd, kmods) -> float:
+    """Check the launches of one forward, then log its wall time (CUDA
+    events) and its device time with the top device kernels; returns the
+    wall ms per forward."""
+    import torch
+    with torch.no_grad():
+        for kmod in kmods:
+            kmod.reset_counts()
+        apply_fn(sp, *xty)
+        one = {}
+        for kmod in kmods:
+            one.update(kmod.COUNTS)
+        if one != per_fwd:
+            raise AssertionError(f"{tag}: launches per forward {one} != "
+                                 f"{per_fwd}")
+        fwd_ms = time_ms(lambda: apply_fn(sp, *xty), iters=20, warmup=3)
+    log(f"{tag}/forward_ms (B={B}, wall per call, eager): {fwd_ms:.3f}; "
+        f"launches per forward {one}")
+    device_ms(tag, lambda: apply_fn(sp, *xty), top=10)
+    return fwd_ms
+
+
+def dit_serve_path(tag, sp, cp, apply_fn, n_classes, key, fwd_ms, per_fwd,
+                   kmods):
+    """The DiT main path: one per-request sample (T=DIT_SAMPLE_T), then
+    one serve pass (T=DIT_T, DIT_CUTS), with the launch counters of
+    ``kmods`` and the DDPM step zeroed just before and read just after;
+    then the pass against ``sample_plan_reference``, bitwise.  Returns
+    the launches."""
+    import numpy as np
+    import torch
     from repro_torch.core import prng
-    from repro_torch.core.dit import DiTConfig, init_dit, make_dit_apply
     from repro_torch.core.sample_plan import (SampleRequest, plan_requests,
                                               stable_group_seed)
     from repro_torch.core.sampler import (make_per_request_sampler,
                                           sample_plan_reference)
     from repro_torch.core.schedules import DiffusionSchedule
-    from repro_torch.device import deterministic_cuda
     from repro_torch.kernels.ddpm_step import kernel as dkernel
+    from repro_torch.serve import ServeConfig, ServeRuntime
+
+    T = DIT_T
+    sched = DiffusionSchedule.linear(T, device="cuda")
+    sample_sched = DiffusionSchedule.linear(DIT_SAMPLE_T, device="cuda")
+    eye = np.eye(n_classes, dtype=np.float32)
+    queue = [SampleRequest(client=c, t_cut=cut,
+                           y=np.broadcast_to(eye[c], (B, n_classes)).copy())
+             for c, cut in enumerate(DIT_CUTS)]
+    rt = ServeRuntime(ServeConfig(T=T, image_shape=IMG, max_wave=4,
+                                  policy="depth", cache=True),
+                      sp, cp, apply_fn, sched, key, device="cuda")
+    sampler = make_per_request_sampler(sample_sched, apply_fn, (B,) + IMG)
+    y1 = torch.from_numpy(queue[1].y).cuda()
+    steps = rt.registry.counter("scan_steps")
+    steps0 = steps.value
+    kmods = (dkernel,) + tuple(kmods)
+    torch.cuda.synchronize()
+    for kmod in kmods:                           # --- main path starts
+        kmod.reset_counts()
+    t0 = time.perf_counter()
+    single = sampler(DIT_SAMPLE_CUT)(sp, cp[1], prng.fold_in(key, 7), y1)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    outs, rep = rt.process(queue)
+    torch.cuda.synchronize()
+    launches = {}
+    for kmod in kmods:
+        launches.update(kmod.COUNTS)
+    n_steps = steps.value - steps0               # --- main path ends
+
+    if tuple(single.shape) != (B,) + IMG or not torch.isfinite(single).all():
+        raise AssertionError(f"{tag}: per-request sample not finite")
+    for o in outs:
+        if tuple(o.shape) != (B,) + IMG or not torch.isfinite(o).all():
+            raise AssertionError(f"{tag} pass: bad output {tuple(o.shape)}")
+    calls = rep["server_calls_physical"] + rep["client_calls_physical"]
+    forwards = DIT_SAMPLE_T + calls
+    log(f"{tag}/per_request_sample: T={DIT_SAMPLE_T} cut {DIT_SAMPLE_CUT} "
+        f"batch {B} wall_s {single_s:.3f} ({DIT_SAMPLE_T} forwards)")
+    log(f"{tag}/pass: wall_s {rep['wall_s']:.3f} req_per_s "
+        f"{rep['req_per_s']:.4f} samples_per_s {rep['samples_per_s']:.4f} "
+        f"waves {rep['waves']} server_calls_physical "
+        f"{rep['server_calls_physical']} client_calls_physical "
+        f"{rep['client_calls_physical']} scan steps {n_steps}; model calls "
+        f"x forward wall {calls * fwd_ms / 1e3:.2f} s")
+    log(f"{tag}/launches: {launches} for {forwards} forwards, {n_steps} "
+        f"batched and {DIT_SAMPLE_T} per-request steps")
+    for name, n in per_fwd.items():
+        if launches[name] != n * forwards:
+            raise AssertionError(f"{tag}: {name} launches {launches[name]} "
+                                 f"!= {n} x {forwards} forwards")
+    if launches["ddpm_step"] != DIT_SAMPLE_T or \
+            launches["ddpm_step_batched"] != n_steps:
+        raise AssertionError(f"{tag}: ddpm launches {launches} != steps "
+                             f"{DIT_SAMPLE_T} / {n_steps}")
+
+    t0 = time.perf_counter()
+    for rid, req in enumerate(queue):       # a fresh runtime: rid = order
+        plan = plan_requests([req], T, adjusted=rt.config.adjusted,
+                             n_clients=len(cp),
+                             server_stride=rt.config.server_stride,
+                             group_seed_fn=stable_group_seed,
+                             request_seeds=[rid], device="cuda")
+        ref_out, _ = sample_plan_reference(sp, cp, key, plan, sched,
+                                           apply_fn, IMG)
+        if not torch.equal(ref_out[0], outs[rid]):
+            diff = (ref_out[0] - outs[rid]).abs().max().item()
+            raise AssertionError(f"{tag} pass request {rid} != "
+                                 f"sample_plan_reference (max abs {diff})")
+    log(f"{tag}/pass_vs_reference: bitwise equal, {len(queue)} requests "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
+def phase_dit():
+    """The DiT path at full width.  Returns (kernel records at the DiT's
+    shapes, launches of the path's run)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import prng
+    from repro_torch.core.dit import DiTConfig, make_dit_apply
+    from repro_torch.device import deterministic_cuda
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -569,7 +804,6 @@ def phase_dit():
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
     from repro_torch.models.hybrid import _grouping
-    from repro_torch.serve import ServeConfig, ServeRuntime
 
     deterministic_cuda()
     arch = get_arch(DIT_ARCH)
@@ -579,50 +813,20 @@ def phase_dit():
     per_fwd = {"flash_attention": _grouping(arch)[1],
                "ssd_scan": arch.n_layers}
     key = prng.PRNGKey(0, device="cuda")
-    ks, *kc = prng.split(key, len(DIT_CUTS) + 1)
-    t0 = time.perf_counter()
-    sp = init_dit(ks, arch, dcfg, "cuda")
-    cp = [init_dit(k, arch, dcfg, "cuda") for k in kc]
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in sp.parameters())
-    log(f"dit/init: {len(cp) + 1} {arch.name} DiTs of {n_params} parameters "
-        f"({arch.dtype}, {dcfg.n_patches} tokens) in "
-        f"{time.perf_counter() - t0:.2f} s; device memory "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
-
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.standard_normal((B,) + IMG).astype(
-        np.float32)).cuda()
-    t = torch.from_numpy(rng.uniform(1.0, DIT_T, B).astype(np.float32)).cuda()
-    y = torch.from_numpy(np.eye(dcfg.n_classes, dtype=np.float32)[
-        rng.integers(0, dcfg.n_classes, B)]).cuda()
+    sp, cp = init_dits("dit", arch, dcfg, key)
+    xty = dit_inputs(dcfg.n_classes)
 
     # the inputs the first forward feeds each kernel
-    captured = {}
-
-    def capture(name, fn):
-        def wrapped(*args, **kw):
-            out = fn(*args, **kw)
-            if name not in captured:
-                captured[name] = ([a.clone() if torch.is_tensor(a) else a
-                                   for a in args], dict(kw), out)
-            return out
-        return wrapped
-
-    orig = (fops.flash_attention, sops.ssd_scan)
-    fops.flash_attention = capture("flash_attention", orig[0])
-    sops.ssd_scan = capture("ssd_scan", orig[1])
-    try:
-        with torch.no_grad():
-            eps = apply_fn(sp, x, t, y)
+    with capture_calls({"flash_attention": (fops, "flash_attention"),
+                        "ssd_scan": (sops, "ssd_scan")}) as captured, \
+            torch.no_grad():
+        eps = apply_fn(sp, *xty)
         torch.cuda.synchronize()
-    finally:
-        fops.flash_attention, sops.ssd_scan = orig
-    if eps.shape != x.shape or not torch.isfinite(eps).all():
+    if eps.shape != xty[0].shape or not torch.isfinite(eps).all():
         raise AssertionError(f"dit: bad forward {tuple(eps.shape)}")
 
     records = {}
-    (q, k, v), kw, out = captured["flash_attention"]
+    (q, k, v), kw, out = captured["flash_attention"][0]
     if kw != {"causal": False, "window": 0}:
         raise AssertionError(f"dit: shared block called attention with {kw}")
     ref = attention_ref(q, k, v, **kw)
@@ -642,7 +846,7 @@ def phase_dit():
         f"{plain * 1e3:.2f} us sdpa {lib * 1e3:.2f} us bound "
         f"{bnd * 1e3:.3f} us ({by})")
 
-    (xs, dt, A, Bm, Cm, chunk), _, (yk, fk) = captured["ssd_scan"]
+    (xs, dt, A, Bm, Cm, chunk), _, (yk, fk) = captured["ssd_scan"][0]
     yr, fr = ssd_chunked(xs, dt, A, Bm, Cm, chunk)
     errs = []
     for name, a, r in (("y", yk, yr), ("state", fk, fr)):
@@ -667,89 +871,159 @@ def phase_dit():
         f"{plain * 1e3:.2f} us bound {bnd * 1e3:.3f} us ({by}); "
         "library_ms: null (no PyTorch call computes the SSD scan)")
 
-    with torch.no_grad():
-        fkernel.reset_counts()
-        skernel.reset_counts()
-        apply_fn(sp, x, t, y)
-        one = {**fkernel.COUNTS, **skernel.COUNTS}
-        if one != per_fwd:
-            raise AssertionError(f"dit: launches per forward {one} != "
-                                 f"{per_fwd}")
-        fwd_ms = time_ms(lambda: apply_fn(sp, x, t, y), iters=20, warmup=3)
-    log(f"dit/forward_ms (B={B}, wall per call, eager): {fwd_ms:.3f}; "
-        f"launches per forward {one}")
-    device_ms("dit", lambda: apply_fn(sp, x, t, y), top=10)
-
-    # --- the main path: one per-request sample, then one serve pass
-    T = DIT_T
-    sched = DiffusionSchedule.linear(T, device="cuda")
-    sample_sched = DiffusionSchedule.linear(DIT_SAMPLE_T, device="cuda")
-    eye = np.eye(dcfg.n_classes, dtype=np.float32)
-    queue = [SampleRequest(client=c, t_cut=cut,
-                           y=np.broadcast_to(eye[c], (B, dcfg.n_classes))
-                           .copy())
-             for c, cut in enumerate(DIT_CUTS)]
-    rt = ServeRuntime(ServeConfig(T=T, image_shape=IMG, max_wave=4,
-                                  policy="depth", cache=True),
-                      sp, cp, apply_fn, sched, key, device="cuda")
-    sampler = make_per_request_sampler(sample_sched, apply_fn, (B,) + IMG)
-    y1 = torch.from_numpy(queue[1].y).cuda()
-    steps = rt.registry.counter("scan_steps")
-    steps0 = steps.value
-    torch.cuda.synchronize()
-    for kmod in (dkernel, fkernel, skernel):     # --- main path starts
-        kmod.reset_counts()
-    t0 = time.perf_counter()
-    single = sampler(DIT_SAMPLE_CUT)(sp, cp[1], prng.fold_in(key, 7), y1)
-    torch.cuda.synchronize()
-    single_s = time.perf_counter() - t0
-    outs, rep = rt.process(queue)
-    torch.cuda.synchronize()
-    launches = {**dkernel.COUNTS, **fkernel.COUNTS, **skernel.COUNTS}
-    n_steps = steps.value - steps0               # --- main path ends
-
-    if tuple(single.shape) != (B,) + IMG or not torch.isfinite(single).all():
-        raise AssertionError("dit: per-request sample not finite")
-    for o in outs:
-        if tuple(o.shape) != (B,) + IMG or not torch.isfinite(o).all():
-            raise AssertionError(f"dit pass: bad output {tuple(o.shape)}")
-    calls = rep["server_calls_physical"] + rep["client_calls_physical"]
-    forwards = DIT_SAMPLE_T + calls
-    log(f"dit/per_request_sample: T={DIT_SAMPLE_T} cut {DIT_SAMPLE_CUT} "
-        f"batch {B} wall_s {single_s:.3f} ({DIT_SAMPLE_T} forwards)")
-    log(f"dit/pass: wall_s {rep['wall_s']:.3f} req_per_s "
-        f"{rep['req_per_s']:.4f} samples_per_s {rep['samples_per_s']:.4f} "
-        f"waves {rep['waves']} server_calls_physical "
-        f"{rep['server_calls_physical']} client_calls_physical "
-        f"{rep['client_calls_physical']} scan steps {n_steps}; model calls "
-        f"x forward wall {calls * fwd_ms / 1e3:.2f} s")
-    log(f"dit/launches: {launches} for {forwards} forwards, {n_steps} "
-        f"batched and {DIT_SAMPLE_T} per-request steps")
-    for name, n in per_fwd.items():
-        if launches[name] != n * forwards:
-            raise AssertionError(f"dit: {name} launches {launches[name]} != "
-                                 f"{n} x {forwards} forwards")
-    if launches["ddpm_step"] != DIT_SAMPLE_T or \
-            launches["ddpm_step_batched"] != n_steps:
-        raise AssertionError(f"dit: ddpm launches {launches} != steps "
-                             f"{DIT_SAMPLE_T} / {n_steps}")
-
-    t0 = time.perf_counter()
-    for rid, req in enumerate(queue):       # a fresh runtime: rid = order
-        plan = plan_requests([req], T, adjusted=rt.config.adjusted,
-                             n_clients=len(cp),
-                             server_stride=rt.config.server_stride,
-                             group_seed_fn=stable_group_seed,
-                             request_seeds=[rid], device="cuda")
-        ref_out, _ = sample_plan_reference(sp, cp, key, plan, sched,
-                                           apply_fn, IMG)
-        if not torch.equal(ref_out[0], outs[rid]):
-            diff = (ref_out[0] - outs[rid]).abs().max().item()
-            raise AssertionError(f"dit pass request {rid} != "
-                                 f"sample_plan_reference (max abs {diff})")
-    log(f"dit/pass_vs_reference: bitwise equal, {len(queue)} requests "
-        f"({time.perf_counter() - t0:.1f} s)")
+    fwd_ms = dit_forward_stats("dit", apply_fn, sp, xty, per_fwd,
+                               (fkernel, skernel))
+    launches = dit_serve_path("dit", sp, cp, apply_fn, dcfg.n_classes, key,
+                              fwd_ms, per_fwd, (fkernel, skernel))
     return records, launches
+
+
+def phase_grouped_matmul():
+    """The grouped matmul against its plain version on the card at the
+    JAX package's test shapes, float32 and bfloat16, with contiguous
+    tokens and with tokens broadcast to every expert (stride 0)."""
+    import torch
+    from repro_torch.kernels.grouped_matmul import ops as gops
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        tol = TOL_GMM if dtype == torch.float32 else TOL_BF16
+        errs = []
+        for E, C, D, F in GMM_SWEEP:
+            tok = torch.randn(E, C, D, generator=g, device="cuda").to(dtype)
+            w = torch.randn(E, D, F, generator=g, device="cuda").to(dtype)
+            shared = tok[0].unsqueeze(0).expand(E, -1, -1)
+            for what, t in (("contiguous", tok), ("broadcast", shared)):
+                out = gops.grouped_matmul(t, w)
+                ref = grouped_matmul_ref(t, w)
+                err = (out.float() - ref.float()).abs().max().item()
+                if out.shape != (E, C, F) or not torch.allclose(
+                        out.float(), ref.float(), **tol):
+                    raise AssertionError(f"grouped_matmul {(E, C, D, F)} "
+                                         f"{what} {tag}: max abs {err:.3g} "
+                                         f"beyond {tol}")
+                errs.append(err)
+        log(f"kernel/grouped_matmul {tag}: {len(GMM_SWEEP)} sweep shapes x "
+            f"contiguous/broadcast tokens max_abs_err {max(errs):.3g} "
+            f"within {tol}")
+
+
+def phase_moe():
+    """The MoE path: four DBRX-132B DiTs at full width, cut to MOE_LAYERS
+    blocks.  Returns (kernel records at the MoE path's shapes, launches
+    of the path's run)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import prng
+    from repro_torch.core.dit import DiTConfig, make_dit_apply
+    from repro_torch.device import deterministic_cuda
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.grouped_matmul import kernel as gkernel
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+    from repro_torch.models import moe
+
+    gc.collect()                  # the Zamba2 models and their runtime
+    torch.cuda.empty_cache()
+    log(f"moe/free: device memory {torch.cuda.memory_allocated() / 1e9:.2f}"
+        f" GB allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB "
+        "reserved before the MoE models")
+    deterministic_cuda()
+    arch = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_LAYERS)
+    dcfg = DiTConfig(image_size=IMG[0], channels=IMG[2], patch_size=4,
+                     n_classes=8)
+    apply_fn = make_dit_apply(arch, dcfg)
+    per_fwd = {"grouped_matmul": 3 * arch.n_layers,
+               "flash_attention": arch.n_layers}
+    key = prng.PRNGKey(0, device="cuda")
+    sp, cp = init_dits("moe", arch, dcfg, key)
+    xty = dit_inputs(dcfg.n_classes)
+
+    with capture_calls({"flash_attention": (fops, "flash_attention"),
+                        "grouped_matmul": (moe.gmm_ops, "grouped_matmul")},
+                       limit=3, clone=False) as captured, torch.no_grad():
+        eps = apply_fn(sp, *xty)
+        torch.cuda.synchronize()
+    if eps.shape != xty[0].shape or not torch.isfinite(eps).all():
+        raise AssertionError(f"moe: bad forward {tuple(eps.shape)}")
+
+    # flash attention at head dim 128, the kernel's limit
+    (q, k, v), kw, out = captured["flash_attention"][0]
+    if kw != {"causal": False, "window": 0} or q.shape[-1] != 128:
+        raise AssertionError(f"moe: attention called at {tuple(q.shape)} "
+                             f"with {kw}")
+    ref = attention_ref(q, k, v, **kw)
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.allclose(out.float(), ref.float(), **TOL_BF16):
+        raise AssertionError(f"moe flash_attention: max abs {err:.3g}")
+    qc, kc_, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    ms = time_ms(lambda: fkernel.launch(qc, kc_, vc, False, 0))
+    plain = time_ms(lambda: attention_ref(q, k, v, **kw))
+    g = q.shape[1] // k.shape[1]      # SDPA gets K/V repeated per group
+    kr, vr = kc_.repeat_interleave(g, 1), vc.repeat_interleave(g, 1)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qc, kr, vr))
+    bnd, by = flash_bound(q, k, False, 0)
+    log(f"kernel/flash_attention at the DBRX block's {tuple(q.shape)} Hkv "
+        f"{k.shape[1]} {q.dtype}: max_abs_err {err:.3g} within {TOL_BF16} "
+        f"kernel {ms * 1e3:.2f} us plain {plain * 1e3:.2f} us sdpa "
+        f"{lib * 1e3:.2f} us bound {bnd * 1e3:.3f} us ({by})")
+
+    # the first block's three expert products (gate, up, down), one at a
+    # time: the plain version upcasts a 2.1 GB weight to 4.2 GB of float32
+    names = ("gate", "up", "down")
+    rows, work = [], []
+    for name, ((tok, w), _, out) in zip(names, captured["grouped_matmul"]):
+        ref = grouped_matmul_ref(tok, w)
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = torch.allclose(out.float(), ref.float(), **TOL_BF16)
+        scale = ref.float().abs().max().item()
+        del ref
+        if not ok:
+            raise AssertionError(f"moe grouped_matmul {name}: max abs "
+                                 f"{err:.3g} beyond {TOL_BF16}")
+        E, C, D = tok.shape
+        Fo = w.shape[-1]
+        dense_tok = tok.contiguous()
+        ms = time_ms(lambda: gkernel.launch(tok, w), iters=20, warmup=3)
+        plain = time_ms(lambda: grouped_matmul_ref(tok, w), iters=5,
+                        warmup=1)
+        lib = time_ms(lambda: torch.bmm(dense_tok, w), iters=20, warmup=3)
+        work.append(gmm_work(E, C, D, Fo, w.element_size(),
+                             tok.stride(0) == 0))
+        bnd, by = _bound(*work[-1], _rate(w.dtype))
+        del dense_tok
+        rows.append(dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                         library_ms=lib))
+        log(f"kernel/grouped_matmul {name} ({E}, {C}, {D}) @ ({E}, {D}, "
+            f"{Fo}) {w.dtype}, token stride {tok.stride()}: max_abs_err "
+            f"{err:.3g} (max |plain| {scale:.3g}) kernel {ms:.4f} ms plain "
+            f"{plain:.4f} ms torch.bmm {lib:.4f} ms bound {bnd:.4f} ms "
+            f"({by}); {2 * E * C * D * Fo / ms / 1e9:.1f} TFLOP/s")
+        torch.cuda.empty_cache()
+    del captured, out, tok, w
+    # per launch over a forward's mix (gate, up and down alike)
+    record = {k: sum(r[k] for r in rows) / len(rows)
+              for k in ("ms", "plain_ms", "library_ms")}
+    bnd, by = _bound(sum(b for b, _ in work) / len(work),
+                     sum(f for _, f in work) / len(work), BF16_FLOPS_PER_S)
+    record.update(max_abs_err=max(r["max_abs_err"] for r in rows),
+                  bound_ms=bnd, bound_by=by)
+    log(f"kernel/grouped_matmul per launch (mean of gate, up, down): "
+        f"kernel {record['ms']:.4f} ms bound {record['bound_ms']:.4f} ms "
+        f"torch.bmm {record['library_ms']:.4f} ms plain "
+        f"{record['plain_ms']:.4f} ms")
+
+    fwd_ms = dit_forward_stats("moe", apply_fn, sp, xty, per_fwd,
+                               (fkernel, gkernel))
+    launches = dit_serve_path("moe", sp, cp, apply_fn, dcfg.n_classes, key,
+                              fwd_ms, per_fwd, (fkernel, gkernel))
+    log(f"moe/peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        " GB")
+    return {"grouped_matmul": record}, launches
 
 
 def main() -> int:
@@ -775,27 +1049,17 @@ def main() -> int:
     launches = phase_main_path(fwd_ms)
     phase_contracts()
     dit_records, dit_launches = phase_dit()
+    phase_grouped_matmul()
+    moe_records, moe_launches = phase_moe()
     records.update(dit_records)
-    # launches of both main paths (each counted from zero just before it)
-    launches = {name: launches.get(name, 0) + n
-                for name, n in dit_launches.items()}
-    replaces = {"ddpm_step": "src/repro/kernels/ddpm_step/kernel.py:43",
-                "ddpm_step_batched":
-                    "src/repro/kernels/ddpm_step/kernel.py:85",
-                "flash_attention":
-                    "src/repro/kernels/flash_attention/kernel.py:76",
-                "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:69"}
-    sources = {"ddpm_step": "ddpm_step.cu", "ddpm_step_batched":
-               "ddpm_step.cu", "flash_attention": "flash_attention.cu",
-               "ssd_scan": "ssd_scan.cu"}
-    kernels = [dict(name=name, route="cuda",
-                    source=f"src/repro_torch/csrc/{sources[name]}",
-                    replaces=replaces[name], launches=launches[name],
-                    **{"library_ms": None, **records[name]})
-               for name in ("ddpm_step_batched", "ddpm_step",
-                            "flash_attention", "ssd_scan")]
+    records.update(moe_records)
+    # launches of the three main paths (each counted from zero just
+    # before it)
+    for path in (dit_launches, moe_launches):
+        launches = {name: launches.get(name, 0) + path.get(name, 0)
+                    for name in set(launches) | set(path)}
     log(f"total_s: {time.perf_counter() - t_start:.1f}")
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps(kernels_line(records, launches)))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

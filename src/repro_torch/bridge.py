@@ -10,8 +10,11 @@ JAX side — no JAX is imported here) and:
   become ``weight``/``bias``; ``None`` attention slots stay ``None``.
 * ``load_dit`` copies a ``core/dit.py`` parameter tree into a DiT
   module the same way, with its layer stacks unstacked; a bare array
-  (``pos``, ``A_log``, an RMSNorm ``scale``) goes into the parameter of
-  the same name, and bf16 leaves come in exactly through float32.
+  (``pos``, ``A_log``, an RMSNorm ``scale``, an MoE block's
+  ``moe.{router, w_gate, w_up, w_down}``, which the port keeps in JAX's
+  (d, E) / (E, d, F) / (E, F, d) layouts) goes into the parameter of the
+  same name without a transpose, and bf16 leaves come in exactly through
+  float32.
 * ``unstack`` splits params stacked on a leading client axis k (the
   JAX package's stacked-clients layout) into k per-client trees.
 * ``to_torch`` turns any numpy tree (e.g. a toy denoiser's ``{"a", "b"}``)

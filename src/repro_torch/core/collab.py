@@ -7,7 +7,9 @@ The port of the sampling part of the JAX package's ``core/collab.py``:
 training rounds and the vectorized engine come with the training slice).
 ``denoiser`` is ``"unet"`` (the paper's U-Net, SMALL resized) or an
 architecture id, served through the DiT bridge at the same reduced
-widths as in JAX (``configs.base.reduced``).
+widths as in JAX (``configs.base.reduced``): the MoE ids
+(``"dbrx-132b"``, ``"kimi-k2-1t-a32b"``) give reduced MoE DiTs of 4
+experts, top-2, as JAX's do.
 """
 from __future__ import annotations
 

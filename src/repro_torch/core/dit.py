@@ -5,14 +5,16 @@ patches (tokens, raster order); the timestep and label conditioning is
 added to every token; the backbone runs the token sequence; a linear head
 predicts the noise of each patch.
 
-* dense / vlm families: bidirectional attention blocks (``causal=False``;
-  the model then ignores any sliding window, as in JAX);
+* dense / moe / vlm families: bidirectional attention blocks
+  (``causal=False``; the model then ignores any sliding window, as in
+  JAX); an MoE block runs every expert on every token (JAX's one-device
+  ``moe_dense``) with its expert products through the hand-written CUDA
+  grouped-matmul kernel on the card;
 * ssm / hybrid families: Mamba2 layers, a causal scan over the raster
   order, and for the hybrid (Zamba2) one shared attention+MLP block,
   bidirectional, after every ``shared_attn_every`` layers.  The SSD scan
   and the attention run through the hand-written CUDA kernels on the card.
-* MoE blocks wait for the grouped-matmul slice (``block_init`` refuses
-  them); the audio family is refused by ``core/collab.build_denoiser``.
+* the audio family is refused by ``core/collab.build_denoiser``.
 
 ``DiT`` holds the parameters under the JAX package's keys (``patch_in``,
 ``pos``, ``time_mlp.w1`` …, ``mamba[i]``, ``shared``, ``layers[i]``), so

@@ -22,7 +22,9 @@ on the CPU and on CUDA.  The layout follows jax 0.9.0 with
   XLA's by a few ulps.
 
 Each draw is ~170 elementwise launches on a card (a later candidate for a
-fused kernel).
+fused kernel).  ``fill_normal_`` draws a large parameter window by window
+of its flat index, bit for bit the one-shot draw, so an expert tensor of
+10^9 elements needs no 10^9-element int64 temporaries.
 """
 from __future__ import annotations
 
@@ -96,36 +98,81 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return fold_in(key, torch.arange(num, device=key.device))
 
 
+def _bits_at(key: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The bits of the elements whose flat indices are ``idx`` (any
+    shape): partitionable threefry hashes each index on its own."""
+    expand = key.shape[:-1] + (1,) * idx.ndim
+    b1, b2 = threefry2x32(key[..., 0].reshape(expand),
+                          key[..., 1].reshape(expand), idx >> 32, idx & MASK)
+    return b1 ^ b2
+
+
 def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """32 random bits per element (int64 in [0, 2^32)).  A batched key
     (..., 2) gives (..., *shape), each key drawing its own ``shape``."""
     shape = tuple(int(s) for s in shape)
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=key.device)
-    hi, lo = (idx >> 32).reshape(shape), (idx & MASK).reshape(shape)
-    lead = key.shape[:-1]
-    expand = lead + (1,) * len(shape)
-    k1 = key[..., 0].reshape(expand)
-    k2 = key[..., 1].reshape(expand)
-    b1, b2 = threefry2x32(k1, k2, hi, lo)
-    return b1 ^ b2
+    idx = torch.arange(math.prod(shape), dtype=torch.int64,
+                       device=key.device)
+    return _bits_at(key, idx.reshape(shape))
+
+
+def _uniform_from_bits(bits: torch.Tensor, minval: float,
+                       maxval: float) -> torch.Tensor:
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    floats = mant.view(torch.float32) - 1.0
+    lo = np.float32(minval)
+    scale = np.float32(maxval) - lo
+    lo_t = torch.tensor(lo, dtype=torch.float32, device=bits.device)
+    out = floats * torch.tensor(scale, dtype=torch.float32,
+                                device=bits.device) + lo_t
+    return torch.maximum(lo_t, out)
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int] = (),
             minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32 on [minval, maxval)."""
-    bits = random_bits(key, shape)
-    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    floats = mant.view(torch.float32) - 1.0
-    lo = np.float32(minval)
-    scale = np.float32(maxval) - lo
-    lo_t = torch.tensor(lo, dtype=torch.float32, device=key.device)
-    out = floats * torch.tensor(scale, dtype=torch.float32,
-                                device=key.device) + lo_t
-    return torch.maximum(lo_t, out)
+    return _uniform_from_bits(random_bits(key, shape), minval, maxval)
+
+
+def _normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    u = _uniform_from_bits(bits, float(_NORMAL_LO), 1.0)
+    return torch.erfinv(u) * torch.tensor(_SQRT2, device=bits.device)
 
 
 def normal(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
     """``jax.random.normal`` in float32 (erfinv of a symmetric uniform)."""
-    u = uniform(key, shape, float(_NORMAL_LO), 1.0)
-    return torch.erfinv(u) * torch.tensor(_SQRT2, device=key.device)
+    return _normal_from_bits(random_bits(key, shape))
+
+
+FILL_CHUNK = 1 << 26     # elements per window: ~3 GB of int64 temporaries
+
+
+def fill_normal_(param: torch.Tensor, key: torch.Tensor, scale: float = 1.0,
+                 divisor: float = 1.0, chunk: int = FILL_CHUNK) -> None:
+    """Draw ``normal(key, param.shape) * scale / divisor`` into ``param``
+    in place, cast to its dtype, ``chunk`` elements at a time.  The draw
+    hashes each element's flat index, so the window [j0, j1) is that
+    slice of the one-shot draw, bit for bit, and the temporaries stay
+    O(chunk) however large ``param`` is.  Scale and divisor are applied
+    in float32 on the device as JAX's ``(normal(k, s) * c).astype(dt)``
+    and ``(normal(k, s) / c).astype(dt)`` apply them (a 0-dim device
+    tensor, so a division stays a division).  ``param`` must be
+    contiguous."""
+    if not param.is_contiguous():
+        raise ValueError("fill_normal_: parameter is not contiguous")
+    if key.shape != (2,):
+        raise ValueError(f"fill_normal_ takes one (2,) key, got "
+                         f"{tuple(key.shape)}")
+    key = key.to(param.device)
+    flat = param.detach().view(-1)
+    mul = torch.tensor(np.float32(scale), device=param.device)
+    div = torch.tensor(np.float32(divisor), device=param.device)
+    for j0 in range(0, flat.numel(), chunk):
+        j1 = min(j0 + chunk, flat.numel())
+        idx = torch.arange(j0, j1, dtype=torch.int64, device=param.device)
+        z = _normal_from_bits(_bits_at(key, idx))
+        if scale != 1.0:
+            z = z * mul
+        if divisor != 1.0:
+            z = z / div
+        flat[j0:j1].copy_(z)

@@ -1,11 +1,14 @@
-"""One pre-norm transformer block (attention + MLP) and the stack of them.
+"""One pre-norm transformer block (attention + MLP or MoE) and the stack
+of them.
 
 The port of the JAX package's ``models/transformer.py`` for the DiT path:
 ``block_init``, ``block_apply``, ``stacked_init`` and ``_scan_blocks``
 (a Python loop where JAX scans).  JAX's ``Runtime`` carries the mesh,
 remat, unroll and Pallas switches; this path reads none of them (one
 device, no tracing, kernels chosen by the tensors' device), so the port
-has no ``Runtime``.  MoE blocks wait for the grouped-matmul slice.
+has no ``Runtime``.  A block of an MoE architecture (``n_experts`` set)
+holds ``moe`` where the others hold ``mlp``, and runs it as JAX's
+``moe_apply`` does on one device (``models/moe.moe_dense``).
 """
 from __future__ import annotations
 
@@ -19,35 +22,33 @@ from repro_torch.core import prng
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (fill_mlp, make_mlp, mlp_apply,
                                        rmsnorm, rmsnorm_init)
-
-
-def _refuse_moe(cfg: ArchConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks (n_experts={cfg.n_experts}) are not "
-            "ported yet; they come with the grouped-matmul slice "
-            "(kernels/grouped_matmul)")
+from repro_torch.models.moe import MoE, fill_moe, moe_apply
 
 
 class Block(nn.Module):
-    """norm1 → attention → residual, norm2 → MLP → residual (JAX keys
-    norm1, attn, norm2, mlp)."""
+    """norm1 → attention → residual, norm2 → MLP or MoE → residual (JAX
+    keys norm1, attn, norm2, and mlp or moe)."""
 
     def __init__(self, cfg: ArchConfig, dtype, device=None):
         super().__init__()
-        _refuse_moe(cfg)
         self.norm1 = rmsnorm_init(cfg.d_model, dtype, device)
         self.attn = attn.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                    cfg.head_dim_, dtype, device)
         self.norm2 = rmsnorm_init(cfg.d_model, dtype, device)
-        self.mlp = make_mlp(cfg.d_model, cfg.d_ff, dtype, cfg.mlp_type,
-                            device)
+        if cfg.n_experts:
+            self.moe = MoE(cfg, dtype, device)
+        else:
+            self.mlp = make_mlp(cfg.d_model, cfg.d_ff, dtype, cfg.mlp_type,
+                                device)
 
 
 def fill_block(m: Block, key: torch.Tensor) -> None:
     ka, km = prng.split(key)
     attn.fill_attn(m.attn, ka)
-    fill_mlp(m.mlp, km)
+    if hasattr(m, "moe"):
+        fill_moe(m.moe, km)
+    else:
+        fill_mlp(m.mlp, km)
 
 
 def block_init(key: torch.Tensor, cfg: ArchConfig, dtype) -> Block:
@@ -58,8 +59,8 @@ def block_init(key: torch.Tensor, cfg: ArchConfig, dtype) -> Block:
 
 def block_apply(params: Block, x, cfg: ArchConfig, positions,
                 window: Optional[int] = None, causal: bool = True):
-    """Full-sequence block.  Returns (x, (k, v)); the JAX function's aux
-    loss is MoE-only."""
+    """Full-sequence block.  Returns (x, (k, v)); an MoE block's aux loss
+    is dropped, as ``dit_apply`` drops it in JAX."""
     w = cfg.sliding_window if window is None else window
     h = rmsnorm(params.norm1, x, cfg.norm_eps)
     a, kv = attn.self_attention(
@@ -68,8 +69,11 @@ def block_apply(params: Block, x, cfg: ArchConfig, positions,
         fraction=cfg.rope_fraction, causal=causal, window=w, return_kv=True)
     x = x + a
     h = rmsnorm(params.norm2, x, cfg.norm_eps)
-    x = x + mlp_apply(params.mlp, h, cfg.mlp_type)
-    return x, kv
+    if cfg.n_experts:
+        m, _ = moe_apply(params.moe, h, cfg)
+    else:
+        m = mlp_apply(params.mlp, h, cfg.mlp_type)
+    return x + m, kv
 
 
 def stacked_init(key: torch.Tensor, layers: Sequence[nn.Module],

@@ -1,10 +1,13 @@
-"""``chip_smoke.py``'s device-time accounting, checked on the CPU.
+"""``chip_smoke.py``'s accounting, checked on the CPU: the device time of
+a profile, the grouped matmul's bound, and the ``kernels`` line.
 
 A kineto ``key_averages()`` holds a row per CPU op and a row per device
 kernel; the CPU op's self device time repeats the time of the kernels it
 launched.  Device time is the sum over the device rows alone (the rule of
 torch's own profiler table); summing every row counted those kernels
-twice.
+twice.  The grouped matmul's bound counts its bytes (tokens read once,
+one set when broadcast to every expert) and its flops; the ``kernels``
+line lists all five kernels with every key the contract names.
 """
 import importlib.util
 from pathlib import Path
@@ -45,3 +48,51 @@ def test_device_rows_of_a_cpu_profile_are_empty():
     with profile(activities=[ProfilerActivity.CPU]) as p:
         torch.ones(4).add_(1)
     assert _chip_smoke().device_rows(p.key_averages()) == []
+
+
+def test_gmm_bound_counts_bytes_and_flops_of_the_moe_path():
+    """(16, 256, 6144) @ (16, 6144, 10752) in bf16 with tokens broadcast:
+    the weights, one token set and the output in bytes, 2·E·C·D·F flops;
+    bytes bind on the H100."""
+    cs = _chip_smoke()
+    E, C, D, F = 16, 256, 6144, 10752
+    nbytes, flops = cs.gmm_work(E, C, D, F, 2, True)
+    assert nbytes == 2 * (C * D + E * D * F + E * C * F)
+    assert flops == 2 * E * C * D * F == 541_165_879_296
+    ms, by = cs.gmm_bound(E, C, D, F, 2, True)
+    assert by == "bytes"
+    assert ms == nbytes / cs.HBM_BYTES_PER_S * 1e3
+    assert 0.65 < ms < 0.67
+    # without the broadcast every expert's tokens are read
+    unshared, _ = cs.gmm_work(E, C, D, F, 2, False)
+    assert unshared - nbytes == 2 * (E - 1) * C * D
+    # float32 at the CUDA-core rate: operations bind
+    ms32, by32 = cs.gmm_bound(E, C, D, F, 4, True)
+    assert by32 == "operations"
+    assert ms32 == flops / cs.FP32_FLOPS_PER_S * 1e3
+
+
+def test_kernels_line_lists_every_kernel_with_every_key():
+    cs = _chip_smoke()
+    names = ["ddpm_step_batched", "ddpm_step", "flash_attention",
+             "ssd_scan", "grouped_matmul"]
+    records = {n: dict(max_abs_err=0.0, ms=1.0, plain_ms=2.0, bound_ms=0.5,
+                       bound_by="bytes") for n in names}
+    records["grouped_matmul"]["library_ms"] = 0.8
+    launches = {n: i + 1 for i, n in enumerate(names)}
+    line = cs.kernels_line(records, launches)
+    assert [k["name"] for k in line["kernels"]] == names
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for k in line["kernels"]:
+        assert set(k) == keys and k["route"] == "cuda"
+        assert (ROOT / k["source"]).is_file()
+        path, line_no = k["replaces"].split(":")
+        src = (ROOT / path).read_text().splitlines()
+        assert src[int(line_no) - 1].startswith("def ")
+        assert k["launches"] == launches[k["name"]]
+    gmm = line["kernels"][-1]
+    assert gmm["source"] == "src/repro_torch/csrc/grouped_matmul.cu"
+    assert gmm["replaces"] == "src/repro/kernels/grouped_matmul/kernel.py:39"
+    assert gmm["library_ms"] == 0.8
+    assert line["kernels"][0]["library_ms"] is None

@@ -11,8 +11,9 @@ package's.
   rtol 1e-3 in float32 (other summation orders).
 * end to end: ``build_denoiser`` + ``sample_for_client`` against JAX at
   T = 20, cut 5 (SAMPLE: the draws differ only by erfinv ulps).
-* the refusals: audio (the JAX message) and MoE (the grouped-matmul
-  slice); without a card the entry points raise instead of falling back.
+* the refusal of audio (the JAX message); without a card the entry
+  points raise instead of falling back.  The MoE family is held against
+  JAX in tests/test_torch_moe.py.
 """
 import dataclasses
 import functools
@@ -34,7 +35,6 @@ from repro_torch.core import collab as tcollab
 from repro_torch.core import dit as tdit
 from repro_torch.core import prng
 from repro_torch.models import layers as tlayers
-from repro_torch.models.transformer import block_init
 
 torch.set_num_threads(1)
 
@@ -170,17 +170,6 @@ def test_build_denoiser_refuses_audio_with_the_jax_message():
         tcollab.build_denoiser(prng.PRNGKey(0), tcollab.CollabConfig(**kw),
                                device="cpu")
     assert str(out.value) == str(ref.value)
-
-
-def test_moe_blocks_are_refused_until_the_grouped_matmul_slice():
-    cfg = reduced(get_arch("dbrx-132b"))
-    with pytest.raises(NotImplementedError, match="grouped-matmul"):
-        block_init(prng.PRNGKey(0), cfg, torch.float32)
-    init_one, _ = tcollab.build_denoiser(
-        prng.PRNGKey(0), tcollab.CollabConfig(denoiser="kimi-k2-1t-a32b"),
-        device="cpu")
-    with pytest.raises(NotImplementedError, match="grouped-matmul"):
-        init_one(prng.PRNGKey(1))
 
 
 def test_init_dit_without_device_raises():
