@@ -25,8 +25,10 @@ package).  Phases, each of which fails the run on any error:
    on==off, all bitwise) and the batched engine against its per-request
    reference, bitwise;
 7. flash attention and the SSD scan against their plain versions on the
-   card at the JAX package's test shapes (tests/test_kernels.py sweeps),
-   float32 and bfloat16, with those tests' tolerances;
+   card at the JAX package's test shapes (tests/test_kernels.py sweeps)
+   and, for flash, shapes that reach the wgmma variant at head dim 128 and
+   over three K/V tiles, float32 and bfloat16, with those tests'
+   tolerances; both flash variants (wgmma, simt) must be launched;
 8. the DiT path: server and three client Zamba2-1.2B DiTs at full width
    (configs/zamba2_1p2b.py, bf16, 38 Mamba2 layers, the shared
    attention+MLP block every 6) on 32x32x3 images in 4x4 patches (64
@@ -36,12 +38,16 @@ package).  Phases, each of which fails the run on any error:
    before, one per-request Alg.-2 sample (T=1000, cut 250, batch 4) and
    one ``ServeRuntime`` pass (T=120, cuts 15/30/60, three requests of
    batch 4, max_wave 4, depth policy, cache on), counters read just
-   after: 6 flash and 38 SSD launches per forward.  The pass's outputs
-   must equal ``sample_plan_reference`` bitwise on the card;
+   after: 6 flash and 38 SSD launches per forward, every flash launch on
+   the wgmma variant.  Flash's rows of batch 1 must equal those of batch 4
+   bitwise.  The pass's outputs must equal ``sample_plan_reference``
+   bitwise on the card;
 9. the grouped matmul against its plain version on the card at the JAX
-   package's test shapes (tests/test_kernels.py sweep), float32 and
-   bfloat16, with contiguous tokens and tokens broadcast to every expert
-   (expert stride 0);
+   package's test shapes (tests/test_kernels.py sweep) and shapes that
+   reach the wgmma variant (C over one 256-row tile, ragged F), float32
+   and bfloat16, with contiguous tokens and tokens broadcast to every
+   expert (expert stride 0), and a misaligned token pointer; the wgmma,
+   wmma and simt variants must all be launched;
 10. the MoE path: the Zamba2 models are freed, then server and three
    client DiTs with DBRX-132B blocks at full width (configs/dbrx_132b.py:
    d_model 6144, 48 query / 8 KV heads of 128, 16 experts of FFN width
@@ -49,11 +55,15 @@ package).  Phases, each of which fails the run on any error:
    tokens, threefry-initialised on the card.  Flash attention at head dim
    128 and the three grouped-matmul launches of the first block are held
    against their plain versions on the inputs the first forward feeds
-   them and timed there, beside ``torch.bmm``; then, with every launch
-   counter zeroed just before, one per-request Alg.-2 sample (T=1000, cut
-   250) and one ``ServeRuntime`` pass (T=120, cuts 15/30/60), counters
-   read just after: 6 grouped-matmul and 2 flash launches per forward.
-   The pass's outputs must equal ``sample_plan_reference`` bitwise;
+   them and timed there, beside ``torch.bmm`` and SDPA, with their card
+   time from the profiler; the grouped matmul's output rows at C = 64 must
+   equal the first 64 rows at C = 256, and flash's rows of batch 1 those
+   of batch 4, bitwise.  Then, with every launch counter zeroed just
+   before, one per-request Alg.-2 sample (T=1000, cut 250) and one
+   ``ServeRuntime`` pass (T=120, cuts 15/30/60), counters read just after:
+   6 grouped-matmul and 2 flash launches per forward, all on the wgmma
+   variants.  The pass's outputs must equal ``sample_plan_reference``
+   bitwise;
 11. a ``kernels`` JSON line, the card line again, and the result line.
 
 Exits nonzero, printing no result line, without a CUDA device or outside
@@ -90,6 +100,9 @@ DIT_ARCH = "zamba2-1.2b"
 FLASH_SWEEP = [(2, 4, 2, 64, 32), (1, 4, 4, 100, 16), (2, 8, 2, 128, 64),
                (1, 2, 1, 48, 8)]          # test_flash_attention_sweep
 FLASH_WINDOWS = [8, 24, 64]               # test_flash_attention_window
+# wgmma at head dim 128 over two K/V tiles; three tiles, with a window
+FLASH_WGMMA = [((2, 6, 2, 100, 128), 0), ((1, 2, 1, 200, 64), 0),
+               ((1, 2, 1, 200, 64), 70)]
 SSD_SWEEP = [(2, 64, 4, 16, 8, 16), (1, 48, 2, 8, 4, 16),
              (2, 100, 3, 16, 8, 32), (1, 32, 1, 4, 4, 8)]  # test_ssd_scan_sweep
 # the DiT main path: one per-request sample at the paper's T, then one
@@ -101,6 +114,8 @@ DIT_T = 120                     # the serve pass's T
 DIT_CUTS = [15, 30, 60]         # its three clients' cuts (T/8, T/4, T/2)
 GMM_SWEEP = [(4, 32, 64, 48), (2, 100, 50, 70), (8, 16, 16, 16),
              (1, 7, 9, 11)]     # test_grouped_matmul_sweep (E, C, D, F)
+# the wgmma variant over two C-tiles, and with F not a multiple of 192
+GMM_WGMMA = [(2, 200, 512, 384), (2, 300, 128, 200)]
 TOL_GMM = dict(atol=1e-4, rtol=1e-3)      # that test's fp32 tolerance
 # the MoE path: DBRX-132B at its published widths, 40 blocks cut to 2 so
 # that four models (server + 3 clients, 13.19 GB each in bf16) fit the
@@ -233,16 +248,27 @@ def gmm_bound(E: int, C: int, D: int, F: int, itemsize: int,
 def kernels_line(records, launches):
     """The ``kernels`` JSON object: one entry per kernel with its route,
     source, the TPU kernel it replaces, its main-path launches and the
-    numbers measured in this run."""
+    numbers measured in this run.  A kernel with variants also carries its
+    launches per variant (``launches`` keys ``<name>/<variant>``) and its
+    card time; flash attention its numbers at head dim 128 as well."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    return {"kernels": [
-        dict(name=name, route="cuda",
-             source=f"src/repro_torch/csrc/{SOURCES[name]}",
-             replaces=REPLACES[name], launches=launches[name],
-             **{k: records[name].get(k) for k in keys})
-        for name in ("ddpm_step_batched", "ddpm_step", "flash_attention",
-                     "ssd_scan", "grouped_matmul")]}
+    extra = ("card_ms", "head_dim_128", "shapes")
+    line = []
+    for name in ("ddpm_step_batched", "ddpm_step", "flash_attention",
+                 "ssd_scan", "grouped_matmul"):
+        entry = dict(name=name, route="cuda",
+                     source=f"src/repro_torch/csrc/{SOURCES[name]}",
+                     replaces=REPLACES[name], launches=launches[name],
+                     **{k: records[name].get(k) for k in keys})
+        by_variant = {k.split("/", 1)[1]: n for k, n in launches.items()
+                      if k.startswith(name + "/")}
+        if by_variant:
+            entry["launches_by_variant"] = by_variant
+        entry.update({k: records[name][k] for k in extra
+                      if k in records[name]})
+        line.append(entry)
+    return {"kernels": line}
 
 
 def phase_kernels():
@@ -388,11 +414,13 @@ def device_rows(rows):
             not getattr(e, "is_user_annotation", False)]
 
 
-def device_ms(tag: str, fn, n: int = 5, top: int = 0) -> None:
+def device_ms(tag: str, fn, n: int = 5, top: int = 0, shares=()) -> dict:
     """Device time of one ``fn()`` from torch.profiler (kernel time summed
     over n calls, per call) and, with ``top``, its largest device kernels,
     printed for the time breakdown; 'not measured' if the profiler
-    reports no device time on this machine."""
+    reports no device time on this machine.  Returns, for each name in
+    ``shares``, the device ms per call of the kernels whose name holds it
+    (None if not measured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
@@ -402,6 +430,7 @@ def device_ms(tag: str, fn, n: int = 5, top: int = 0) -> None:
         torch.cuda.synchronize()
     rows = device_rows(p.key_averages())
     total_us = sum(e.self_device_time_total for e in rows)
+    parts = {}
     if total_us > 0:
         log(f"{tag}/device_ms per forward (profiler): "
             f"{total_us / (n * 1e3):.3f} over "
@@ -409,9 +438,16 @@ def device_ms(tag: str, fn, n: int = 5, top: int = 0) -> None:
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
             log(f"{tag}/device_top: {e.self_device_time_total / n:9.1f} us "
                 f"per forward, {e.count / n:5.0f} calls  {e.key[:70]}")
+        for name in shares:
+            part = sum(e.self_device_time_total for e in rows
+                       if name in e.key)
+            parts[name] = part / (n * 1e3) if part > 0 else None
+            log(f"{tag}/device_share of {name}: {part / (n * 1e3):.3f} ms "
+                f"per forward, {100 * part / total_us:.1f}%")
     else:
         log(f"{tag}/device_ms per forward: not measured (profiler reported "
             "no device time)")
+    return {name: parts.get(name) for name in shares}
 
 
 def phase_main_path(fwd_ms: float):
@@ -565,6 +601,7 @@ def phase_flash_ssd():
     the card at the JAX package's test shapes, float32 and bfloat16."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.ssd_scan import ops as sops
@@ -582,11 +619,13 @@ def phase_flash_ssd():
     flash_cases = [(shape, c, 0) for shape in FLASH_SWEEP
                    for c in (True, False)] + \
         [((1, 4, 1, 96, 32), c, w) for w in FLASH_WINDOWS
-         for c in (True, False)]
+         for c in (True, False)] + \
+        [(shape, c, w) for shape, w in FLASH_WGMMA for c in (True, False)]
     for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
         tol = TOL_FLASH if dtype == torch.float32 else TOL_BF16
         errs = []
+        fkernel.reset_counts()
         for (Bq, H, Hkv, S, dh), causal, window in flash_cases:
             q = rn(Bq, H, S, dh).to(dtype)
             k, v = rn(Bq, Hkv, S, dh).to(dtype), rn(Bq, Hkv, S, dh).to(dtype)
@@ -595,9 +634,16 @@ def phase_flash_ssd():
             errs.append(check(out, ref, tol, f"flash_attention "
                               f"{(Bq, H, Hkv, S, dh)} causal {causal} "
                               f"window {window} {tag}"))
+        variants = {v: fkernel.COUNTS[f"flash_attention/{v}"]
+                    for v in fkernel.VARIANTS}
         log(f"kernel/flash_attention {tag}: {len(flash_cases)} cases "
-            f"(sweep x causal, window 8/24/64 x causal) max_abs_err "
-            f"{max(errs):.3g} within {tol}")
+            f"(sweep x causal, window 8/24/64 x causal, wgmma shapes) "
+            f"max_abs_err {max(errs):.3g} within {tol}; launches per "
+            f"variant {variants}")
+        want = {"simt"} if dtype == torch.float32 else {"wgmma", "simt"}
+        if {v for v, n in variants.items() if n} != want:
+            raise AssertionError(f"flash {tag}: variants {variants}, "
+                                 f"expected launches of {sorted(want)}")
         tol = TOL_SSD if dtype == torch.float32 else TOL_BF16
         errs = []
         for b, s, h, p, n, chunk in SSD_SWEEP:
@@ -675,10 +721,12 @@ def dit_inputs(n_classes: int):
     return x, t, y
 
 
-def dit_forward_stats(tag, apply_fn, sp, xty, per_fwd, kmods) -> float:
+def dit_forward_stats(tag, apply_fn, sp, xty, per_fwd, kmods, cards=()):
     """Check the launches of one forward, then log its wall time (CUDA
-    events) and its device time with the top device kernels; returns the
-    wall ms per forward."""
+    events) and its device time with the top device kernels.  Returns the
+    wall ms per forward and, for each (counter, kernel name) of ``cards``,
+    the kernel's card ms per launch: its device time in the forward's
+    profile over its launches per forward (None if not measured)."""
     import torch
     with torch.no_grad():
         for kmod in kmods:
@@ -693,8 +741,15 @@ def dit_forward_stats(tag, apply_fn, sp, xty, per_fwd, kmods) -> float:
         fwd_ms = time_ms(lambda: apply_fn(sp, *xty), iters=20, warmup=3)
     log(f"{tag}/forward_ms (B={B}, wall per call, eager): {fwd_ms:.3f}; "
         f"launches per forward {one}")
-    device_ms(tag, lambda: apply_fn(sp, *xty), top=10)
-    return fwd_ms
+    parts = device_ms(tag, lambda: apply_fn(sp, *xty), top=10,
+                      shares=[kname for _, kname in cards])
+    card = {}
+    for counter, kname in cards:
+        ms = parts[kname]
+        card[counter] = None if ms is None else ms / per_fwd[counter]
+        log(f"{tag}/card_ms per launch of {kname} (profiler, in the "
+            f"forward): {fmt_ms(card[counter])}")
+    return fwd_ms, card
 
 
 def dit_serve_path(tag, sp, cp, apply_fn, n_classes, key, fwd_ms, per_fwd,
@@ -788,6 +843,22 @@ def dit_serve_path(tag, sp, cp, apply_fn, n_classes, key, fwd_ms, per_fwd,
     return launches
 
 
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def flash_rows_bitwise(tag, fkernel, q, k, v, out) -> None:
+    """Flash's rows of batch 1 (a launch over q[:1], k[:1], v[:1]) must
+    equal the first batch row of ``out``, computed at the full batch."""
+    import torch
+    one = fkernel.launch(q[:1], k[:1], v[:1], False, 0)
+    if not torch.equal(one, out[:1]):
+        raise AssertionError(f"{tag} flash_attention: rows of batch 1 != "
+                             f"those of batch {q.shape[0]}")
+    log(f"{tag}/flash_attention: rows of batch 1 equal those of batch "
+        f"{q.shape[0]} bitwise")
+
+
 def phase_dit():
     """The DiT path at full width.  Returns (kernel records at the DiT's
     shapes, launches of the path's run)."""
@@ -810,8 +881,9 @@ def phase_dit():
     dcfg = DiTConfig(image_size=IMG[0], channels=IMG[2], patch_size=4,
                      n_classes=8)
     apply_fn = make_dit_apply(arch, dcfg)
-    per_fwd = {"flash_attention": _grouping(arch)[1],
-               "ssd_scan": arch.n_layers}
+    n_attn = _grouping(arch)[1]
+    per_fwd = {"flash_attention": n_attn, "flash_attention/wgmma": n_attn,
+               "flash_attention/simt": 0, "ssd_scan": arch.n_layers}
     key = prng.PRNGKey(0, device="cuda")
     sp, cp = init_dits("dit", arch, dcfg, key)
     xty = dit_inputs(dcfg.n_classes)
@@ -834,6 +906,7 @@ def phase_dit():
     if not torch.allclose(out.float(), ref.float(), **TOL_BF16):
         raise AssertionError(f"dit flash_attention: max abs {err:.3g}")
     qc, kc_, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    flash_rows_bitwise("dit", fkernel, qc, kc_, vc, out)
     ms = time_ms(lambda: fkernel.launch(qc, kc_, vc, False, 0))
     plain = time_ms(lambda: attention_ref(q, k, v, **kw))
     lib = time_ms(lambda: F.scaled_dot_product_attention(qc, kc_, vc))
@@ -841,10 +914,10 @@ def phase_dit():
     records["flash_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                       bound_ms=bnd, bound_by=by,
                                       library_ms=lib)
-    log(f"kernel/flash_attention at the DiT's {tuple(q.shape)} {q.dtype}: "
-        f"max_abs_err {err:.3g} kernel {ms * 1e3:.2f} us plain "
-        f"{plain * 1e3:.2f} us sdpa {lib * 1e3:.2f} us bound "
-        f"{bnd * 1e3:.3f} us ({by})")
+    log(f"kernel/flash_attention at the DiT's {tuple(q.shape)} {q.dtype} "
+        f"({fkernel.choose_variant(qc, kc_, vc)}): max_abs_err {err:.3g} "
+        f"kernel {ms * 1e3:.2f} us plain {plain * 1e3:.2f} us sdpa "
+        f"{lib * 1e3:.2f} us bound {bnd * 1e3:.3f} us ({by})")
 
     (xs, dt, A, Bm, Cm, chunk), _, (yk, fk) = captured["ssd_scan"][0]
     yr, fr = ssd_chunked(xs, dt, A, Bm, Cm, chunk)
@@ -871,8 +944,10 @@ def phase_dit():
         f"{plain * 1e3:.2f} us bound {bnd * 1e3:.3f} us ({by}); "
         "library_ms: null (no PyTorch call computes the SSD scan)")
 
-    fwd_ms = dit_forward_stats("dit", apply_fn, sp, xty, per_fwd,
-                               (fkernel, skernel))
+    fwd_ms, card = dit_forward_stats(
+        "dit", apply_fn, sp, xty, per_fwd, (fkernel, skernel),
+        cards=[("flash_attention", "flash_wgmma_kernel")])
+    records["flash_attention"]["card_ms"] = card["flash_attention"]
     launches = dit_serve_path("dit", sp, cp, apply_fn, dcfg.n_classes, key,
                               fwd_ms, per_fwd, (fkernel, skernel))
     return records, launches
@@ -883,6 +958,7 @@ def phase_grouped_matmul():
     JAX package's test shapes, float32 and bfloat16, with contiguous
     tokens and with tokens broadcast to every expert (stride 0)."""
     import torch
+    from repro_torch.kernels.grouped_matmul import kernel as gkernel
     from repro_torch.kernels.grouped_matmul import ops as gops
     from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
 
@@ -891,11 +967,17 @@ def phase_grouped_matmul():
         tag = "fp32" if dtype == torch.float32 else "bf16"
         tol = TOL_GMM if dtype == torch.float32 else TOL_BF16
         errs = []
-        for E, C, D, F in GMM_SWEEP:
+        gkernel.reset_counts()
+        for E, C, D, F in GMM_SWEEP + GMM_WGMMA:
             tok = torch.randn(E, C, D, generator=g, device="cuda").to(dtype)
             w = torch.randn(E, D, F, generator=g, device="cuda").to(dtype)
             shared = tok[0].unsqueeze(0).expand(E, -1, -1)
-            for what, t in (("contiguous", tok), ("broadcast", shared)):
+            flat = torch.randn(E * C * D + 8, generator=g,
+                               device="cuda").to(dtype)
+            shifted = flat[1:1 + E * C * D].view(E, C, D)   # 2 or 4 bytes
+            cases = (("contiguous", tok), ("broadcast", shared),
+                     ("misaligned", shifted))
+            for what, t in cases:
                 out = gops.grouped_matmul(t, w)
                 ref = grouped_matmul_ref(t, w)
                 err = (out.float() - ref.float()).abs().max().item()
@@ -905,9 +987,17 @@ def phase_grouped_matmul():
                                          f"{what} {tag}: max abs {err:.3g} "
                                          f"beyond {tol}")
                 errs.append(err)
-        log(f"kernel/grouped_matmul {tag}: {len(GMM_SWEEP)} sweep shapes x "
-            f"contiguous/broadcast tokens max_abs_err {max(errs):.3g} "
-            f"within {tol}")
+        variants = {v: gkernel.COUNTS[f"grouped_matmul/{v}"]
+                    for v in gkernel.VARIANTS}
+        log(f"kernel/grouped_matmul {tag}: {len(GMM_SWEEP)} sweep and "
+            f"{len(GMM_WGMMA)} wgmma shapes x contiguous/broadcast/"
+            f"misaligned tokens max_abs_err {max(errs):.3g} within {tol}; "
+            f"launches per variant {variants}")
+        want = {"simt"} if dtype == torch.float32 else {"wgmma", "wmma"}
+        if {v for v, n in variants.items() if n} != want:
+            raise AssertionError(f"grouped_matmul {tag}: variants "
+                                 f"{variants}, expected launches of "
+                                 f"{sorted(want)}")
 
 
 def phase_moe():
@@ -937,8 +1027,11 @@ def phase_moe():
     dcfg = DiTConfig(image_size=IMG[0], channels=IMG[2], patch_size=4,
                      n_classes=8)
     apply_fn = make_dit_apply(arch, dcfg)
-    per_fwd = {"grouped_matmul": 3 * arch.n_layers,
-               "flash_attention": arch.n_layers}
+    n = arch.n_layers
+    per_fwd = {"grouped_matmul": 3 * n, "grouped_matmul/wgmma": 3 * n,
+               "grouped_matmul/wmma": 0, "grouped_matmul/simt": 0,
+               "flash_attention": n, "flash_attention/wgmma": n,
+               "flash_attention/simt": 0}
     key = prng.PRNGKey(0, device="cuda")
     sp, cp = init_dits("moe", arch, dcfg, key)
     xty = dit_inputs(dcfg.n_classes)
@@ -961,21 +1054,26 @@ def phase_moe():
     if not torch.allclose(out.float(), ref.float(), **TOL_BF16):
         raise AssertionError(f"moe flash_attention: max abs {err:.3g}")
     qc, kc_, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    flash_rows_bitwise("moe", fkernel, qc, kc_, vc, out)
     ms = time_ms(lambda: fkernel.launch(qc, kc_, vc, False, 0))
     plain = time_ms(lambda: attention_ref(q, k, v, **kw))
     g = q.shape[1] // k.shape[1]      # SDPA gets K/V repeated per group
     kr, vr = kc_.repeat_interleave(g, 1), vc.repeat_interleave(g, 1)
     lib = time_ms(lambda: F.scaled_dot_product_attention(qc, kr, vr))
     bnd, by = flash_bound(q, k, False, 0)
+    flash128 = dict(shape=list(q.shape), kv_heads=k.shape[1],
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                    bound_by=by, library_ms=lib)
     log(f"kernel/flash_attention at the DBRX block's {tuple(q.shape)} Hkv "
-        f"{k.shape[1]} {q.dtype}: max_abs_err {err:.3g} within {TOL_BF16} "
-        f"kernel {ms * 1e3:.2f} us plain {plain * 1e3:.2f} us sdpa "
-        f"{lib * 1e3:.2f} us bound {bnd * 1e3:.3f} us ({by})")
+        f"{k.shape[1]} {q.dtype} ({fkernel.choose_variant(qc, kc_, vc)}): "
+        f"max_abs_err {err:.3g} within {TOL_BF16} kernel {ms * 1e3:.2f} us "
+        f"plain {plain * 1e3:.2f} us sdpa {lib * 1e3:.2f} us bound "
+        f"{bnd * 1e3:.3f} us ({by})")
 
     # the first block's three expert products (gate, up, down), one at a
     # time: the plain version upcasts a 2.1 GB weight to 4.2 GB of float32
     names = ("gate", "up", "down")
-    rows, work = [], []
+    shapes, work = [], []
     for name, ((tok, w), _, out) in zip(names, captured["grouped_matmul"]):
         ref = grouped_matmul_ref(tok, w)
         err = (out.float() - ref.float()).abs().max().item()
@@ -987,6 +1085,11 @@ def phase_moe():
                                  f"{err:.3g} beyond {TOL_BF16}")
         E, C, D = tok.shape
         Fo = w.shape[-1]
+        rows = gkernel.launch(tok[:, :64], w)       # C = 64 of C = 256
+        if not torch.equal(rows, out[:, :64]):
+            raise AssertionError(f"moe grouped_matmul {name}: rows at C = 64"
+                                 " != the first 64 rows at C = 256")
+        del rows
         dense_tok = tok.contiguous()
         ms = time_ms(lambda: gkernel.launch(tok, w), iters=20, warmup=3)
         plain = time_ms(lambda: grouped_matmul_ref(tok, w), iters=5,
@@ -996,34 +1099,44 @@ def phase_moe():
                              tok.stride(0) == 0))
         bnd, by = _bound(*work[-1], _rate(w.dtype))
         del dense_tok
-        rows.append(dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                         library_ms=lib))
+        shapes.append(dict(name=name, shape=[E, C, D, Fo], max_abs_err=err,
+                           ms=ms, plain_ms=plain, library_ms=lib,
+                           bound_ms=bnd))
         log(f"kernel/grouped_matmul {name} ({E}, {C}, {D}) @ ({E}, {D}, "
-            f"{Fo}) {w.dtype}, token stride {tok.stride()}: max_abs_err "
-            f"{err:.3g} (max |plain| {scale:.3g}) kernel {ms:.4f} ms plain "
-            f"{plain:.4f} ms torch.bmm {lib:.4f} ms bound {bnd:.4f} ms "
+            f"{Fo}) {w.dtype}, token stride {tok.stride()} "
+            f"({gkernel.choose_variant(tok, w)}): max_abs_err {err:.3g} (max "
+            f"|plain| {scale:.3g}); rows at C = 64 bitwise equal; kernel "
+            f"{ms:.4f} ms plain {plain:.4f} ms "
+            f"torch.bmm {lib:.4f} ms ({ms / lib:.3f}x) bound {bnd:.4f} ms "
             f"({by}); {2 * E * C * D * Fo / ms / 1e9:.1f} TFLOP/s")
         torch.cuda.empty_cache()
     del captured, out, tok, w
     # per launch over a forward's mix (gate, up and down alike)
-    record = {k: sum(r[k] for r in rows) / len(rows)
+    record = {k: sum(r[k] for r in shapes) / len(shapes)
               for k in ("ms", "plain_ms", "library_ms")}
     bnd, by = _bound(sum(b for b, _ in work) / len(work),
                      sum(f for _, f in work) / len(work), BF16_FLOPS_PER_S)
-    record.update(max_abs_err=max(r["max_abs_err"] for r in rows),
-                  bound_ms=bnd, bound_by=by)
+    record.update(max_abs_err=max(r["max_abs_err"] for r in shapes),
+                  bound_ms=bnd, bound_by=by, shapes=shapes)
     log(f"kernel/grouped_matmul per launch (mean of gate, up, down): "
         f"kernel {record['ms']:.4f} ms bound {record['bound_ms']:.4f} ms "
-        f"torch.bmm {record['library_ms']:.4f} ms plain "
+        f"torch.bmm "
+        f"{record['library_ms']:.4f} ms "
+        f"({record['ms'] / record['library_ms']:.3f}x) plain "
         f"{record['plain_ms']:.4f} ms")
 
-    fwd_ms = dit_forward_stats("moe", apply_fn, sp, xty, per_fwd,
-                               (fkernel, gkernel))
+    fwd_ms, card = dit_forward_stats(
+        "moe", apply_fn, sp, xty, per_fwd, (fkernel, gkernel),
+        cards=[("grouped_matmul", "gmm_wgmma_kernel"),
+               ("flash_attention", "flash_wgmma_kernel")])
+    record["card_ms"] = card["grouped_matmul"]
+    flash128["card_ms"] = card["flash_attention"]
     launches = dit_serve_path("moe", sp, cp, apply_fn, dcfg.n_classes, key,
                               fwd_ms, per_fwd, (fkernel, gkernel))
     log(f"moe/peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         " GB")
-    return {"grouped_matmul": record}, launches
+    return {"grouped_matmul": record, "flash_attention@128": flash128}, \
+        launches
 
 
 def main() -> int:
@@ -1052,6 +1165,8 @@ def main() -> int:
     phase_grouped_matmul()
     moe_records, moe_launches = phase_moe()
     records.update(dit_records)
+    records["flash_attention"]["head_dim_128"] = \
+        moe_records.pop("flash_attention@128")
     records.update(moe_records)
     # launches of the three main paths (each counted from zero just
     # before it)

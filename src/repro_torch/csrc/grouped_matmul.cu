@@ -9,40 +9,78 @@
 //
 // Replaces the Pallas TPU kernel of the JAX package,
 // src/repro/kernels/grouped_matmul/kernel.py::grouped_matmul_pallas.
-// There the grid (E, C/bc, F/bf, D/bd) ran in order on one core and the
-// last axis carried an fp32 VMEM accumulator from one step to the next;
-// the operands were padded with jnp.pad to whole blocks.  Here one block
-// owns one (C-tile, F-tile, expert) and a loop inside it walks D, so the
-// accumulator lives in registers; tiles of tokens and weights are staged
-// through shared memory, and the ragged C, D and F edges are zero-filled
-// while staging and masked when storing, with no padded copies.
+// There the grid (E, C/bc, F/bf, D/bd) ran in order on one core, the last
+// axis carried an fp32 VMEM accumulator from one step to the next, and the
+// operands were padded with jnp.pad to whole blocks.  Here one tile of
+// output walks D in a loop inside one block with its accumulator in
+// registers, and the ragged C, D and F edges are zero-filled by the loads
+// (TMA's out-of-bounds fill, or cp.async's) and masked at the stores.
 //
-// bfloat16: 128 x 128 output tiles, 8 warps of 64 x 32, on the tensor
-// cores through nvcuda::wmma 16x16x16 bf16 fragments with float32
-// accumulators; K-tiles of 32 move through a 3-stage cp.async ring (16-byte
-// copies, zero-fill past an edge) when D, F and the token strides are
-// multiples of 8 and the pointers 16-byte aligned, else through plain
-// masked loads.  float32: 64 x 64 output tiles on the CUDA cores, 4 x 4
-// outputs a thread, one fmaf per product in the order of d (no TF32).
+// Three variants; kernel.py's ``choose_variant`` picks one from dtype,
+// shape, strides and alignment alone:
 //
-// Every output row's sum runs over d in one fixed order, in one block,
-// with no split of D across blocks and no atomics, so a row's bits depend
-// only on that row and the weights, whatever C is and whichever tile the
-// row falls in.  The grid puts the C-tiles fastest: the blocks that share
-// one weight tile run together, so each weight byte streams from device
-// memory about once and the second read hits L2.
+// * wgmma (bf16; D, F and the token strides multiples of 8 elements,
+//   pointers 16-byte aligned: every launch of the MoE path).  A persistent
+//   grid of one block per SM walks 256 x 192 output tiles in the order
+//   (expert, F-tile, C-tile), C fastest, so the blocks in flight read one
+//   or two experts' token slabs.  Each block is three warpgroups: one
+//   producer thread keeps TMA loads of 64-deep k-tiles in flight into a
+//   4-stage ring (a stage: tokens as one 256 x 64 box, 32 KB; weights as
+//   three 64 x 64 boxes, 24 KB; all 128-byte swizzled; 225 KB in all)
+//   completed on ``full`` mbarriers; two consumer warpgroups (setmaxnreg
+//   232, the producer's warpgroup drops to 40) each own 128 token rows and
+//   issue two wgmma.m64n192k16 per 16 of depth straight from shared
+//   memory, the weights MN-major through wgmma's transpose flag, keep one
+//   wgmma group in flight and hand each stage back on an ``empty``
+//   mbarrier.  The epilogue (fp32 -> bf16, four-byte stores masked at the C
+//   and F edges) overlaps the producer's loads of the block's next tile.
+//   Tokens map: 3-D (D, C, E) at the tokens' byte strides, or 2-D (D, C)
+//   read at the same coordinates for every expert when the expert stride is
+//   0; weights map: 3-D (F, D, E).
+// * wmma (bf16 otherwise, e.g. D or F not a multiple of 8, or a misaligned
+//   pointer): the first design, kept as it was.  128 x 128 output tiles, 8
+//   warps of 64 x 32 on nvcuda::wmma 16x16x16 fragments, K-tiles of 32
+//   through a 3-stage cp.async ring (16-byte copies) when D, F and the token
+//   strides are multiples of 8 and the pointers 16-byte aligned, else
+//   through plain masked loads.
+// * simt (float32): 64 x 64 output tiles on the CUDA cores, 4 x 4 outputs a
+//   thread, one fmaf per product in the order of d.  No TF32: float32 keeps
+//   the JAX package's fp32 tolerance.
 //
-// Bound on this card: at the MoE path's shape (E 16, C 256, D 6144,
-// F 10752, bf16, tokens broadcast) a launch moves 2.21 GB (the weights
-// 2.11 GB, the shared tokens 3 MB, the output 88 MB): 0.66 ms at
-// 3.35 TB/s, against 541 GFLOP, 0.55 ms at the bf16 tensor rate: bytes
-// bind.  mma.sync-class fragments from shared memory reach a fraction of
-// the tensor rate, so this first design is compute-bound above the byte
-// bound; wgmma with TMA loads, warp specialisation and a persistent grid
-// are the later redesign.
+// Every output row's sum runs over d in one fixed order (k-tiles in order,
+// 16 at a time inside them), in one block, with no split of D across
+// blocks or warpgroups and no atomics, and no tile or instruction shape
+// depends on C; a row's bits depend only on that row and the weights,
+// whatever C is.
+//
+// Bound on this card, at the MoE path's shapes (E 16, C 256, bf16): gate
+// and up (D 6144, F 10752, tokens broadcast) move 2.21 GB (the weights
+// 2.11 GB, one 3 MB token set, the 88 MB output), 0.66 ms at 3.35 TB/s,
+// against 541 GFLOP, 0.55 ms at 989 TFLOP/s; down (D 10752, F 6144,
+// tokens contiguous) the same flops and 2.25 GB.  Bytes bind, but only
+// just: C = 256 FLOP a weight byte is under the card's ridge of ~295, so
+// the kernel has to stream the weights at near the memory rate while the
+// tensor cores run near their peak.  Taking all of C in one tile reads
+// each weight byte from device memory once; the tokens come from L2, and
+// (256 + 192) / 192 = 2.3 times the weights' bytes cross from L2 to SMs.
+//
+// Tile width and waves on 132 SMs.  A consumer warpgroup holds 128 x 192
+// fp32 accumulators, 192 registers a thread, under the 232 of setmaxnreg
+// with no spills.  192-wide tiles make 16 x 56 = 896 tiles at gate/up:
+// 104 blocks take 7 and 28 take 6, so the blocks are busy 6.79 / 7 = 97%
+// of the launch; down makes 16 x 32 = 512 (3.88 / 4, 97%).  128-wide
+// tiles would make 1,344 (10.18 / 11, 93%) and 768 (5.82 / 6, 97%), and
+// were slower at gate/up on an H100 80GB HBM3.  Stream-K and split-K
+// would even out the waves but split D, which the row-bits rule forbids.
+// A 2-block cluster that multicasts each token tile to two F-tiles would
+// halve the tokens' L2 traffic, but was slower on that card and is not
+// used.
+
+#include "hopper.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <mma.h>
 #include <stdint.h>
 
@@ -299,21 +337,190 @@ cudaError_t launch_bf16(const void* t, const void* w, void* o, int E, int C,
   return cudaGetLastError();
 }
 
+
+// ---- bfloat16: wgmma, TMA, warp-specialised, persistent --------------------
+namespace wg {
+
+constexpr int kBM = 256;                 // token rows per tile
+constexpr int kBN = 192;                 // output columns per tile
+constexpr int kBK = 64;                  // depth per stage: one 128-byte row
+constexpr int kBoxN = 64;                // weight columns per TMA box
+constexpr int kStages = 4;
+constexpr int kConsumers = 2;            // warpgroups of 128 token rows
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kRowBytes = kBK * 2;       // 128: the swizzle row
+constexpr int kAtomBytes = 8 * kRowBytes;  // 1024: eight swizzled rows
+constexpr int kABytes = kBM * kRowBytes;   // 32 KB of tokens a stage
+constexpr int kBBytes = kBN * kRowBytes;   // 24 KB of weights a stage
+constexpr int kStageBytes = kABytes + kBBytes;
+constexpr size_t kSmem =
+    1024 + (size_t)kStages * kStageBytes + 2 * kStages * sizeof(uint64_t);
+
+// ``tiles`` counts (expert, F-tile, C-tile) with the C-tile fastest; block
+// b takes tiles b, b + gridDim.x, ...
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tok_map,
+                 const __grid_constant__ CUtensorMap w_map,
+                 __nv_bfloat16* __restrict__ out, int C, int D, int F,
+                 int tiles_m, int tiles_n, int tiles, int tok_rank) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int k_tiles = (D + kBK - 1) / kBK;
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);                  // the producer's expect_tx
+      mbar_init(&empty[s], kConsumers * 4);   // every consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wgi == kConsumers) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == kConsumers * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m = t % tiles_m, n = (t / tiles_m) % tiles_n,
+                  e = t / (tiles_m * tiles_n);
+        for (int kt = 0; kt < k_tiles; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* a = smem + stage * kStageBytes;
+          unsigned char* b = a + kABytes;
+          mbar_expect_tx(&full[stage], kStageBytes);
+          if (tok_rank == 3)
+            tma_load_3d(a, &tok_map, &full[stage], kt * kBK, m * kBM, e);
+          else
+            tma_load_2d(a, &tok_map, &full[stage], kt * kBK, m * kBM);
+#pragma unroll
+          for (int j = 0; j < kBN / kBoxN; ++j)
+            tma_load_3d(b + j * kBK * kRowBytes, &w_map, &full[stage],
+                        n * kBN + j * kBoxN, kt * kBK, e);
+          if (++stage == kStages) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 128 token rows each ----
+    setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    float acc[2][kBN / 2];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m = t % tiles_m, n = (t / tiles_m) % tiles_n,
+                e = t / (tiles_m * tiles_n);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int j = 0; j < kBN / 2; ++j) acc[i][j] = 0.f;
+        fence_regs(acc[i]);
+      }
+      int prev = 0;
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        mbar_wait(&full[stage], phase);
+        const unsigned char* a =
+            smem + stage * kStageBytes + wgi * 128 * kRowBytes;
+        const unsigned char* b = smem + stage * kStageBytes + kABytes;
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < kBK / 16; ++k) {
+          // weights: MN-major; 16 rows of depth further down, the next
+          // 64 columns one box (kBK rows) further on
+          const uint64_t db = make_desc(b + k * 16 * kRowBytes,
+                                        kBK * kRowBytes, kAtomBytes, 1);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)   // tokens: K-major, 32 bytes a k16
+            wgmma_m64n192k16_ss_t1(
+                acc[i],
+                make_desc(a + i * 64 * kRowBytes + k * 32, 0, kAtomBytes, 1),
+                db);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();                  // k-tile kt - 1 is consumed
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == kStages) { stage = 0; phase ^= 1; }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) fence_regs(acc[i]);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+
+      __nv_bfloat16* ob = out + (int64_t)e * C * F;
+      const int col0 = n * kBN + 2 * (lane % 4);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r0 = m * kBM + wgi * 128 + i * 64 + warp * 16 + lane / 4;
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j) {
+          const int col = col0 + 8 * j;   // F % 8 == 0: col + 1 < F too
+          if (col >= F) continue;
+          if (r0 < C)
+            *reinterpret_cast<uint32_t*>(ob + (int64_t)r0 * F + col) =
+                pack_bf16(acc[i][4 * j], acc[i][4 * j + 1]);
+          if (r0 + 8 < C)
+            *reinterpret_cast<uint32_t*>(ob + (int64_t)(r0 + 8) * F + col) =
+                pack_bf16(acc[i][4 * j + 2], acc[i][4 * j + 3]);
+        }
+      }
+    }
+  }
+}
+
+cudaError_t launch(const void* t, const void* w, void* o, int E, int C,
+                   int D, int F, const long long* tok_geometry,
+                   const long long* w_geometry, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gmm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  CUtensorMap tok_map, w_map;
+  if (!hopper::encode_map(&tok_map, t, tok_geometry) ||
+      !hopper::encode_map(&w_map, w, w_geometry))
+    return cudaErrorInvalidValue;
+  const int tiles_m = (C + kBM - 1) / kBM, tiles_n = (F + kBN - 1) / kBN;
+  const long long tiles = (long long)E * tiles_m * tiles_n;
+  const int sms = hopper::sm_count();
+  if (tiles > INT_MAX) return cudaErrorInvalidValue;
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  gmm_wgmma_kernel<<<grid, kThreads, kSmem, stream>>>(
+      tok_map, w_map, (__nv_bfloat16*)o, C, D, F, tiles_m, tiles_n,
+      (int)tiles, (int)tok_geometry[0]);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
 }  // namespace
 
-// dtype code: 0 = float32, 1 = bfloat16.  tokens (E, C, D) at element
+// variant: 0 = simt (float32), 1 = wmma (bfloat16), 2 = wgmma (bfloat16).  tokens (E, C, D) at element
 // strides (stride_e, stride_c, 1); weights (E, D, F) and out (E, C, F)
-// contiguous; E <= 65535 and the C- and F-tile counts <= 65535 (checked by
-// the Python wrapper).  Launches on ``stream`` and returns the
+// contiguous.  For wgmma, tok_map and w_map are the tensor maps' geometry
+// (hopper.cuh ``encode_map``), computed by kernel.py; the other variants
+// ignore them and need E <= 65535 and C- and F-tile counts <= 65535
+// (checked by the Python wrapper).  Launches on ``stream`` and returns the
 // cudaError_t of the launch (0 on success).
 extern "C" int grouped_matmul_launch(const void* tokens, const void* weights,
                                      void* out, int E, int C, int D, int F,
                                      long long stride_e, long long stride_c,
-                                     int dtype_code, void* stream) {
+                                     int variant, const long long* tok_map,
+                                     const long long* w_map, void* stream) {
   if (E < 1 || C < 1 || D < 1 || F < 1 || stride_e < 0 || stride_c < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype_code == 0) {
+  if (variant == 0) {
     const dim3 grid((unsigned)((C + kFM - 1) / kFM),
                     (unsigned)((F + kFN - 1) / kFN), (unsigned)E);
     gmm_f32_kernel<<<grid, kThreads, 0, s>>>(
@@ -321,7 +528,7 @@ extern "C" int grouped_matmul_launch(const void* tokens, const void* weights,
         stride_e, stride_c);
     return (int)cudaGetLastError();
   }
-  if (dtype_code == 1) {
+  if (variant == 1) {
     const bool vec = D % 8 == 0 && F % 8 == 0 && stride_e % 8 == 0 &&
                      stride_c % 8 == 0 && aligned16(tokens) &&
                      aligned16(weights) && aligned16(out);
@@ -329,6 +536,13 @@ extern "C" int grouped_matmul_launch(const void* tokens, const void* weights,
                                         stride_e, stride_c, s)
                : (int)launch_bf16<false>(tokens, weights, out, E, C, D, F,
                                          stride_e, stride_c, s);
+  }
+  if (variant == 2) {
+    if (D % 8 || F % 8 || !aligned16(tokens) || !aligned16(weights) ||
+        !aligned16(out) || tok_map == nullptr || w_map == nullptr)
+      return (int)cudaErrorInvalidValue;
+    return (int)wg::launch(tokens, weights, out, E, C, D, F, tok_map, w_map,
+                           s);
   }
   return (int)cudaErrorInvalidValue;
 }

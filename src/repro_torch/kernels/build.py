@@ -4,9 +4,9 @@ Route: ``nvcc`` compiles one ``.cu`` file with a plain C interface into a
 ``.so`` for ``sm_90a`` (Hopper), loaded with ``ctypes``; nothing includes
 PyTorch's headers, so a build takes seconds.  The library lands in
 ``build/repro_torch/`` at the root of the checkout (listed in
-``.gitignore``) under a name carrying the hash of the source and flags, so
-an edited source is rebuilt on its first use and an unchanged one is
-reused.  A failed compile raises with nvcc's output.
+``.gitignore``) under a name carrying the hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header is
+rebuilt on its first use and an unchanged one is reused.  A failed compile raises with nvcc's output.
 """
 from __future__ import annotations
 
@@ -45,7 +45,8 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() +
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers +
                             " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}_{digest}.so"
 

@@ -7,7 +7,8 @@ launched.  Device time is the sum over the device rows alone (the rule of
 torch's own profiler table); summing every row counted those kernels
 twice.  The grouped matmul's bound counts its bytes (tokens read once,
 one set when broadcast to every expert) and its flops; the ``kernels``
-line lists all five kernels with every key the contract names.
+line lists all five kernels with every key the contract names, and the
+two kernels with variants their launches per variant.
 """
 import importlib.util
 from pathlib import Path
@@ -73,26 +74,45 @@ def test_gmm_bound_counts_bytes_and_flops_of_the_moe_path():
 
 
 def test_kernels_line_lists_every_kernel_with_every_key():
+    """Every kernel carries the contract's keys; the two kernels with
+    variants also carry their launches per variant and their card time,
+    flash its numbers at head dim 128 and the grouped matmul its three
+    shapes."""
     cs = _chip_smoke()
     names = ["ddpm_step_batched", "ddpm_step", "flash_attention",
              "ssd_scan", "grouped_matmul"]
     records = {n: dict(max_abs_err=0.0, ms=1.0, plain_ms=2.0, bound_ms=0.5,
                        bound_by="bytes") for n in names}
-    records["grouped_matmul"]["library_ms"] = 0.8
+    records["grouped_matmul"].update(library_ms=0.8, card_ms=0.79,
+                                     shapes=[dict(name="gate", ms=0.8)])
+    records["flash_attention"].update(
+        library_ms=0.03, card_ms=0.004,
+        head_dim_128=dict(ms=0.028, library_ms=0.035, bound_ms=0.0022))
     launches = {n: i + 1 for i, n in enumerate(names)}
+    launches.update({"flash_attention/wgmma": 3, "flash_attention/simt": 0,
+                     "grouped_matmul/wgmma": 5, "grouped_matmul/wmma": 0,
+                     "grouped_matmul/simt": 0})
     line = cs.kernels_line(records, launches)
     assert [k["name"] for k in line["kernels"]] == names
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    extra = {"flash_attention": {"launches_by_variant", "card_ms",
+                                 "head_dim_128"},
+             "grouped_matmul": {"launches_by_variant", "card_ms", "shapes"}}
     for k in line["kernels"]:
-        assert set(k) == keys and k["route"] == "cuda"
+        assert set(k) == keys | extra.get(k["name"], set())
+        assert k["route"] == "cuda"
         assert (ROOT / k["source"]).is_file()
         path, line_no = k["replaces"].split(":")
         src = (ROOT / path).read_text().splitlines()
         assert src[int(line_no) - 1].startswith("def ")
         assert k["launches"] == launches[k["name"]]
-    gmm = line["kernels"][-1]
+    flash, gmm = line["kernels"][2], line["kernels"][-1]
+    assert flash["launches_by_variant"] == {"wgmma": 3, "simt": 0}
+    assert flash["head_dim_128"] == records["flash_attention"]["head_dim_128"]
+    assert flash["card_ms"] == 0.004 and flash["library_ms"] == 0.03
+    assert gmm["launches_by_variant"] == {"wgmma": 5, "wmma": 0, "simt": 0}
     assert gmm["source"] == "src/repro_torch/csrc/grouped_matmul.cu"
     assert gmm["replaces"] == "src/repro/kernels/grouped_matmul/kernel.py:39"
-    assert gmm["library_ms"] == 0.8
+    assert gmm["library_ms"] == 0.8 and gmm["card_ms"] == 0.79
     assert line["kernels"][0]["library_ms"] is None

@@ -11,8 +11,8 @@ package's.
   same weights, in float32 (TOL).  A bidirectional ``self_attention``
   drops the window, as JAX's does; the kernel and its plain version would
   apply it.
-* The CUDA kernel against the plain version on the card (``cuda`` marker;
-  skips without a device).
+* The CUDA kernels against the plain version on the card, and the wgmma variant at head dim 128 keeps a batch row's bits at any batch
+  (``cuda`` marker; skips without a device).
 """
 import jax
 import jax.numpy as jnp
@@ -163,3 +163,24 @@ def test_cuda_kernel_matches_plain_version(dtype):
         ref = attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_wgmma_variant_matches_plain_and_keeps_row_bits(causal):
+    """Head dim 128 over two K/V tiles (the wgmma variant): within
+    TOL_BF16 of the plain version, and the rows of batch 1 equal those of
+    batch 2 bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card with -m cuda)")
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).cuda()
+               for a in _qkv(2, 6, 2, 100, 128, seed=5))
+    assert kernel.choose_variant(q, k, v) == "wgmma"
+    before = kernel.COUNTS["flash_attention/wgmma"]
+    out = ops.flash_attention(q, k, v, causal=causal)
+    one = ops.flash_attention(q[:1], k[:1], v[:1], causal=causal)
+    assert kernel.COUNTS["flash_attention/wgmma"] == before + 2
+    ref = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL_BF16)
+    assert torch.equal(one, out[:1])

@@ -10,8 +10,8 @@
   ``moe_dense`` passes them) give exactly what a contiguous copy gives.
 * CPU tensors take the plain version without a launch; the kernel's
   wrapper refuses CPU tensors, other dtypes and shapes that do not fit.
-* The CUDA kernel against the plain version on the card (``cuda`` marker;
-  skips without a device).
+* The CUDA kernels against the plain version on the card, and the wgmma variant keeps a row's bits at any C
+  (``cuda`` marker; skips without a device).
 """
 import jax
 import jax.numpy as jnp
@@ -127,3 +127,27 @@ def test_cuda_kernel_matches_plain_version(dtype):
             ref = grouped_matmul_ref(tokens, w)
             torch.cuda.synchronize()
             torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("broadcast", [True, False])
+def test_cuda_wgmma_variant_matches_plain_and_keeps_row_bits(broadcast):
+    """A shape the wgmma variant takes (C over 200 of a 256-row tile, tokens
+    broadcast as moe_dense passes them, or contiguous): within TOL_BF16 of
+    the plain version, and the rows at C = 64 equal the first 64 rows at
+    C = 200 bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card with -m cuda)")
+    E, C, D, F = 2, 200, 512, 384
+    t, w = (torch.from_numpy(a).to(torch.bfloat16).cuda()
+            for a in _tw(E, C, D, F, seed=5))
+    tokens = t[0].unsqueeze(0).expand(E, -1, -1) if broadcast else t
+    assert kernel.choose_variant(tokens, w) == "wgmma"
+    before = kernel.COUNTS["grouped_matmul/wgmma"]
+    out = ops.grouped_matmul(tokens, w)
+    rows = ops.grouped_matmul(tokens[:, :64], w)
+    assert kernel.COUNTS["grouped_matmul/wgmma"] == before + 2
+    ref = grouped_matmul_ref(tokens, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL_BF16)
+    assert torch.equal(rows, out[:, :64])
