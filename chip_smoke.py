@@ -26,9 +26,10 @@ package).  Phases, each of which fails the run on any error:
    reference, bitwise;
 7. flash attention and the SSD scan against their plain versions on the
    card at the JAX package's test shapes (tests/test_kernels.py sweeps)
-   and, for flash, shapes that reach the wgmma variant at head dim 128 and
-   over three K/V tiles, float32 and bfloat16, with those tests'
-   tolerances; both flash variants (wgmma, simt) must be launched;
+   and shapes that reach the wgmma variants (flash at head dim 128 and
+   over three K/V tiles; the SSD scan's SSD_WGMMA, in bf16), float32 and
+   bfloat16, with those tests' tolerances (SSD_WGMMA: SSD_BF16_RANGE);
+   both variants (wgmma, simt) of each must be launched;
 8. the DiT path: server and three client Zamba2-1.2B DiTs at full width
    (configs/zamba2_1p2b.py, bf16, 38 Mamba2 layers, the shared
    attention+MLP block every 6) on 32x32x3 images in 4x4 patches (64
@@ -38,10 +39,10 @@ package).  Phases, each of which fails the run on any error:
    before, one per-request Alg.-2 sample (T=1000, cut 250, batch 4) and
    one ``ServeRuntime`` pass (T=120, cuts 15/30/60, three requests of
    batch 4, max_wave 4, depth policy, cache on), counters read just
-   after: 6 flash and 38 SSD launches per forward, every flash launch on
-   the wgmma variant.  Flash's rows of batch 1 must equal those of batch 4
-   bitwise.  The pass's outputs must equal ``sample_plan_reference``
-   bitwise on the card;
+   after: 6 flash and 38 SSD launches per forward, every one on the wgmma
+   variants.  Flash's and the SSD scan's rows of batch 1 must equal those
+   of batch 4 bitwise.  The pass's outputs must equal
+   ``sample_plan_reference`` bitwise on the card;
 9. the grouped matmul against its plain version on the card at the JAX
    package's test shapes (tests/test_kernels.py sweep) and shapes that
    reach the wgmma variant (C over one 256-row tile, ragged F), float32
@@ -105,6 +106,13 @@ FLASH_WGMMA = [((2, 6, 2, 100, 128), 0), ((1, 2, 1, 200, 64), 0),
                ((1, 2, 1, 200, 64), 70)]
 SSD_SWEEP = [(2, 64, 4, 16, 8, 16), (1, 48, 2, 8, 4, 16),
              (2, 100, 3, 16, 8, 32), (1, 32, 1, 4, 4, 8)]  # test_ssd_scan_sweep
+# bf16 shapes of the SSD wgmma variant (p 64, n 64 or 128): tiles with a
+# tail, chunk 256 at n 128, a chunk below the 64-step tile, head counts
+# that its two-head blocks do not divide.  Held to SSD_BF16_RANGE: at
+# p = 64 the plain version's own bf16 roundings exceed TOL_BF16
+# elementwise (tests/test_torch_ssd_variants.py)
+SSD_WGMMA = [(2, 200, 4, 64, 64, 64), (1, 256, 3, 64, 128, 256),
+             (2, 64, 5, 64, 64, 16), (1, 130, 3, 64, 128, 32)]
 # the DiT main path: one per-request sample at the paper's T, then one
 # serve pass at a cut T: the full-width forward is ~68 ms of host-bound
 # eager launches, so a T=1000 pass with its reference would take ~10 min
@@ -250,10 +258,11 @@ def kernels_line(records, launches):
     source, the TPU kernel it replaces, its main-path launches and the
     numbers measured in this run.  A kernel with variants also carries its
     launches per variant (``launches`` keys ``<name>/<variant>``) and its
-    card time; flash attention its numbers at head dim 128 as well."""
+    card time; flash attention its numbers at head dim 128 as well, the
+    SSD scan the simt variant's time at the path's shape."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    extra = ("card_ms", "head_dim_128", "shapes")
+    extra = ("card_ms", "simt_ms", "head_dim_128", "shapes")
     line = []
     for name in ("ddpm_step_batched", "ddpm_step", "flash_attention",
                  "ssd_scan", "grouped_matmul"):
@@ -596,6 +605,17 @@ def phase_contracts():
         "GM/ICM/mid cuts)")
 
 
+def ssd_range_check(out, ref, what: str) -> float:
+    """max |out - ref| over max(1, max |ref|), which must stay within
+    SSD_BF16_RANGE (bf16 SSD outputs at p = 64, where |y| reaches ~100)."""
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = max(1.0, ref.float().abs().max().item())
+    if not err <= SSD_BF16_RANGE * scale:
+        raise AssertionError(f"{what}: max abs {err:.3g} > {SSD_BF16_RANGE}"
+                             f" x {scale:.3g}")
+    return err / scale
+
+
 def phase_flash_ssd():
     """Flash attention and the SSD scan against their plain versions on
     the card at the JAX package's test shapes, float32 and bfloat16."""
@@ -604,6 +624,7 @@ def phase_flash_ssd():
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssd_scan import kernel as skernel
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
@@ -645,19 +666,35 @@ def phase_flash_ssd():
             raise AssertionError(f"flash {tag}: variants {variants}, "
                                  f"expected launches of {sorted(want)}")
         tol = TOL_SSD if dtype == torch.float32 else TOL_BF16
-        errs = []
-        for b, s, h, p, n, chunk in SSD_SWEEP:
+        errs, range_errs = [], []
+        skernel.reset_counts()
+        wgmma_shapes = SSD_WGMMA if dtype == torch.bfloat16 else []
+        for shape in SSD_SWEEP + wgmma_shapes:
+            b, s, h, p, n, chunk = shape
             x = rn(b, s, h, p).to(dtype)
             dt = F.softplus(rn(b, s, h) - 1)
             A = -torch.exp(rn(h))
             Bm, Cm = rn(b, s, n).to(dtype), rn(b, s, n).to(dtype)
             y, fs = sops.ssd_scan(x, dt, A, Bm, Cm, chunk)
             yr, fr = ssd_chunked(x, dt, A, Bm, Cm, chunk)
-            what = f"ssd_scan {(b, s, h, p, n, chunk)} {tag}"
-            errs.append(max(check(y, yr, tol, what + " y"),
-                            check(fs, fr, tol, what + " state")))
+            what = f"ssd_scan {shape} {tag}"
+            if shape in SSD_SWEEP:
+                errs.append(max(check(y, yr, tol, what + " y"),
+                                check(fs, fr, tol, what + " state")))
+                continue
+            range_errs.append(max(ssd_range_check(y, yr, what + " y"),
+                                  ssd_range_check(fs, fr, what + " state")))
+        variants = {v: skernel.COUNTS[f"ssd_scan/{v}"]
+                    for v in skernel.VARIANTS}
         log(f"kernel/ssd_scan {tag}: {len(SSD_SWEEP)} sweep shapes "
-            f"max_abs_err {max(errs):.3g} within {tol}")
+            f"max_abs_err {max(errs):.3g} within {tol}" +
+            (f"; {len(SSD_WGMMA)} wgmma shapes max_abs_err over max(1, "
+             f"max |plain|) {max(range_errs):.3g} within {SSD_BF16_RANGE}"
+             if range_errs else "") + f"; launches per variant {variants}")
+        want = {"simt"} if dtype == torch.float32 else {"wgmma", "simt"}
+        if {v for v, n in variants.items() if n} != want:
+            raise AssertionError(f"ssd_scan {tag}: variants {variants}, "
+                                 f"expected launches of {sorted(want)}")
 
 
 @contextlib.contextmanager
@@ -859,6 +896,20 @@ def flash_rows_bitwise(tag, fkernel, q, k, v, out) -> None:
         f"{q.shape[0]} bitwise")
 
 
+def ssd_rows_bitwise(tag, skernel, cargs, chunk, y, fs) -> None:
+    """The SSD scan's rows of batch 1 (a launch over the first batch row)
+    must equal the first batch row of ``y`` and ``fs``, computed at the
+    full batch."""
+    import torch
+    x, dt, A, Bm, Cm = cargs
+    y1, fs1 = skernel.launch(x[:1], dt[:1], A, Bm[:1], Cm[:1], chunk)
+    if not (torch.equal(y1, y[:1]) and torch.equal(fs1, fs[:1])):
+        raise AssertionError(f"{tag} ssd_scan: rows of batch 1 != those of "
+                             f"batch {x.shape[0]}")
+    log(f"{tag}/ssd_scan: rows of batch 1 equal those of batch "
+        f"{x.shape[0]} bitwise (y and final state)")
+
+
 def phase_dit():
     """The DiT path at full width.  Returns (kernel records at the DiT's
     shapes, launches of the path's run)."""
@@ -883,7 +934,8 @@ def phase_dit():
     apply_fn = make_dit_apply(arch, dcfg)
     n_attn = _grouping(arch)[1]
     per_fwd = {"flash_attention": n_attn, "flash_attention/wgmma": n_attn,
-               "flash_attention/simt": 0, "ssd_scan": arch.n_layers}
+               "flash_attention/simt": 0, "ssd_scan": arch.n_layers,
+               "ssd_scan/wgmma": arch.n_layers, "ssd_scan/simt": 0}
     key = prng.PRNGKey(0, device="cuda")
     sp, cp = init_dits("dit", arch, dcfg, key)
     xty = dit_inputs(dcfg.n_classes)
@@ -934,20 +986,32 @@ def phase_dit():
             f"{r.float().abs().max().item():.3g})")
     cargs = (xs.contiguous(), dt.float().contiguous(), A.float().contiguous(),
              Bm.to(xs.dtype).contiguous(), Cm.to(xs.dtype).contiguous())
+    ssd_rows_bitwise("dit", skernel, cargs, chunk, yk, fk)
     ms = time_ms(lambda: skernel.launch(*cargs, chunk))
+    simt = time_ms(lambda: skernel.launch(*cargs, chunk, variant="simt"))
     plain = time_ms(lambda: ssd_chunked(xs, dt, A, Bm, Cm, chunk))
     bnd, by = ssd_bound(xs, Bm, chunk)
     records["ssd_scan"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain,
-                               bound_ms=bnd, bound_by=by, library_ms=None)
+                               bound_ms=bnd, bound_by=by, library_ms=None,
+                               simt_ms=simt)
+    variant = skernel.choose_variant(cargs[0], *cargs[3:])
     log(f"kernel/ssd_scan at the DiT's {tuple(xs.shape)} n {Bm.shape[-1]} "
-        f"chunk {chunk} {xs.dtype}: kernel {ms * 1e3:.2f} us plain "
+        f"chunk {chunk} {xs.dtype} ({variant}): "
+        f"kernel {ms * 1e3:.2f} us simt {simt * 1e3:.2f} us plain "
         f"{plain * 1e3:.2f} us bound {bnd * 1e3:.3f} us ({by}); "
         "library_ms: null (no PyTorch call computes the SSD scan)")
 
     fwd_ms, card = dit_forward_stats(
         "dit", apply_fn, sp, xty, per_fwd, (fkernel, skernel),
-        cards=[("flash_attention", "flash_wgmma_kernel")])
+        cards=[("flash_attention", "flash_wgmma_kernel"),
+               ("ssd_scan", "ssd_wgmma_kernel")])
     records["flash_attention"]["card_ms"] = card["flash_attention"]
+    records["ssd_scan"]["card_ms"] = card["ssd_scan"]
+    if card["ssd_scan"] is not None:
+        log(f"kernel/ssd_scan (wgmma) card {card['ssd_scan'] * 1e3:.2f} us a "
+            f"launch in the forward against its bound {bnd * 1e3:.3f} us: "
+            f"{100 * bnd / card['ssd_scan']:.1f}% of the bound's rate "
+            f"(simt {simt * 1e3:.2f} us a launch, events)")
     launches = dit_serve_path("dit", sp, cp, apply_fn, dcfg.n_classes, key,
                               fwd_ms, per_fwd, (fkernel, skernel))
     return records, launches

@@ -93,6 +93,28 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// TMA tile store: the box in shared memory at ``src`` to the given
+// coordinates (innermost first); elements out of bounds are not written.
+// Stores of one thread form bulk groups: ``bulk_commit`` closes one,
+// ``bulk_wait_read<N>`` waits until at most N groups still read shared
+// memory (the writes complete before the grid does).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"((uint64_t)map),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
 // wgmma layout types of the descriptor, by swizzle width in bytes
 __host__ __device__ constexpr uint32_t layout_of(int swizzle_bytes) {
   return swizzle_bytes == 128 ? 1u : swizzle_bytes == 64 ? 2u : 3u;
@@ -127,6 +149,27 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for wgmma's register A fragments: kept, unchanged, until the
+// wait that completes the wgmma reading them
+template <int M, int K>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[M][K]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < K; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// make this thread's shared-memory stores visible to the async proxy
+// (wgmma reads its shared-memory operands through it)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier ``id`` (1..15; 0 is __syncthreads) over ``threads`` threads
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 template <uint32_t kRegs>

@@ -1,25 +1,48 @@
-"""Loader and launch of the CUDA SSD-scan kernel (csrc/ssd_scan.cu), built
+"""Loader and launch of the CUDA SSD-scan kernels (csrc/ssd_scan.cu), built
 with nvcc on first use (kernels/build.py).
 
-``COUNTS["ssd_scan"]`` is bumped only where the kernel is launched, so a
-run can show that its path went through the kernel.
+``choose_variant`` picks the kernel from dtype, shape and alignment alone:
+``wgmma`` (bf16 through TMA and wgmma, two heads a block) at head dim 64
+and states of 64 or 128, ``simt`` (float32 products on the CUDA cores,
+the first design) otherwise.  ``tma_maps`` computes the wgmma variant's
+tensor maps.
+
+``COUNTS["ssd_scan"]`` and the variant's ``COUNTS["ssd_scan/<variant>"]``
+are bumped only where a kernel is launched, so a run can show that its
+path went through the kernel, and through which one.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.tma import BF16_BYTES, TmaMap, as_ctypes
 
 SOURCE = "ssd_scan.cu"
-COUNTS: Dict[str, int] = {"ssd_scan": 0}
-MAX_TILE = 64               # steps per tile inside the kernel
+VARIANTS = ("wgmma", "simt")
+COUNTS: Dict[str, int] = {"ssd_scan": 0,
+                          **{f"ssd_scan/{v}": 0 for v in VARIANTS}}
+MAX_TILE = 64               # steps per tile inside the kernels
 SMEM_BYTES = 232448         # shared memory one block can hold (227 KB)
+# the wgmma variant (csrc/ssd_scan.cu, namespace wg): 64-step tiles of a
+# 64-wide head, two heads a block, TMA boxes of 64 x 64 bf16 (128 bytes a
+# row, the swizzle width)
+WGMMA_HEAD_DIM = 64
+WGMMA_STATES = (64, 128)
+HEADS_PER_BLOCK = 2
+TILE = 64
+SWIZZLE = 128
+_MAX_GRID_Y = 65535
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# x, dt, A, B, C, y, fs, batch, S, H, P, N, tq, dtype, stream
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_WGMMA_CODE = 2
+# x, dt, A, B, C, y, fs, batch, S, H, P, N, tq, variant, x/y map, B/C map,
+# final-state map, stream
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
+    [ctypes.c_void_p] * 4
 
 
 def reset_counts() -> None:
@@ -28,17 +51,64 @@ def reset_counts() -> None:
 
 
 def smem_bytes(tq: int, p: int, n: int) -> int:
-    """The kernel's shared memory for tiles of tq steps (csrc smem_floats)."""
+    """The simt kernel's shared memory for tiles of tq steps (csrc
+    smem_floats)."""
     return 4 * (4 * tq + tq * (p + 1) + 2 * tq * (n + 1) + tq * (tq + 1) +
                 p * (n + 1))
 
 
+def wgmma_smem_bytes(n: int) -> int:
+    """The wgmma kernel's shared memory at state n (csrc ``wg::Geo``):
+    1024 bytes of alignment slack, two ring stages of B, C and each head's
+    x, each head's bf16 state and y tile, its L and dt (64 floats each),
+    two mbarriers.  The float32 final states are staged in the ring."""
+    box = TILE * SWIZZLE
+    bc = n // 64 * box
+    stage = 2 * bc + HEADS_PER_BLOCK * box
+    return 1024 + 2 * stage + HEADS_PER_BLOCK * (bc + box) + \
+        HEADS_PER_BLOCK * 2 * TILE * 4 + 2 * 8
+
+
+def choose_variant(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor) -> str:
+    """The kernel for contiguous x (b, s, h, p) and B/C (b, s, n), from
+    dtype, shape and alignment alone: wgmma for bf16 at p = 64 and n in
+    WGMMA_STATES with 16-byte aligned pointers.  The chunk does not enter:
+    the wgmma variant walks 64-step tiles whatever the chunk."""
+    if (x.dtype == torch.bfloat16 and x.shape[-1] == WGMMA_HEAD_DIM
+            and B.shape[-1] in WGMMA_STATES and x.data_ptr() % 16 == 0
+            and B.data_ptr() % 16 == 0 and C.data_ptr() % 16 == 0):
+        return "wgmma"
+    return "simt"
+
+
+@functools.lru_cache(maxsize=64)
+def tma_maps(b: int, s: int, h: int, n: int
+             ) -> Tuple[TmaMap, TmaMap, TmaMap]:
+    """(x map, B/C map, final-state map) of the wgmma variant, boxes of 64
+    bf16 values (128 bytes, the swizzle width) x 64 rows.  x, and y with
+    the same geometry: 3-D over (h·64, s, b), a head's tile the box at
+    column h·64; B and C over (n, s, b), a state of 128 two boxes; the
+    float32 final state (b, h, p, n) as bf16 pairs over (2n, p, b·h), a
+    head's state n/32 boxes of 32 floats."""
+    p = WGMMA_HEAD_DIM
+    box = (SWIZZLE // BF16_BYTES, TILE, 1)
+    return (TmaMap((h * p, s, b), (h * p * BF16_BYTES, s * h * p * BF16_BYTES),
+                   box, SWIZZLE),
+            TmaMap((n, s, b), (n * BF16_BYTES, s * n * BF16_BYTES), box,
+                   SWIZZLE),
+            TmaMap((2 * n, p, b * h), (n * 4, p * n * 4), box, SWIZZLE))
+
+
 def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-           B: torch.Tensor, C: torch.Tensor, chunk: int
+           B: torch.Tensor, C: torch.Tensor, chunk: int,
+           variant: Optional[str] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the kernel on contiguous CUDA tensors: x (b, s, h, p) float32
-    or bfloat16, dt (b, s, h) and A (h,) float32, B/C (b, s, n) of x's
-    dtype.  Chunks of ``chunk`` steps are walked in tiles of at most 64.
+    """Run a kernel on contiguous CUDA tensors: x (b, s, h, p) float32 or
+    bfloat16, dt (b, s, h) and A (h,) float32, B/C (b, s, n) of x's dtype.
+    ``variant`` defaults to ``choose_variant``'s; ``simt`` may be asked
+    for at any input (to time the first design beside the second), wgmma
+    only where it is the choice.  The simt kernel walks chunks of
+    ``chunk`` steps in tiles of at most 64, the wgmma kernel 64-step tiles.
     Returns (y (b, s, h, p) of x's dtype, final state (b, h, p, n)
     float32)."""
     dev = x.device
@@ -63,22 +133,35 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             f"B {tuple(B.shape)} {B.dtype}, C {tuple(C.shape)} {C.dtype}")
     if chunk < 1:
         raise ValueError(f"ssd_scan kernel: chunk {chunk} < 1")
+    chosen = choose_variant(x, B, C)
+    variant = chosen if variant is None else variant
+    if variant not in (chosen, "simt"):
+        raise ValueError(f"ssd_scan kernel: variant {variant!r} does not "
+                         f"take these inputs (choice: {chosen!r})")
     tq = min(chunk, MAX_TILE)
-    if smem_bytes(tq, p, n) > SMEM_BYTES:
+    if variant == "simt" and smem_bytes(tq, p, n) > SMEM_BYTES:
         raise ValueError(f"ssd_scan kernel: head dim {p} and state {n} need "
                          f"{smem_bytes(tq, p, n)} bytes of shared memory, "
                          f"over {SMEM_BYTES}")
-    if h > 65535 or b > 65535:
-        raise ValueError(f"ssd_scan kernel: grid ({h}, {b}) over 65535")
+    if b > _MAX_GRID_Y or (variant == "simt" and h > _MAX_GRID_Y):
+        raise ValueError(f"ssd_scan kernel: grid (., {b}) or {h} heads "
+                         f"over {_MAX_GRID_Y}")
     y = torch.empty_like(x)
     fs = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
     if y.numel() == 0:
         return y, fs.zero_()
+    if variant == "wgmma":
+        code = _WGMMA_CODE
+        maps = [as_ctypes(m) for m in tma_maps(b, s, h, n)]
+    else:
+        code, maps = _DTYPE_CODES[x.dtype], (None, None, None)
     rc = build.bind(SOURCE, "ssd_scan_launch", _ARGTYPES)(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), y.data_ptr(), fs.data_ptr(), b, s, h, p, n, tq,
-        _DTYPE_CODES[x.dtype], torch.cuda.current_stream(dev).cuda_stream)
+        C.data_ptr(), y.data_ptr(), fs.data_ptr(), b, s, h, p, n, tq, code,
+        *maps, torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"ssd_scan kernel ({variant}) launch failed: "
+                           f"cudaError {rc}")
     COUNTS["ssd_scan"] += 1
+    COUNTS[f"ssd_scan/{variant}"] += 1
     return y, fs

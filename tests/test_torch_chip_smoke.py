@@ -8,7 +8,7 @@ torch's own profiler table); summing every row counted those kernels
 twice.  The grouped matmul's bound counts its bytes (tokens read once,
 one set when broadcast to every expert) and its flops; the ``kernels``
 line lists all five kernels with every key the contract names, and the
-two kernels with variants their launches per variant.
+three kernels with variants their launches per variant.
 """
 import importlib.util
 from pathlib import Path
@@ -74,10 +74,10 @@ def test_gmm_bound_counts_bytes_and_flops_of_the_moe_path():
 
 
 def test_kernels_line_lists_every_kernel_with_every_key():
-    """Every kernel carries the contract's keys; the two kernels with
+    """Every kernel carries the contract's keys; the three kernels with
     variants also carry their launches per variant and their card time,
-    flash its numbers at head dim 128 and the grouped matmul its three
-    shapes."""
+    flash its numbers at head dim 128, the SSD scan its simt variant's
+    time and the grouped matmul its three shapes."""
     cs = _chip_smoke()
     names = ["ddpm_step_batched", "ddpm_step", "flash_attention",
              "ssd_scan", "grouped_matmul"]
@@ -88,16 +88,20 @@ def test_kernels_line_lists_every_kernel_with_every_key():
     records["flash_attention"].update(
         library_ms=0.03, card_ms=0.004,
         head_dim_128=dict(ms=0.028, library_ms=0.035, bound_ms=0.0022))
+    records["ssd_scan"].update(library_ms=None, card_ms=0.0054,
+                               simt_ms=0.082)
     launches = {n: i + 1 for i, n in enumerate(names)}
     launches.update({"flash_attention/wgmma": 3, "flash_attention/simt": 0,
                      "grouped_matmul/wgmma": 5, "grouped_matmul/wmma": 0,
-                     "grouped_matmul/simt": 0})
+                     "grouped_matmul/simt": 0, "ssd_scan/wgmma": 4,
+                     "ssd_scan/simt": 0})
     line = cs.kernels_line(records, launches)
     assert [k["name"] for k in line["kernels"]] == names
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     extra = {"flash_attention": {"launches_by_variant", "card_ms",
                                  "head_dim_128"},
+             "ssd_scan": {"launches_by_variant", "card_ms", "simt_ms"},
              "grouped_matmul": {"launches_by_variant", "card_ms", "shapes"}}
     for k in line["kernels"]:
         assert set(k) == keys | extra.get(k["name"], set())
@@ -107,7 +111,12 @@ def test_kernels_line_lists_every_kernel_with_every_key():
         src = (ROOT / path).read_text().splitlines()
         assert src[int(line_no) - 1].startswith("def ")
         assert k["launches"] == launches[k["name"]]
-    flash, gmm = line["kernels"][2], line["kernels"][-1]
+    flash, ssd, gmm = line["kernels"][2], line["kernels"][3], \
+        line["kernels"][-1]
+    assert ssd["launches_by_variant"] == {"wgmma": 4, "simt": 0}
+    assert ssd["card_ms"] == 0.0054 and ssd["simt_ms"] == 0.082
+    assert ssd["library_ms"] is None
+    assert ssd["replaces"] == "src/repro/kernels/ssd_scan/kernel.py:69"
     assert flash["launches_by_variant"] == {"wgmma": 3, "simt": 0}
     assert flash["head_dim_128"] == records["flash_attention"]["head_dim_128"]
     assert flash["card_ms"] == 0.004 and flash["library_ms"] == 0.03

@@ -1,13 +1,15 @@
 """Which CUDA kernel variant each wrapper picks, and the TMA tensor maps of
 the wgmma variants, pinned on the CPU without a card.
 
-``choose_variant`` (grouped matmul and flash attention) decides from
+``choose_variant`` (grouped matmul, flash attention, SSD scan) decides from
 dtype, shape, strides and alignment alone; ``tma_maps`` computes the
 dims, byte strides, box and swizzle that the CUDA side encodes as they
-are (csrc/hopper.cuh ``encode_map``).  The MoE and DiT paths' shapes must
-reach the wgmma variants; the JAX sweep's odd shapes, misaligned pointers
-and float32 keep the older kernels.  Tensors are on the ``meta`` device
-where a real one would take gigabytes: the choice reads no data.
+are (csrc/hopper.cuh ``encode_map``).  The MoE and DiT paths' shapes (and
+Mamba2-2.7B's SSD scan) must reach the wgmma variants; the JAX sweep's odd
+shapes, misaligned pointers and float32 keep the older kernels.  The SSD
+wgmma kernel's shared memory is pinned against the 227 KB a block can
+hold.  Tensors are on the ``meta`` device where a real one would take
+gigabytes: the choice reads no data.
 """
 import ctypes
 
@@ -17,6 +19,7 @@ import torch
 from repro_torch.kernels import tma
 from repro_torch.kernels.flash_attention import kernel as fkernel
 from repro_torch.kernels.grouped_matmul import kernel as gkernel
+from repro_torch.kernels.ssd_scan import kernel as skernel
 
 BF16 = torch.bfloat16
 # the MoE path's three products a block (DBRX-132B, batch 4 x 64 tokens)
@@ -200,10 +203,108 @@ def test_flash_swizzle_follows_the_head_dim(dh, swizzle):
     _check_map(q)
 
 
+# the Zamba2-1.2B DiT's and Mamba2-2.7B's scans (b, s, h, p, n), and the
+# shapes chip_smoke.py sweeps the SSD wgmma variant at (b, s, h, p, n, chunk)
+SSD_DIT = (4, 64, 64, 64, 64)
+SSD_MAMBA2 = (4, 256, 80, 64, 128)
+SSD_WGMMA = [(2, 200, 4, 64, 64, 64), (1, 256, 3, 64, 128, 256),
+             (2, 64, 5, 64, 64, 16), (1, 130, 3, 64, 128, 32)]
+
+
+def _ssd_operands(b, s, h, p, n, dtype=BF16):
+    return _meta(b, s, h, p, dtype=dtype), _meta(b, s, n, dtype=dtype), \
+        _meta(b, s, n, dtype=dtype)
+
+
+# ---- SSD scan ---------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [SSD_DIT, SSD_MAMBA2, (1, 64, 3, 64, 64),
+                                   (2, 200, 5, 64, 128)],
+                         ids=["zamba2_dit", "mamba2_2p7b", "odd_heads",
+                              "tail"])
+def test_ssd_bf16_model_shapes_take_wgmma(shape):
+    assert skernel.choose_variant(*_ssd_operands(*shape)) == "wgmma"
+
+
+@pytest.mark.parametrize("shape", [SSD_DIT, SSD_MAMBA2])
+def test_ssd_float32_takes_simt(shape):
+    ops_ = _ssd_operands(*shape, dtype=torch.float32)
+    assert skernel.choose_variant(*ops_) == "simt"
+
+
+@pytest.mark.parametrize("p,n", [(32, 64), (128, 64), (16, 8), (64, 32),
+                                 (64, 256), (64, 16)])
+def test_ssd_other_head_dims_and_states_take_simt(p, n):
+    assert skernel.choose_variant(*_ssd_operands(2, 64, 4, p, n)) == "simt"
+
+
+def test_ssd_misaligned_pointers_take_simt():
+    x, Bm = torch.zeros(1, 64, 2, 64, dtype=BF16), torch.zeros(1, 64, 64,
+                                                                dtype=BF16)
+    assert skernel.choose_variant(x, Bm, Bm) == "wgmma"
+    bad_x, bad_b = _misaligned(1, 64, 2, 64), _misaligned(1, 64, 64)
+    for args in ((bad_x, Bm, Bm), (x, bad_b, Bm), (x, Bm, bad_b)):
+        assert skernel.choose_variant(*args) == "simt"
+
+
+def test_ssd_maps_at_the_dit_shape():
+    """x (and y): (h·64, s, b), a head's 64 columns at column h·64; B and
+    C: (n, s, b); the float32 state as bf16 pairs over (2n, p, b·h), two
+    boxes of 32 floats a head; boxes of 64 values x 64 rows, 128-byte
+    swizzle."""
+    b, s, h, p, n = SSD_DIT
+    xm, bcm, fm = skernel.tma_maps(b, s, h, n)
+    assert xm == tma.TmaMap(dims=(4096, 64, 4), strides=(8192, 524_288),
+                            box=(64, 64, 1), swizzle=128)
+    assert bcm == tma.TmaMap(dims=(64, 64, 4), strides=(128, 8192),
+                             box=(64, 64, 1), swizzle=128)
+    assert fm == tma.TmaMap(dims=(128, 64, 256), strides=(256, 16384),
+                            box=(64, 64, 1), swizzle=128)
+    for m in (xm, bcm, fm):
+        _check_map(m)
+
+
+def test_ssd_maps_at_mamba2_state_128_take_two_boxes():
+    b, s, h, p, n = SSD_MAMBA2
+    xm, bcm, fm = skernel.tma_maps(b, s, h, n)
+    assert xm == tma.TmaMap(dims=(5120, 256, 4), strides=(10240, 2_621_440),
+                            box=(64, 64, 1), swizzle=128)
+    assert bcm == tma.TmaMap(dims=(128, 256, 4), strides=(256, 65536),
+                             box=(64, 64, 1), swizzle=128)
+    assert fm == tma.TmaMap(dims=(256, 64, 320), strides=(512, 32768),
+                            box=(64, 64, 1), swizzle=128)
+    assert bcm.dims[0] // bcm.box[0] == 2 and fm.dims[0] // fm.box[0] == 4
+    for m in (xm, bcm, fm):
+        _check_map(m)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_WGMMA)
+def test_ssd_maps_of_the_sweep_shapes(b, s, h, p, n, chunk):
+    xm, bcm, fm = skernel.tma_maps(b, s, h, n)
+    for m in (xm, bcm, fm):
+        _check_map(m)
+        assert m.box[1] == skernel.TILE
+    assert xm.dims[1:] == bcm.dims[1:] == (s, b)
+    assert fm.dims == (2 * n, p, b * h)
+
+
+def test_ssd_wgmma_shared_memory_fits_a_block():
+    """Two stages of B, C and two heads' x, two bf16 states and y tiles,
+    L and dt: 100,368 bytes at n 64, 149,520 at n 128; the float32 final
+    states (32 KB a block at n 64, 64 KB at 128) fit the ring."""
+    assert skernel.wgmma_smem_bytes(64) == 100_368
+    assert skernel.wgmma_smem_bytes(128) == 149_520
+    for n in skernel.WGMMA_STATES:
+        assert skernel.wgmma_smem_bytes(n) <= skernel.SMEM_BYTES
+        ring = 2 * (2 * n * 128 + skernel.HEADS_PER_BLOCK * 64 * 128)
+        assert skernel.HEADS_PER_BLOCK * 64 * n * 4 <= ring
+
+
 # ---- counters and packing ----------------------------------------------------
 
 @pytest.mark.parametrize("kmod,name", [(gkernel, "grouped_matmul"),
-                                       (fkernel, "flash_attention")])
+                                       (fkernel, "flash_attention"),
+                                       (skernel, "ssd_scan")])
 def test_every_variant_has_its_own_counter(kmod, name):
     assert set(kmod.COUNTS) == {name} | {f"{name}/{v}" for v in kmod.VARIANTS}
     assert kmod.VARIANTS[0] == "wgmma"
