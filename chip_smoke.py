@@ -24,16 +24,31 @@ package).  Phases, each of which fails the run on any error:
    T=20: warm==cold==fifo, pipelined==sequential, continuous==depth, obs
    on==off, all bitwise) and the batched engine against its per-request
    reference, bitwise;
-7. flash attention and the SSD scan against their plain versions on the
+7. the training path (Alg. 1): ``setup`` with six CONFIG U-Nets (server
+   + 5 clients, T=1000, cut 250) and one ``train_round`` of 10 steps
+   over non-IID synthetic data (``make_client_datasets``, 2 batches of 8
+   per client); the same round on the CPU port from the same state and
+   key must agree within TRAIN_TOL (params, both moments, step counters),
+   TRAIN_MOMENT_RTOL (each moment leaf against its own largest value) and
+   TRAIN_METRIC_RTOL (every step's losses and grad norms), while the same
+   round on the card with TF32 allowed must not; and the round repeated
+   on the card must equal the first bitwise.  Per step:
+   wall (CUDA events), device time (profiler), idle share, AdamW's share,
+   peak memory.  Then, with the DDPM-step counters zeroed just before, one
+   Alg.-2 sample (``sample_for_client``) from the trained server and
+   client 0: exactly T = 1000 DDPM-step launches;
+8. flash attention and the SSD scan against their plain versions on the
    card at the JAX package's test shapes (tests/test_kernels.py sweeps)
    and shapes that reach the wgmma variants (flash at head dim 128 and
    over three K/V tiles; the SSD scan's SSD_WGMMA, in bf16), float32 and
    bfloat16, with those tests' tolerances (SSD_WGMMA: SSD_BF16_RANGE);
    both variants (wgmma, simt) of each must be launched;
-8. the DiT path: server and three client Zamba2-1.2B DiTs at full width
+9. the DiT path: server and three client Zamba2-1.2B DiTs at full width
    (configs/zamba2_1p2b.py, bf16, 38 Mamba2 layers, the shared
    attention+MLP block every 6) on 32x32x3 images in 4x4 patches (64
-   tokens), threefry-initialised on the card.  The flash and SSD kernels
+   tokens), threefry-initialised on the card.  An Alg.-1 loss through
+   the DiT with grad enabled must raise the kernels' refusal (no backward
+   on CUDA yet).  The flash and SSD kernels
    are held against their plain versions on the inputs the first forward
    feeds them and timed there; then, with every launch counter zeroed just
    before, one per-request Alg.-2 sample (T=1000, cut 250, batch 4) and
@@ -43,13 +58,13 @@ package).  Phases, each of which fails the run on any error:
    variants.  Flash's and the SSD scan's rows of batch 1 must equal those
    of batch 4 bitwise.  The pass's outputs must equal
    ``sample_plan_reference`` bitwise on the card;
-9. the grouped matmul against its plain version on the card at the JAX
+10. the grouped matmul against its plain version on the card at the JAX
    package's test shapes (tests/test_kernels.py sweep) and shapes that
    reach the wgmma variant (C over one 256-row tile, ragged F), float32
    and bfloat16, with contiguous tokens and tokens broadcast to every
    expert (expert stride 0), and a misaligned token pointer; the wgmma,
    wmma and simt variants must all be launched;
-10. the MoE path: the Zamba2 models are freed, then server and three
+11. the MoE path: the Zamba2 models are freed, then server and three
    client DiTs with DBRX-132B blocks at full width (configs/dbrx_132b.py:
    d_model 6144, 48 query / 8 KV heads of 128, 16 experts of FFN width
    10,752, top-4, bf16) cut to 2 blocks (MOE_LAYERS), on the same 64
@@ -65,7 +80,7 @@ package).  Phases, each of which fails the run on any error:
    6 grouped-matmul and 2 flash launches per forward, all on the wgmma
    variants.  The pass's outputs must equal ``sample_plan_reference``
    bitwise;
-11. a ``kernels`` JSON line, the card line again, and the result line.
+12. a ``kernels`` JSON line, the card line again, and the result line.
 
 Exits nonzero, printing no result line, without a CUDA device or outside
 a checkout.
@@ -129,6 +144,19 @@ TOL_GMM = dict(atol=1e-4, rtol=1e-3)      # that test's fp32 tolerance
 # that four models (server + 3 clients, 13.19 GB each in bf16) fit the
 # card's 80 GB; three blocks each would take 78.8 GB
 MOE_ARCH, MOE_LAYERS = "dbrx-132b", 2
+# the training path: Alg. 1 with six CONFIG U-Nets (paper §4: 5 clients),
+# 2 batches of 8 per client, one round of 10 steps at cut 250 of T=1000
+TRAIN_CLIENTS, TRAIN_CUT, TRAIN_BATCH, TRAIN_BATCHES = 5, 250, 8, 2
+# card vs CPU after the round: the JAX package's fp32 TOL elementwise on
+# params and both moments (summation orders of cuDNN/cuBLAS vs the CPU's
+# and the erfinv ulps of the noise, through at most 10 AdamW steps); each
+# moment leaf also within TRAIN_MOMENT_RTOL of its own largest value (the
+# moments lie far below TOL's atol: m ~ 1e-4, v ~ 1e-9); the per-step
+# losses and grad norms relative to max(1, |value|).  A control round on
+# the card with TF32 allowed must fall outside these limits.
+TRAIN_TOL = dict(atol=2e-5, rtol=2e-3)
+TRAIN_MOMENT_RTOL = 2e-3
+TRAIN_METRIC_RTOL = 1e-4
 REPLACES = {"ddpm_step": "src/repro/kernels/ddpm_step/kernel.py:43",
             "ddpm_step_batched": "src/repro/kernels/ddpm_step/kernel.py:85",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:76",
@@ -256,10 +284,11 @@ def gmm_bound(E: int, C: int, D: int, F: int, itemsize: int,
 def kernels_line(records, launches):
     """The ``kernels`` JSON object: one entry per kernel with its route,
     source, the TPU kernel it replaces, its main-path launches and the
-    numbers measured in this run.  A kernel with variants also carries its
-    launches per variant (``launches`` keys ``<name>/<variant>``) and its
-    card time; flash attention its numbers at head dim 128 as well, the
-    SSD scan the simt variant's time at the path's shape."""
+    numbers measured in this run, with its card time (from a profile of
+    the path) where measured.  A kernel with variants also carries its
+    launches per variant (``launches`` keys ``<name>/<variant>``); flash
+    attention its numbers at head dim 128 as well, the SSD scan the simt
+    variant's time at the path's shape."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     extra = ("card_ms", "simt_ms", "head_dim_128", "shapes")
@@ -423,9 +452,11 @@ def device_rows(rows):
             not getattr(e, "is_user_annotation", False)]
 
 
-def device_ms(tag: str, fn, n: int = 5, top: int = 0, shares=()) -> dict:
-    """Device time of one ``fn()`` from torch.profiler (kernel time summed
-    over n calls, per call) and, with ``top``, its largest device kernels,
+def device_ms(tag: str, fn, n: int = 5, top: int = 0, shares=(),
+              per: str = "forward") -> dict:
+    """Device time of one ``fn()`` (a ``per``) from torch.profiler (kernel
+    time summed over n calls, per call) and, with ``top``, its largest
+    device kernels,
     printed for the time breakdown; 'not measured' if the profiler
     reports no device time on this machine.  Returns, for each name in
     ``shares``, the device ms per call of the kernels whose name holds it
@@ -441,26 +472,27 @@ def device_ms(tag: str, fn, n: int = 5, top: int = 0, shares=()) -> dict:
     total_us = sum(e.self_device_time_total for e in rows)
     parts = {}
     if total_us > 0:
-        log(f"{tag}/device_ms per forward (profiler): "
+        log(f"{tag}/device_ms per {per} (profiler): "
             f"{total_us / (n * 1e3):.3f} over "
             f"{sum(e.count for e in rows) / n:.0f} device events")
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
             log(f"{tag}/device_top: {e.self_device_time_total / n:9.1f} us "
-                f"per forward, {e.count / n:5.0f} calls  {e.key[:70]}")
+                f"per {per}, {e.count / n:5.0f} calls  {e.key[:70]}")
         for name in shares:
             part = sum(e.self_device_time_total for e in rows
                        if name in e.key)
             parts[name] = part / (n * 1e3) if part > 0 else None
             log(f"{tag}/device_share of {name}: {part / (n * 1e3):.3f} ms "
-                f"per forward, {100 * part / total_us:.1f}%")
+                f"per {per}, {100 * part / total_us:.1f}%")
     else:
-        log(f"{tag}/device_ms per forward: not measured (profiler reported "
+        log(f"{tag}/device_ms per {per}: not measured (profiler reported "
             "no device time)")
     return {name: parts.get(name) for name in shares}
 
 
 def phase_main_path(fwd_ms: float):
-    """The serve path at full width; returns launches per kernel entry.
+    """The serve path at full width; returns launches per kernel entry and
+    the batched DDPM step's card ms a launch.
     ``fwd_ms`` is the U-Net's wall time per forward (phase 4)."""
     import numpy as np
     import torch
@@ -548,6 +580,14 @@ def phase_main_path(fwd_ms: float):
             xs[0], xs[1], xs[2], sched, tk, tk - 1.0), iters=50),
         "stack_where": time_ms(lambda: torch.where(
             mask, torch.stack(list(xs[0])), xs[1]), iters=50)}
+    # the batched DDPM step's own card time a launch, at the client
+    # stage's K=4 (its coefficients' torch ops around it)
+    part = device_ms("main/ddpm_step_batched", lambda: ddpm_step_batched(
+        xs[0], xs[1], xs[2], sched, tk, tk - 1.0), n=20,
+        shares=["ddpm_step"], per="call")
+    card_ms = part["ddpm_step"]
+    log(f"kernel/ddpm_step_batched card_ms per launch (profiler, K=4 x "
+        f"{shape}): {fmt_ms(card_ms)}")
     log("main/per_call_ms: " + json.dumps(
         {"unet_forward": round(fwd_ms, 4),
          **{k: round(v, 4) for k, v in per_ms.items()}}))
@@ -564,7 +604,7 @@ def phase_main_path(fwd_ms: float):
         log(f"main/pass{p}/breakdown_s (wall {rep['wall_s']:.2f}, "
             f"{calls} model calls, {n} scan steps): " + json.dumps(
                 {k: round(v, 3) for k, v in parts.items()}))
-    return launches
+    return launches, card_ms
 
 
 def phase_contracts():
@@ -603,6 +643,316 @@ def phase_contracts():
         raise AssertionError("engine != per-request reference on the card")
     log("contracts/engine_vs_reference: bitwise equal (CONFIG width, "
         "GM/ICM/mid cuts)")
+
+
+def copy_state(state, device):
+    """A deep copy of a ``CollabState`` (models, AdamW states, step count)
+    on ``device``."""
+    import copy
+    from repro_torch.core.collab import CollabState
+    mv = lambda t: t.detach().to(device, copy=True)
+    opt = lambda o: {"m": {n: mv(t) for n, t in o["m"].items()},
+                     "v": {n: mv(t) for n, t in o["v"].items()},
+                     "step": o["step"].clone()}
+    model = lambda m: copy.deepcopy(m).to(device)
+    return CollabState(
+        server_params=model(state.server_params),
+        client_params=[model(m) for m in state.client_params],
+        server_opt=opt(state.server_opt),
+        client_opt=[opt(o) for o in state.client_opt], step=state.step)
+
+
+def state_tensors(state) -> dict:
+    """Every tensor of a ``CollabState`` by name: each model's parameters
+    (``server.p.<name>``, ``client<c>.p.<name>``), both AdamW moments
+    (``.m.``, ``.v.``) and its step counter (``.step``)."""
+    out = {}
+    models = [("server", state.server_params, state.server_opt)] + [
+        (f"client{c}", m, o) for c, (m, o) in
+        enumerate(zip(state.client_params, state.client_opt))]
+    for tag, model, opt in models:
+        for n, p in model.named_parameters():
+            out[f"{tag}.p.{n}"] = p.detach()
+        for kind in ("m", "v"):
+            for n, t in opt[kind].items():
+                out[f"{tag}.{kind}.{n}"] = t
+        out[f"{tag}.step"] = opt["step"]
+    return out
+
+
+def compare_states(a, b, tol=None) -> dict:
+    """Per kind of tensor ("p", "m", "v", "step"): (max |a − b|, elements
+    beyond ``tol`` — any that differ when ``tol`` is None) over two
+    ``CollabState``s of one layout, b's tensors moved to a's device."""
+    import torch
+    ta, tb = state_tensors(a), state_tensors(b)
+    if set(ta) != set(tb):
+        raise AssertionError("compare_states: the states differ in layout")
+    out = {}
+    for name, x in ta.items():
+        y = tb[name].to(x.device)
+        kind = "step" if name.endswith(".step") else name.split(".")[1]
+        err = (x.double() - y.double()).abs().max().item() if x.numel() \
+            else 0.0
+        bad = int((~torch.isclose(x, y, **tol)).sum()) if tol and \
+            kind != "step" else int((x != y).sum())
+        e0, b0 = out.get(kind, (0.0, 0))
+        out[kind] = (max(e0, err), b0 + bad)
+    return out
+
+
+def moment_gaps(a, b) -> dict:
+    """For "m" and "v": the largest over leaves of max |a − b| / max |b|
+    (0 where both are zero, inf where only b is) over two ``CollabState``s
+    of one layout, b's tensors moved to a's device."""
+    ta, tb = state_tensors(a), state_tensors(b)
+    out = {"m": 0.0, "v": 0.0}
+    for name, x in ta.items():
+        kind = name.split(".")[1]
+        if kind not in out or not x.numel():
+            continue
+        y = tb[name].to(x.device).double()
+        err = (x.double() - y).abs().max().item()
+        scale = y.abs().max().item()
+        gap = err / scale if scale else (float("inf") if err else 0.0)
+        out[kind] = max(out[kind], gap)
+    return out
+
+
+def train_parity(a, b, rec_a: list, rec_b: list):
+    """(summary line, failures) of a trained ``CollabState`` and its
+    per-step metrics against another's: TRAIN_TOL elementwise and step
+    counters exact, TRAIN_MOMENT_RTOL on each moment leaf's scale,
+    TRAIN_METRIC_RTOL on every step's metrics."""
+    diff = compare_states(a, b, TRAIN_TOL)
+    gaps = moment_gaps(a, b)
+    mdiff = metrics_diff(rec_a, rec_b)
+    fails = [f"{k}: {n} beyond" for k, (_, n) in diff.items() if n] + [
+        f"{k} scaled {g:.3g}" for k, g in gaps.items()
+        if not g <= TRAIN_MOMENT_RTOL]
+    if not mdiff <= TRAIN_METRIC_RTOL:
+        fails.append(f"metrics {mdiff:.3g}")
+    line = "; ".join(f"{k} max abs {e:.3g}, {n} beyond"
+                     for k, (e, n) in diff.items()) + \
+        f" (tolerance {TRAIN_TOL}, steps exact); moments scaled " + \
+        ", ".join(f"{k} {g:.3g}" for k, g in gaps.items()) + \
+        f" (tolerance {TRAIN_MOMENT_RTOL}); metrics max rel {mdiff:.3g} " \
+        f"(tolerance {TRAIN_METRIC_RTOL})"
+    return line, fails
+
+
+def recording(step_fn, rec: list, events: bool = False):
+    """``step_fn`` that appends each step's metrics (copies on their
+    device) to ``rec``, with a pair of CUDA events around the step when
+    ``events``."""
+    import torch
+
+    def step(*args):
+        if events:
+            start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+            start.record()
+        out = step_fn(*args)
+        metrics = {k: v.detach().clone() for k, v in out[-1].items()}
+        if events:
+            end.record()
+            rec.append((start, end, metrics))
+        else:
+            rec.append(metrics)
+        return out
+    return step
+
+
+def metrics_diff(a: list, b: list) -> float:
+    """max |a − b| / max(1, |b|) over every metric of every step."""
+    worst = 0.0
+    for ma, mb in zip(a, b, strict=True):
+        for k in ma:
+            x, y = float(ma[k]), float(mb[k])
+            worst = max(worst, abs(x - y) / max(1.0, abs(y)))
+    return worst
+
+
+def phase_train():
+    """Alg. 1 at full width on the card: six CONFIG U-Nets (server + 5
+    clients) through ``setup`` and one ``train_round`` of 10 steps, held
+    against the same round on the CPU port and against itself (bitwise);
+    then one Alg.-2 sample from the trained models.  Returns the DDPM-step
+    launches of the sample and the DDPM step's card ms a launch."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.ddpm_unet import CONFIG
+    from repro_torch.core import prng
+    from repro_torch.core.collab import (CollabConfig, sample_for_client,
+                                         setup, train_round)
+    from repro_torch.core.protocol import make_collab_step
+    from repro_torch.data.synthetic import (SyntheticConfig, batches,
+                                            make_client_datasets)
+    from repro_torch.device import deterministic_cuda
+    from repro_torch.kernels.ddpm_step import kernel as dkernel
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+
+    t_phase = time.perf_counter()
+    deterministic_cuda()
+    card = card_line()
+    cfg = CollabConfig(n_clients=TRAIN_CLIENTS, T=1000, t_cut=TRAIN_CUT,
+                       denoiser="unet", image_size=IMG[0], channels=IMG[2],
+                       n_classes=CONFIG.n_classes, batch_size=TRAIN_BATCH,
+                       lr=1e-3, unet=CONFIG)
+    t0 = time.perf_counter()
+    state, step_fn, apply_fn = setup(prng.PRNGKey(0), cfg, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.server_params.parameters())
+    log(f"train/setup: {cfg.n_clients + 1} U-Nets of {n_params} parameters "
+        f"with AdamW states in {time.perf_counter() - t0:.2f} s")
+    scfg = SyntheticConfig(image_size=IMG[0], channels=IMG[2],
+                           n_attrs=cfg.n_classes)
+    data = make_client_datasets(prng.PRNGKey(1), scfg, cfg.n_clients,
+                                TRAIN_BATCH * TRAIN_BATCHES, non_iid=True,
+                                device="cuda")
+    kb = prng.PRNGKey(2, device="cuda")
+    round_batches = [list(batches(x, y, TRAIN_BATCH, prng.fold_in(kb, c)))
+                     for c, (x, y) in enumerate(data)]
+    key = prng.PRNGKey(3, device="cuda")
+    n_steps = sum(len(b) for b in round_batches)
+    init = copy_state(state, "cuda")
+    cpu = copy_state(state, "cpu")
+
+    # round 1: wall per step (CUDA events), peak memory
+    rec = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    last = train_round(state, recording(step_fn, rec, events=True),
+                       round_batches, key)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wall = [s.elapsed_time(e) for s, e, _ in rec]
+    metrics = [m for _, _, m in rec]
+    if len(rec) != n_steps or state.step != n_steps:
+        raise AssertionError(f"train: {len(rec)} steps, expected {n_steps}")
+    for c in range(cfg.n_clients):
+        if not all(np.isfinite(v) for v in last[c].values()):
+            raise AssertionError(f"train: client {c} metrics {last[c]}")
+
+    # round 2: the same state, batches and key on the card
+    again, rec2 = copy_state(init, "cuda"), []
+    train_round(again, recording(step_fn, rec2), round_batches, key)
+    diff = compare_states(state, again)
+    if any(bad for _, bad in diff.values()) or \
+            metrics_diff(metrics, rec2) != 0.0:
+        raise AssertionError(f"train: the round repeated on the card is not "
+                             f"bitwise equal: {diff}")
+    log(f"train/determinism: round 2 == round 1 bitwise ({n_steps} steps: "
+        "params, both moments, step counters, metrics of every step)")
+    # the device time of one more step (client 0's first batch), profiled
+    x, y = round_batches[0][0]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(again.client_params[0], again.client_opt[0],
+                again.server_params, again.server_opt, x, y,
+                prng.fold_in(key, 11))
+        torch.cuda.synchronize()
+    rows = device_rows(prof.key_averages())
+    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    log(f"train/step device events: {sum(e.count for e in rows)}")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"train/device_top: {e.self_device_time_total:9.1f} us per step, "
+            f"{e.count:5d} calls  {e.key[:70]}")
+
+    # the same round on the CPU port
+    cpu_step = make_collab_step(cfg.sched("cpu"), cfg.cut(), apply_fn,
+                                AdamWConfig(lr=cfg.lr))
+    rec_cpu = []
+    t0 = time.perf_counter()
+    train_round(cpu, recording(cpu_step, rec_cpu),
+                [[(x.cpu(), y.cpu()) for x, y in b] for b in round_batches],
+                key.cpu())
+    cpu_s = time.perf_counter() - t0
+    line, fails = train_parity(state, cpu, metrics, rec_cpu)
+    log(f"train/card_vs_cpu ({cpu_s:.1f} s on the CPU): {line}")
+    if fails:
+        raise AssertionError(f"train: card vs CPU beyond tolerance: {fails}")
+    # control: the same round on the card with TF32 matmuls and
+    # convolutions must fail the same check
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    tf32, rec_tf32 = copy_state(init, "cuda"), []
+    train_round(tf32, recording(step_fn, rec_tf32), round_batches, key)
+    deterministic_cuda()
+    line, fails = train_parity(tf32, cpu, rec_tf32, rec_cpu)
+    log(f"train/control_tf32_vs_cpu: {line}; caught by {fails}")
+    if not fails:
+        raise AssertionError("train: the parity check passed a TF32 round")
+    del tf32
+
+    # AdamW alone at the step's shapes (one client and one server update
+    # a step), on a copy
+    shadow = copy_state(init, "cuda")
+    grads = {n: torch.randn_like(p) for n, p in
+             shadow.server_params.named_parameters()}
+    upd = lambda: adamw_update(shadow.server_params, grads,
+                               shadow.server_opt, AdamWConfig(lr=cfg.lr))
+    adam_wall = time_ms(upd, iters=20, warmup=2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            upd()
+        torch.cuda.synchronize()
+    adam_rows = device_rows(prof.key_averages())
+    adam_dev = sum(e.self_device_time_total for e in adam_rows) / 1e3 / 5
+    log(f"train/adamw device events per update: "
+        f"{sum(e.count for e in adam_rows) / 5:.0f}")
+    del shadow, grads, again, init, cpu
+    step_wall = sum(wall[1:]) / (len(wall) - 1)
+    for i, (w, m) in enumerate(zip(wall, metrics), 1):
+        log(f"train/step {i}: wall {w:.3f} ms (events); " + ", ".join(
+            f"{k} {float(v):.6g}" for k, v in m.items()))
+    log(f"train/step: wall {step_wall:.3f} ms (events, mean of steps 2-"
+        f"{n_steps}; step 1 {wall[0]:.3f} ms), device {dev_ms:.3f} ms "
+        f"(profiler, one more step), idle "
+        f"{100 * (1 - dev_ms / step_wall):.1f}%; "
+        f"AdamW {adam_dev:.3f} ms device / {adam_wall:.3f} ms wall an update,"
+        f" 2 a step: {100 * 2 * adam_dev / dev_ms:.1f}% of the step's device "
+        f"time; peak memory {peak_gb:.3f} GB; round wall {round_s:.2f} s "
+        f"({n_steps} steps); card {card}")
+
+    # Alg. 2 from the trained server and client 0: the per-request path
+    eye = np.eye(cfg.n_classes, dtype=np.float32)
+    y0 = torch.from_numpy(np.broadcast_to(eye[0], (B, cfg.n_classes))
+                          .copy()).cuda()
+    torch.cuda.synchronize()
+    dkernel.reset_counts()                       # --- sample starts
+    t0 = time.perf_counter()
+    x0 = sample_for_client(state, 0, prng.fold_in(key, 7), y0, cfg,
+                           apply_fn)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    launches = dict(dkernel.COUNTS)              # --- sample ends
+    if tuple(x0.shape) != (B,) + IMG or not torch.isfinite(x0).all():
+        raise AssertionError(f"train: sample {tuple(x0.shape)} not finite")
+    log(f"train/sample: T={cfg.T} cut {cfg.t_cut} batch {B} from the trained "
+        f"server and client 0, wall_s {sample_s:.3f}; launches {launches}; "
+        f"card {card}")
+    if launches != {"ddpm_step": cfg.T, "ddpm_step_batched": 0}:
+        raise AssertionError(f"train: sample launches {launches} != "
+                             f"{cfg.T} per-request DDPM steps")
+
+    # the DDPM step's own card time a launch, from the profile of a short
+    # sample (T=10: 10 launches among the U-Net forwards)
+    short = dataclasses.replace(cfg, T=10, t_cut=3)
+    part = device_ms("train/sample_T10", lambda: sample_for_client(
+        state, 0, prng.fold_in(key, 8), y0, short, apply_fn), n=1,
+        shares=["ddpm_step"], per="sample")
+    card_ms = None if part["ddpm_step"] is None else \
+        part["ddpm_step"] / short.T
+    log(f"kernel/ddpm_step card_ms per launch (profiler, in a T=10 sample "
+        f"at {(B,) + IMG}): {fmt_ms(card_ms)}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train/phase_s: {time.perf_counter() - t_phase:.1f}")
+    return launches, card_ms
 
 
 def ssd_range_check(out, ref, what: str) -> float:
@@ -910,6 +1260,25 @@ def ssd_rows_bitwise(tag, skernel, cargs, chunk, y, fs) -> None:
         f"{x.shape[0]} bitwise (y and final state)")
 
 
+def refuse_dit_loss(apply_fn, sp, xty) -> None:
+    """An Alg.-1 loss through the full-width DiT with grad enabled must
+    raise a kernel's refusal (no backward on CUDA yet) and give no loss."""
+    import torch
+    from repro_torch.core.protocol import mse_eps_loss
+    x, t, y = xty
+    loss = None
+    with torch.enable_grad():
+        try:
+            loss = mse_eps_loss(apply_fn, sp, x, t, y, torch.zeros_like(x))
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            log(f"dit/refusal: mse_eps_loss with grad enabled raised: {e}")
+    if loss is not None:
+        raise AssertionError("dit: a loss with grad enabled came back "
+                             "through kernels that have no backward")
+
+
 def phase_dit():
     """The DiT path at full width.  Returns (kernel records at the DiT's
     shapes, launches of the path's run)."""
@@ -948,6 +1317,7 @@ def phase_dit():
         torch.cuda.synchronize()
     if eps.shape != xty[0].shape or not torch.isfinite(eps).all():
         raise AssertionError(f"dit: bad forward {tuple(eps.shape)}")
+    refuse_dit_loss(apply_fn, sp, xty)
 
     records = {}
     (q, k, v), kw, out = captured["flash_attention"][0]
@@ -1214,6 +1584,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # inference throughout: the kernels refuse inputs that need a gradient;
+    # the training step and the refusal check enable grad where they need it
+    torch.set_grad_enabled(False)
     t_start = time.perf_counter()
     card = card_line()
     log(card)
@@ -1223,18 +1596,21 @@ def main() -> int:
     records = phase_kernels()
     phase_flash_ssd()
     fwd_ms = phase_unet()
-    launches = phase_main_path(fwd_ms)
+    launches, batched_card_ms = phase_main_path(fwd_ms)
     phase_contracts()
+    train_launches, ddpm_card_ms = phase_train()
     dit_records, dit_launches = phase_dit()
     phase_grouped_matmul()
     moe_records, moe_launches = phase_moe()
+    records["ddpm_step"]["card_ms"] = ddpm_card_ms
+    records["ddpm_step_batched"]["card_ms"] = batched_card_ms
     records.update(dit_records)
     records["flash_attention"]["head_dim_128"] = \
         moe_records.pop("flash_attention@128")
     records.update(moe_records)
-    # launches of the three main paths (each counted from zero just
+    # launches of the four main paths (each counted from zero just
     # before it)
-    for path in (dit_launches, moe_launches):
+    for path in (train_launches, dit_launches, moe_launches):
         launches = {name: launches.get(name, 0) + path.get(name, 0)
                     for name in set(launches) | set(path)}
     log(f"total_s: {time.perf_counter() - t_start:.1f}")

@@ -17,6 +17,9 @@ JAX side — no JAX is imported here) and:
   float32.
 * ``unstack`` splits params stacked on a leading client axis k (the
   JAX package's stacked-clients layout) into k per-client trees.
+* ``load_opt_state`` turns a JAX AdamW state (``{"m", "v", "step"}``)
+  into the port's for a module through the same transforms, and
+  ``dump_params`` / ``dump_opt_state`` go back to the JAX layout.
 * ``to_torch`` turns any numpy tree (e.g. a toy denoiser's ``{"a", "b"}``)
   into the same tree of tensors on a device.
 """
@@ -74,8 +77,17 @@ def to_torch(tree, device=None):
         tree)
 
 
-def _copy(param: torch.Tensor, value: np.ndarray, name: str) -> None:
-    value = np.array(value, copy=True)
+# A leaf's layout: as it is, an HWIO conv kernel (the port's OIHW), or a
+# dense (in, out) weight (nn.Linear's (out, in)).
+_TO_PORT = {"as_is": lambda a: a, "hwio": lambda a: a.transpose(3, 2, 0, 1),
+            "dense": lambda a: a.T}
+_TO_JAX = {"as_is": lambda a: a, "hwio": lambda a: a.transpose(2, 3, 1, 0),
+           "dense": lambda a: a.T}
+
+
+def _copy(param: torch.Tensor, value: np.ndarray, layout: str,
+          name: str) -> None:
+    value = np.array(_TO_PORT[layout](_check_numpy(value)), copy=True)
     if value.dtype.name == "bfloat16":       # ml_dtypes: exact in float32
         value = value.astype(np.float32)
     if tuple(param.shape) != value.shape:
@@ -85,43 +97,139 @@ def _copy(param: torch.Tensor, value: np.ndarray, name: str) -> None:
         param.copy_(torch.from_numpy(value))
 
 
-def _load(module: nn.Module, tree, name: str) -> None:
+def _walk(module, tree, name: str, leaf):
+    """Walk a module and a JAX-layout tree of the same layout together,
+    calling ``leaf(param, value, layout, name)`` for every parameter;
+    returns the tree of what ``leaf`` returned."""
     if tree is None or module is None:
         if (tree is None) != (module is None):
             raise ValueError(f"{name}: None slot on one side only")
-        return
+        return None
     if isinstance(module, torch.Tensor):        # a bare parameter
-        _copy(module, _check_numpy(tree), name)
-    elif isinstance(module, nn.Conv2d):
-        _copy(module.weight, _check_numpy(tree["w"]).transpose(3, 2, 0, 1),
-              name + ".w")
-        _copy(module.bias, _check_numpy(tree["b"]), name + ".b")
-    elif isinstance(module, nn.Linear):
-        _copy(module.weight, _check_numpy(tree).T, name)
-    elif isinstance(tree, dict) and set(tree) == {"scale", "bias"}:
-        _copy(module.weight, _check_numpy(tree["scale"]), name + ".scale")
-        _copy(module.bias, _check_numpy(tree["bias"]), name + ".bias")
-    elif isinstance(tree, dict):
-        for k, v in tree.items():
-            child = module[k] if isinstance(module, nn.ModuleDict) \
-                else getattr(module, k)
-            _load(child, v, f"{name}.{k}")
-    elif isinstance(tree, (list, tuple)):
+        return leaf(module, tree, "as_is", name)
+    if isinstance(module, nn.Conv2d):
+        return {"w": leaf(module.weight, tree["w"], "hwio", name + ".w"),
+                "b": leaf(module.bias, tree["b"], "as_is", name + ".b")}
+    if isinstance(module, nn.Linear):
+        return leaf(module.weight, tree, "dense", name)
+    if isinstance(tree, dict) and set(tree) == {"scale", "bias"}:
+        return {"scale": leaf(module.weight, tree["scale"], "as_is",
+                              name + ".scale"),
+                "bias": leaf(module.bias, tree["bias"], "as_is",
+                             name + ".bias")}
+    if isinstance(tree, dict):
+        return {k: _walk(module[k] if isinstance(module, nn.ModuleDict)
+                         else getattr(module, k), v, f"{name}.{k}", leaf)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
         if len(tree) != len(module):
             raise ValueError(f"{name}: {len(tree)} entries vs "
                              f"{len(module)} modules")
-        for i, v in enumerate(tree):
-            _load(module[i], v, f"{name}[{i}]")
-    else:
-        raise TypeError(f"{name}: cannot load {type(tree).__name__} into "
-                        f"{type(module).__name__}")
+        return [_walk(module[i], v, f"{name}[{i}]", leaf)
+                for i, v in enumerate(tree)]
+    raise TypeError(f"{name}: cannot load {type(tree).__name__} into "
+                    f"{type(module).__name__}")
+
+
+_STACKS = ("mamba", "layers")     # core/dit.py's stacked layer axes
+
+
+def _unstack_layers(params):
+    """A DiT tree with its layer stacks (a leading layer axis in JAX,
+    ``stacked_init``) split into lists; any other tree as it is."""
+    if not isinstance(params, dict):
+        return params
+    tree = dict(params)
+    for stack in _STACKS:
+        if stack in tree:
+            tree[stack] = unstack(tree[stack])
+    return tree
+
+
+def _stack(trees: List[Any]):
+    """The inverse of ``unstack``: k trees of one layout → one tree with a
+    leading (k,) axis on every leaf."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack([t[i] for t in trees])
+                           for i in range(len(first)))
+    return np.stack(trees)
+
+
+def _restack_layers(tree):
+    if not isinstance(tree, dict):
+        return tree
+    tree = dict(tree)
+    for stack in _STACKS:
+        if stack in tree:
+            tree[stack] = _stack(tree[stack])
+    return tree
+
+
+def load_opt_state(model: nn.Module, state) -> dict:
+    """A JAX AdamW state (``{"m": tree, "v": tree, "step"}``, numpy
+    leaves, the layout of ``model``'s JAX parameter tree) → the port's
+    state for ``model`` (optim/adamw.py: float32 moments by parameter
+    name, the step an int32 0-dim host tensor), through the layout
+    transforms of ``load_params`` (HWIO → OIHW, dense transposes, DiT
+    stacks unstacked), on each parameter's device."""
+    names = {id(p): n for n, p in model.named_parameters()}
+
+    def moments(tree, which: str) -> dict:
+        out = {}
+
+        def put(param, value, layout, name):
+            a = _TO_PORT[layout](_check_numpy(value)).astype(np.float32)
+            if tuple(param.shape) != a.shape:
+                raise ValueError(f"{name}: module {tuple(param.shape)} vs "
+                                 f"moment {a.shape}")
+            out[names[id(param)]] = torch.from_numpy(np.ascontiguousarray(
+                a)).to(param.device)
+
+        _walk(model, _unstack_layers(tree), which, put)
+        if set(out) != set(names.values()):
+            raise ValueError(f"{which}: the tree does not cover the module")
+        return {n: out[n] for n in names.values()}
+
+    return {"m": moments(state["m"], "m"), "v": moments(state["v"], "v"),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32)}
+
+
+def dump_params(model: nn.Module, like, values=None):
+    """The JAX-layout tree of ``model``'s parameters (numpy leaves), laid
+    out as ``like`` (a JAX parameter tree of the same model: its leaves
+    are not read, only its layout), in float32.  With ``values``
+    ({name: tensor}, e.g. an AdamW moment) the tree holds those tensors
+    instead."""
+    names = {id(p): n for n, p in model.named_parameters()}
+
+    def get(param, _, layout, name):
+        t = param if values is None else values[names[id(param)]]
+        return _TO_JAX[layout](t.detach().float().cpu().numpy())
+
+    return _restack_layers(_walk(model, _unstack_layers(like), "params",
+                                 get))
+
+
+def dump_opt_state(model: nn.Module, state, like) -> dict:
+    """The inverse of ``load_opt_state``: the port's AdamW state of
+    ``model`` as a JAX-layout ``{"m", "v", "step"}`` of numpy arrays laid
+    out as ``like``."""
+    return {"m": dump_params(model, like, state["m"]),
+            "v": dump_params(model, like, state["v"]),
+            "step": np.int32(int(state["step"]))}
 
 
 def load_params(model: nn.Module, params) -> nn.Module:
     """Copy a JAX-layout parameter tree (numpy leaves) into the module of
     the same layout in place; every parameter of the module must be
     covered."""
-    _load(model, params, "params")
+    _walk(model, params, "params", _copy)
     n_tree = sum(_check_numpy(a).size for a in leaves(params))
     n_model = sum(p.numel() for p in model.parameters())
     if n_tree != n_model:
@@ -141,8 +249,4 @@ def load_dit(model: nn.Module, params) -> nn.Module:
     (``mamba``, ``layers``) carry a leading layer axis in JAX
     (``stacked_init``); they are unstacked into the module's layer lists.
     Every parameter of the module must be covered."""
-    tree = dict(params)
-    for stack in ("mamba", "layers"):
-        if stack in tree:
-            tree[stack] = unstack(tree[stack])
-    return load_params(model, tree)
+    return load_params(model, _unstack_layers(params))

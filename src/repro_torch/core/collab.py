@@ -1,12 +1,16 @@
-"""Multi-client CollaFuse: the configuration, the denoiser of a
-collaboration and a client's sample (paper Alg. 2).
+"""Multi-client CollaFuse (paper §4: k = 5 clients, one trusted server):
+the configuration, the denoiser of a collaboration, the sequential
+training round of Alg. 1 and a client's sample (Alg. 2).
 
-The port of the sampling part of the JAX package's ``core/collab.py``:
-``CollabConfig``, ``build_denoiser`` and ``sample_for_client``, with a
-``CollabState`` that holds the models only (the optimizer states, the
-training rounds and the vectorized engine come with the training slice).
-``denoiser`` is ``"unet"`` (the paper's U-Net, SMALL resized) or an
-architecture id, served through the DiT bridge at the same reduced
+The port of the JAX package's ``core/collab.py`` up to its vectorized
+engine: ``CollabConfig``, ``CollabState`` (models, AdamW states and the
+step count), ``build_denoiser``, ``setup``, ``train_round`` and
+``sample_for_client``.  ``train_round`` is Alg. 1's outer loops verbatim:
+for each client, for each batch, one step, with the keys chained by
+``split`` in client-major order as in the reference.  The vectorized
+round (stacked clients, masks) is not ported yet.  ``denoiser`` is
+``"unet"`` (the paper's U-Net, SMALL resized) or an architecture id,
+served through the DiT bridge at the same reduced
 widths as in JAX (``configs.base.reduced``): the MoE ids
 (``"dbrx-132b"``, ``"kimi-k2-1t-a32b"``) give reduced MoE DiTs of 4
 experts, top-2, as JAX's do.
@@ -14,15 +18,21 @@ experts, top-2, as JAX's do.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
 
 from repro_torch.configs.base import get_arch, reduced
 from repro_torch.configs.ddpm_unet import SMALL, UNetConfig
+from repro_torch.core import prng
 from repro_torch.core.dit import DiTConfig, init_dit, make_dit_apply
+from repro_torch.core.protocol import make_collab_step
 from repro_torch.core.sampler import collaborative_sample
 from repro_torch.core.schedules import DiffusionSchedule
 from repro_torch.core.splitting import CutPoint
 from repro_torch.core.unet import init_unet, unet_apply
+from repro_torch.device import resolve_device
+from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,9 +65,15 @@ class CollabConfig:
 
 @dataclasses.dataclass
 class CollabState:
-    """The server's model and each client's."""
+    """The server's model and each client's, their AdamW states and the
+    number of Alg.-1 steps taken (the reference's fields, in its order).
+    A state that only samples may hold ``None`` for the optimizer
+    states; ``train_round`` refuses it."""
     server_params: Any
+    server_opt: Optional[Dict]
     client_params: List[Any]
+    client_opt: Optional[List[Dict]]
+    step: int = 0
 
 
 def build_denoiser(key, cfg: CollabConfig, device=None
@@ -78,6 +94,48 @@ def build_denoiser(key, cfg: CollabConfig, device=None
                     patch_size=cfg.dit_patch, n_classes=cfg.n_classes)
     return (lambda k: init_dit(k, arch, dit, device),
             make_dit_apply(arch, dit))
+
+
+def setup(key: torch.Tensor, cfg: CollabConfig, device=None
+          ) -> Tuple[CollabState, Callable, Callable]:
+    """(state, collab step fn, apply_fn): the server's model from
+    ``split(key, k + 1)[0]`` and client c's from entry c + 1, fresh AdamW
+    states, on ``device`` (CUDA unless asked otherwise)."""
+    dev = resolve_device(device)
+    init_one, apply_fn = build_denoiser(key, cfg, dev)
+    ks, *kc = prng.split(key.to(dev), cfg.n_clients + 1)
+    server_params = init_one(ks)
+    client_params = [init_one(k) for k in kc]
+    state = CollabState(
+        server_params=server_params,
+        server_opt=init_opt_state(server_params),
+        client_params=client_params,
+        client_opt=[init_opt_state(p) for p in client_params])
+    opt_cfg = AdamWConfig(lr=cfg.lr)
+    step = make_collab_step(cfg.sched(dev), cfg.cut(), apply_fn, opt_cfg)
+    return state, step, apply_fn
+
+
+def train_round(state: CollabState, step_fn, batches_per_client, key):
+    """``batches_per_client``: a list over clients of lists of (x0, y)
+    batches.  Mutates ``state`` in place; returns the metrics of the last
+    step per client as floats (``{}`` for a client that contributed no
+    batches this round)."""
+    if state.server_opt is None or state.client_opt is None:
+        raise ValueError("train_round: the state has no optimizer states; "
+                         "build it with setup")
+    last = {}
+    for c, batches in enumerate(batches_per_client):
+        m = None
+        for (x0, y) in batches:
+            key, k = prng.split(key)
+            (state.client_params[c], state.client_opt[c],
+             state.server_params, state.server_opt, m) = step_fn(
+                state.client_params[c], state.client_opt[c],
+                state.server_params, state.server_opt, x0, y, k)
+            state.step += 1
+        last[c] = {} if m is None else {k_: float(v) for k_, v in m.items()}
+    return last
 
 
 def sample_for_client(state: CollabState, client: int, key, y,

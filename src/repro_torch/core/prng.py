@@ -144,6 +144,86 @@ def normal(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
     return _normal_from_bits(random_bits(key, shape))
 
 
+_INT32_MIN, _INT32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def _split2(key: torch.Tensor):
+    """``_split(key)`` of jax.random's samplers for a key or a batch of
+    keys (..., 2): the two keys fold_in(key, 0) and fold_in(key, 1)."""
+    ks = fold_in(key.unsqueeze(-2), torch.arange(2, device=key.device))
+    return ks[..., 0, :], ks[..., 1, :]
+
+
+def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a·b mod 2^32 for uint32 words in int64, without int64 overflow:
+    b is taken in two 16-bit halves."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & MASK
+
+
+def _rem32(a: torch.Tensor, span: torch.Tensor) -> torch.Tensor:
+    """XLA's unsigned remainder: a % span, and a where span is 0."""
+    return torch.where(span == 0, a, a % torch.where(span == 0, 1, span))
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` with the default
+    int32 dtype, bit for bit: two words of 32 bits per value from the
+    two halves of ``split(key)``, combined as (hi % span · mult + lo %
+    span) % span with mult = (2^16 mod span)² mod span, every product
+    and sum wrapping mod 2^32.  ``minval``/``maxval`` are clipped to the
+    int32 range; a ``maxval`` above it widens the span by one (jax's
+    out-of-range branch); ``maxval <= minval`` gives ``minval``.  A
+    batched key (..., 2) gives (..., *shape), one draw per key as ``vmap``
+    over keys gives.  Returns int32."""
+    minval, maxval = int(minval), int(maxval)
+    out_of_range = maxval > _INT32_MAX
+    lo_v = min(max(minval, _INT32_MIN), _INT32_MAX)
+    hi_v = min(max(maxval, _INT32_MIN), _INT32_MAX)
+    dev = key.device
+    k1, k2 = _split2(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = (hi_v - lo_v) & MASK if hi_v > lo_v else 1
+    if out_of_range and hi_v > lo_v:
+        span = (span + 1) & MASK
+    span = torch.tensor(span, dtype=torch.int64, device=dev)
+    mult = _rem32(torch.tensor(1 << 16, dtype=torch.int64, device=dev), span)
+    mult = _rem32(_mul32(mult, mult), span)
+    offset = (_mul32(_rem32(higher, span), mult) + _rem32(lower, span)) & MASK
+    offset = _rem32(offset, span)
+    out = (lo_v + offset + 2 ** 31) & MASK        # int32 add, wrapping
+    return (out - 2 ** 31).to(torch.int32)
+
+
+def bernoulli(key: torch.Tensor, p, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for float32 ``p`` (a float
+    or a tensor broadcasting against ``shape``): uniform(key, shape) < p,
+    bool."""
+    p = torch.as_tensor(p, dtype=torch.float32, device=key.device)
+    return uniform(key, shape) < p
+
+
+def permutation(key: torch.Tensor, x) -> torch.Tensor:
+    """``jax.random.permutation(key, x)``: an int ``x`` shuffles
+    arange(x) (int32), a tensor is shuffled along its first axis.  JAX's
+    ``_shuffle``: ceil(3·ln(n) / ln(2^32 − 1)) rounds, each a stable sort
+    by 32 fresh random bits per element, from ``key, subkey =
+    split(key)``."""
+    if isinstance(x, int):
+        x = torch.arange(x, dtype=torch.int32, device=key.device)
+    n = x.shape[0]
+    rounds = int(np.ceil(3 * np.log(max(1, n)) /
+                         np.log(np.iinfo(np.uint32).max)))
+    idx = torch.arange(n, device=key.device)
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        idx = idx[order]
+    return x[idx.to(x.device)]
+
+
 FILL_CHUNK = 1 << 26     # elements per window: ~3 GB of int64 temporaries
 
 

@@ -110,6 +110,16 @@ class DiffusionSchedule:
         s = self.sigma(t).reshape(shape)
         return (a * x0 + s * eps).to(x0.dtype)
 
+    def renoise(self, x_cut, t_cut, t_s, eps_s):
+        """Alg. 1 line 10: x_{t_s} = α(t_s)·x_{t_ζ} + σ(t_s)·ε_s.  The
+        coefficients apply to the *already-noised* x_{t_ζ}, not to x_0
+        (the paper's privacy mechanism: the server never needs x_0);
+        ``t_cut`` is carried for the signature only, as in the paper."""
+        shape = (-1,) + (1,) * (x_cut.ndim - 1)
+        a = self.alpha(t_s).reshape(shape)
+        s = self.sigma(t_s).reshape(shape)
+        return (a * x_cut + s * eps_s).to(x_cut.dtype)
+
     def ddpm_step(self, x_t, eps_pred, t, noise, *, t_prev=None):
         """Eq. 2 reverse step at (real) t; adds β_t posterior noise except
         at t == 1."""

@@ -60,6 +60,21 @@ class CutPoint:
     def n_server_steps(self) -> int:
         return self.T - self.t_cut
 
+    # --- training timestep ranges (Alg. 1 line 6) -------------------------
+    # Drawn row-keyed (one fold_in(key, i) per sample, a scalar randint
+    # each), so sample i's timestep never depends on the batch size.
+    def sample_client_t(self, key: torch.Tensor, batch: int) -> torch.Tensor:
+        """t_c ~ U[1, t_ζ] (integer, inclusive), int32 (B,)."""
+        return prng.randint(row_keys(key, batch), (), 1,
+                            max(self.t_cut, 1) + 1)
+
+    def sample_server_t(self, key: torch.Tensor, batch: int) -> torch.Tensor:
+        """t_s ~ U[t_ζ, T] (integer, inclusive), int32 (B,): indices of
+        the global schedule for the re-noising x_{t_s} = α(t_s)·x_{t_ζ} +
+        σ(t_s)·ε_s."""
+        return prng.randint(row_keys(key, batch), (), max(self.t_cut, 1),
+                            self.T + 1)
+
     # --- inference schedules (Alg. 2) --------------------------------------
     @property
     def M(self) -> int:

@@ -1,0 +1,19 @@
+"""Hand-written CUDA kernels of the port, one package per kernel family."""
+from __future__ import annotations
+
+import torch
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through ``kernel``: the
+    CUDA kernels have no backward yet, and an output filled through
+    ctypes carries no ``grad_fn``, so a loss on the card would otherwise
+    train nothing upstream of the kernel without an error.  Under
+    ``no_grad`` (the samplers) or with no input that requires grad, it
+    returns.  The plain versions on the CPU stay differentiable."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward yet; an input "
+            "requires grad with grad enabled.  Run it under torch.no_grad()"
+            ", or train on the CPU (the plain version is differentiable)")

@@ -16,7 +16,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 
 SOURCE = "ddpm_step.cu"
 COUNTS: Dict[str, int] = {"ddpm_step": 0, "ddpm_step_batched": 0}
@@ -34,7 +34,9 @@ def launch(x_t: torch.Tensor, eps_pred: torch.Tensor, noise: torch.Tensor,
            coef: torch.Tensor, entry: str) -> torch.Tensor:
     """Run the kernel on CUDA tensors: x_t/eps_pred/noise share one shape
     (K, ...) and dtype (float32 or bfloat16), ``coef`` is a (K, 3) float32
-    table on the same device.  Returns a new tensor of x_t's dtype."""
+    table on the same device.  Returns a new tensor of x_t's dtype.
+    Refuses inputs that need a gradient (no backward yet)."""
+    refuse_grad("ddpm_step", x_t, eps_pred, noise, coef)
     if entry not in COUNTS:
         raise ValueError(f"unknown entry {entry!r}")
     dev = x_t.device

@@ -20,7 +20,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.tma import BF16_BYTES, TmaMap, as_ctypes
 
 SOURCE = "flash_attention.cu"
@@ -72,7 +72,9 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            causal: bool, window: int) -> torch.Tensor:
     """Run a kernel on contiguous CUDA tensors q (B, H, S, dh) and k/v
     (B, Hkv, S, dh) of one dtype (float32 or bfloat16), H % Hkv == 0,
-    dh <= 128.  Returns a new (B, H, S, dh) tensor of q's dtype."""
+    dh <= 128.  Returns a new (B, H, S, dh) tensor of q's dtype.
+    Refuses inputs that need a gradient (no backward yet)."""
+    refuse_grad("flash_attention", q, k, v)
     dev = q.device
     for name, a in (("q", q), ("k", k), ("v", v)):
         if a.device != dev or dev.type != "cuda":

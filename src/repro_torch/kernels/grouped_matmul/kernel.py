@@ -20,7 +20,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.tma import BF16_BYTES, TmaMap, as_ctypes
 
 SOURCE = "grouped_matmul.cu"
@@ -93,7 +93,8 @@ def launch(tokens: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     row strides (0 for tokens broadcast to every expert), unit inner
     stride — and contiguous weights (E, D, F) of the same dtype (float32
     or bfloat16).  Returns a new contiguous (E, C, F) tensor of that
-    dtype."""
+    dtype.  Refuses inputs that need a gradient (no backward yet)."""
+    refuse_grad("grouped_matmul", tokens, weights)
     if tokens.ndim != 3 or weights.ndim != 3:
         raise ValueError(f"grouped_matmul kernel: tokens "
                          f"{tuple(tokens.shape)} and weights "

@@ -19,7 +19,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.tma import BF16_BYTES, TmaMap, as_ctypes
 
 SOURCE = "ssd_scan.cu"
@@ -110,7 +110,8 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     only where it is the choice.  The simt kernel walks chunks of
     ``chunk`` steps in tiles of at most 64, the wgmma kernel 64-step tiles.
     Returns (y (b, s, h, p) of x's dtype, final state (b, h, p, n)
-    float32)."""
+    float32).  Refuses inputs that need a gradient (no backward yet)."""
+    refuse_grad("ssd_scan", x, dt, A, B, C)
     dev = x.device
     for name, a in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
         if a.device != dev or dev.type != "cuda":

@@ -8,12 +8,16 @@ torch's own profiler table); summing every row counted those kernels
 twice.  The grouped matmul's bound counts its bytes (tokens read once,
 one set when broadcast to every expert) and its flops; the ``kernels``
 line lists all five kernels with every key the contract names, and the
-three kernels with variants their launches per variant.
+three kernels with variants their launches per variant.  The training
+phase's checks (state copies, bitwise and toleranced comparisons of
+params, moments and step counters, the per-step recorder) run on a tiny
+round on the CPU.
 """
 import importlib.util
 from pathlib import Path
 from types import SimpleNamespace
 
+import pytest
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -90,6 +94,8 @@ def test_kernels_line_lists_every_kernel_with_every_key():
         head_dim_128=dict(ms=0.028, library_ms=0.035, bound_ms=0.0022))
     records["ssd_scan"].update(library_ms=None, card_ms=0.0054,
                                simt_ms=0.082)
+    records["ddpm_step"].update(card_ms=0.0016)
+    records["ddpm_step_batched"].update(card_ms=0.0021)
     launches = {n: i + 1 for i, n in enumerate(names)}
     launches.update({"flash_attention/wgmma": 3, "flash_attention/simt": 0,
                      "grouped_matmul/wgmma": 5, "grouped_matmul/wmma": 0,
@@ -102,7 +108,8 @@ def test_kernels_line_lists_every_kernel_with_every_key():
     extra = {"flash_attention": {"launches_by_variant", "card_ms",
                                  "head_dim_128"},
              "ssd_scan": {"launches_by_variant", "card_ms", "simt_ms"},
-             "grouped_matmul": {"launches_by_variant", "card_ms", "shapes"}}
+             "grouped_matmul": {"launches_by_variant", "card_ms", "shapes"},
+             "ddpm_step": {"card_ms"}, "ddpm_step_batched": {"card_ms"}}
     for k in line["kernels"]:
         assert set(k) == keys | extra.get(k["name"], set())
         assert k["route"] == "cuda"
@@ -125,3 +132,93 @@ def test_kernels_line_lists_every_kernel_with_every_key():
     assert gmm["replaces"] == "src/repro/kernels/grouped_matmul/kernel.py:39"
     assert gmm["library_ms"] == 0.8 and gmm["card_ms"] == 0.79
     assert line["kernels"][0]["library_ms"] is None
+    assert line["kernels"][1]["card_ms"] == 0.0016
+    assert line["kernels"][0]["card_ms"] == 0.0021
+
+
+def _small_round_inputs():
+    import dataclasses
+    from repro_torch.configs.ddpm_unet import SMALL
+    from repro_torch.core import prng
+    from repro_torch.core.collab import CollabConfig, setup
+    from repro_torch.data.synthetic import (SyntheticConfig, batches,
+                                            make_client_datasets)
+    cfg = CollabConfig(n_clients=2, T=20, t_cut=5, image_size=8,
+                       batch_size=2,
+                       unet=dataclasses.replace(SMALL, image_size=8))
+    state, step_fn, _ = setup(prng.PRNGKey(0), cfg, device="cpu")
+    data = make_client_datasets(prng.PRNGKey(1), SyntheticConfig(image_size=8),
+                                2, 4, device="cpu")
+    rb = [list(batches(x, y, 2, prng.fold_in(prng.PRNGKey(2), c)))
+          for c, (x, y) in enumerate(data)]
+    return state, step_fn, rb
+
+
+def test_train_phase_checks_on_the_cpu():
+    """The training phase's checks at a tiny size: a copied state equals
+    its source bitwise, a round changes every kind of tensor, the same
+    round from the copy repeats the first bitwise (metrics of every step
+    too), and the per-step recorder keeps one entry a step."""
+    from repro_torch.core import prng
+    from repro_torch.core.collab import train_round
+    cs = _chip_smoke()
+    torch.manual_seed(0)
+    state, step_fn, rb = _small_round_inputs()
+    init = cs.copy_state(state, "cpu")
+    names = cs.state_tensors(state)
+    assert {"server.step", "client1.step"} <= set(names)
+    assert any(n.startswith("client0.m.") for n in names)
+    assert cs.compare_states(state, init) == {
+        k: (0.0, 0) for k in ("p", "m", "v", "step")}
+    rec, rec2 = [], []
+    train_round(state, cs.recording(step_fn, rec), rb, prng.PRNGKey(3))
+    assert len(rec) == 4 and state.step == 4
+    assert set(rec[0]) == {"client_loss", "client_grad_norm", "server_loss",
+                           "server_grad_norm", "payload_bytes"}
+    moved = cs.compare_states(state, init)
+    assert all(bad > 0 for _, bad in moved.values())
+    assert moved["step"] == (4.0, 3)          # server 4 and clients 2 + 2
+    train_round(init, cs.recording(step_fn, rec2), rb, prng.PRNGKey(3))
+    assert cs.compare_states(state, init) == {
+        k: (0.0, 0) for k in ("p", "m", "v", "step")}
+    assert cs.metrics_diff(rec, rec2) == 0.0
+    # within a tolerance: nothing beyond it for equal states
+    assert all(bad == 0 for _, bad in
+               cs.compare_states(state, init, cs.TRAIN_TOL).values())
+    assert cs.moment_gaps(state, init) == {"m": 0.0, "v": 0.0}
+    assert cs.train_parity(state, init, rec, rec2)[1] == []
+    rec2[0] = dict(rec2[0], client_loss=rec2[0]["client_loss"] * 1.5)
+    assert cs.metrics_diff(rec, rec2) > cs.TRAIN_METRIC_RTOL
+    assert cs.train_parity(state, init, rec, rec2)[1] == [
+        f"metrics {cs.metrics_diff(rec, rec2):.3g}"]
+
+
+@pytest.mark.parametrize("kind", ["m", "v"])
+def test_train_parity_holds_moments_to_their_scale(kind):
+    """A moment 1% off, or zero, is not within TRAIN_MOMENT_RTOL of its own
+    scale, however small the moment is against TRAIN_TOL's atol."""
+    from repro_torch.core import prng
+    from repro_torch.core.collab import train_round
+    cs = _chip_smoke()
+    torch.manual_seed(0)
+    state, step_fn, rb = _small_round_inputs()
+    rec = []
+    train_round(state, cs.recording(step_fn, rec), rb, prng.PRNGKey(3))
+    for scale in (1.01, 0.0):
+        off = cs.copy_state(state, "cpu")
+        for t in off.server_opt[kind].values():
+            t.mul_(scale)
+        gaps = cs.moment_gaps(off, state)
+        assert gaps[kind] == pytest.approx(abs(1 - scale), rel=1e-3)
+        assert f"{kind} scaled {gaps[kind]:.3g}" in \
+            cs.train_parity(off, state, rec, rec)[1]
+
+
+def test_train_phase_is_the_paper_round():
+    """Six models (server + 5 clients, paper §4), 2 batches of 8 per
+    client: 10 Alg.-1 steps at cut 250 of T = 1000."""
+    cs = _chip_smoke()
+    assert (cs.TRAIN_CLIENTS, cs.TRAIN_CUT, cs.TRAIN_BATCH,
+            cs.TRAIN_BATCHES) == (5, 250, 8, 2)
+    assert cs.TRAIN_TOL == dict(atol=2e-5, rtol=2e-3)
+    assert cs.TRAIN_MOMENT_RTOL == 2e-3

@@ -258,7 +258,8 @@ def test_sample_for_client_matches_jax():
     ps = [_jax_dit(name, s)[2] for s in (5, 6, 7)]
     jstate = jcollab.CollabState(ps[0], None, ps[1:], None)
     tstate = tcollab.CollabState(
-        _port_dit(name, 5)[2], [_port_dit(name, s)[2] for s in (6, 7)])
+        _port_dit(name, 5)[2], None, [_port_dit(name, s)[2] for s in (6, 7)],
+        None)
     y = np.eye(8, dtype=np.float32)[[3, 6]]
     ref = jcollab.sample_for_client(jstate, 1, jax.random.PRNGKey(2),
                                     jnp.asarray(y), jcfg, jax.jit(japply))
