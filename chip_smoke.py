@@ -12,14 +12,21 @@ package).  Phases, each of which fails the run on any error:
    together;
 3. kernel vs plain: each kernel entry against its plain PyTorch version on
    the card, at the JAX package's parity shapes and the serve path's
-   shapes, fp32 and bf16, with times beside the byte bound;
+   shapes, fp32 and bf16, with times beside the byte bound; the keyed
+   DDPM-step variants (threefry draw, coefficient row and the engine's
+   mask inside the launch) against their plain composition, bitwise in
+   fp32 (KEYED_FP32_ULPS), with the output key and the coefficient tables
+   bitwise, each timed and profiled beside the composed step it replaces
+   (draw, per-step coefficients, the given-noise launch, where);
 4. the full-width U-Net (configs CONFIG) on the card against the port on
    the CPU, same threefry weights, one forward of B=4;
 5. the main path: ``ServeRuntime`` on CUDA with the CONFIG U-Net, T=1000,
    3 clients at cuts 125/250/500, 6 requests x batch 4, max_wave 4, depth
    policy, cache on, 2 passes, then one per-request Alg.-2 sample
    (``make_per_request_sampler``); kernel launch counters are zeroed just
-   before and read just after, and must equal the scheduled steps;
+   before and read just after, and must equal the scheduled steps, every
+   one on the keyed variants (``keyed``, ``rowwise``); then the device
+   events per per-request step from a T=10 sample's profile;
 6. serve contracts at CONFIG width on the card (the CLI's ``--smoke``,
    T=20: warm==cold==fifo, pipelined==sequential, continuous==depth, obs
    on==off, all bitwise) and the batched engine against its per-request
@@ -36,7 +43,7 @@ package).  Phases, each of which fails the run on any error:
    wall (CUDA events), device time (profiler), idle share, AdamW's share,
    peak memory.  Then, with the DDPM-step counters zeroed just before, one
    Alg.-2 sample (``sample_for_client``) from the trained server and
-   client 0: exactly T = 1000 DDPM-step launches;
+   client 0: exactly T = 1000 keyed DDPM-step launches;
 8. flash attention and the SSD scan against their plain versions on the
    card at the JAX package's test shapes (tests/test_kernels.py sweeps)
    and shapes that reach the wgmma variants (flash at head dim 128 and
@@ -107,9 +114,28 @@ TOL_SSD = dict(atol=1e-4, rtol=1e-3)    # tests/test_kernels.py ssd (fp32)
 SSD_BF16_RANGE = 5e-2
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor rate
 FP32_ULPS = 1          # kernel vs plain in fp32 (the kernel forbids FMAs)
+# the keyed variants vs their plain composition in fp32: bitwise (the
+# draw is prng.py's threefry, erfinvf is the function torch.erfinv calls)
+KEYED_FP32_ULPS = 0
 UNET_RTOL = 1e-4       # card vs CPU forward, relative to max |output|
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+# that rate counts an FMA as two flops: a single fmul or fadd (the DDPM
+# step forbids FMAs) runs at half of it, 128 results an SM a clock
+FP32_INSTR_PER_S = FP32_FLOPS_PER_S / 2
+# 32-bit integer add, xor, shift and funnel shift: 64 results an SM a
+# clock on compute capability 9.0 (CUDA C++ Programming Guide, table of
+# arithmetic instruction throughput), a quarter of the fp32 flop rate
+INT32_OPS_PER_S = FP32_FLOPS_PER_S / 4
+# the keyed DDPM step's draw (csrc/threefry.cuh): a Threefry-2x32 block
+# is 2 + 5 x (4 x 3) + 5 x 3 = 77 integer ops; an element takes one
+# block, its counter's split, the XOR of the words and the mantissa
+# (+5), and in float the uniform (4), erfinvf (~25: CUDA's
+# single-precision erfinvf is a log and a polynomial), the sqrt(2) scale
+# (1) and the step (5)
+THREEFRY_INT_OPS = 77
+DRAW_INT_OPS = THREEFRY_INT_OPS + 5
+DRAW_FLOAT_OPS = 4 + 25 + 1 + 5
 IMG = (32, 32, 3)
 B = 4
 DIT_ARCH = "zamba2-1.2b"
@@ -212,8 +238,11 @@ def phase_build():
 
 
 def _ulps(a, b):
+    """Largest distance in units of the last place of a's type (float32
+    or bfloat16) between two tensors of that type."""
     import torch
-    return int((a.view(torch.int32).long() - b.view(torch.int32).long())
+    word = torch.int32 if a.element_size() == 4 else torch.int16
+    return int((a.view(word).long() - b.view(word).long())
                .abs().max().item())
 
 
@@ -288,10 +317,14 @@ def kernels_line(records, launches):
     the path) where measured.  A kernel with variants also carries its
     launches per variant (``launches`` keys ``<name>/<variant>``); flash
     attention its numbers at head dim 128 as well, the SSD scan the simt
-    variant's time at the path's shape."""
+    variant's time at the path's shape, and the two DDPM entries (whose
+    main numbers are the keyed variants') the composed step they replace
+    and the given-noise variant's numbers."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    extra = ("card_ms", "simt_ms", "head_dim_128", "shapes")
+    extra = ("card_ms", "simt_ms", "head_dim_128", "shapes", "op_ms",
+             "composed_ms", "composed_card_ms", "composed_events",
+             "keyed_card_ms", "keyed_events", "given")
     line = []
     for name in ("ddpm_step_batched", "ddpm_step", "flash_attention",
                  "ssd_scan", "grouped_matmul"):
@@ -341,7 +374,7 @@ def phase_kernels():
 
     def bound_ms(K, per, itemsize):
         return _bound(4 * K * per * itemsize + 12 * K, 5 * K * per,
-                      FP32_FLOPS_PER_S)
+                      FP32_INSTR_PER_S)
 
     for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
@@ -399,6 +432,244 @@ def phase_kernels():
                     bound_by=by)
     log("kernel/library_ms: null (no single PyTorch call computes "
         "(x - c*e)*a + s*n)")
+    return records
+
+
+def keyed_bound(elements: int, itemsize: int, derivations: int,
+                extra_bytes: int, passed: int = 0):
+    """(least time in ms, what binds it) of a keyed DDPM step on this card:
+    x and eps read and the output written for the ``elements`` that step,
+    x read and written for the ``passed`` ones of masked slabs, plus keys,
+    coefficients and mask (``extra_bytes``); against the draw's
+    operations: its integer ones (DRAW_INT_OPS an element and a Threefry
+    block per key ``derivations``) at INT32_OPS_PER_S, or all of them,
+    float ones (DRAW_FLOAT_OPS an element) included, at one a lane a
+    clock (FP32_INSTR_PER_S), whichever takes longer.  Counted in integer
+    slots: FP32_INSTR_PER_S is twice INT32_OPS_PER_S."""
+    nbytes = (3 * elements + 2 * passed) * itemsize + extra_bytes
+    int_ops = elements * DRAW_INT_OPS + derivations * THREEFRY_INT_OPS
+    all_ops = int_ops + elements * DRAW_FLOAT_OPS
+    slots = max(int_ops, all_ops * INT32_OPS_PER_S / FP32_INSTR_PER_S)
+    return _bound(nbytes, slots, INT32_OPS_PER_S)
+
+
+def phase_keyed(records):
+    """Phase 3, the keyed variants: coefficient tables against per-step
+    calls and both keyed variants against their plain composition on the
+    card, bitwise in float32, then each beside the composed step it
+    replaces (draw, per-step coefficients, the given-noise launch and, in
+    the engine, where(active)) at the main path's shapes.  Replaces the
+    two DDPM records by the keyed variants' numbers, with the given
+    variant's under ``given``."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core.protocol import rowwise_normal
+    from repro_torch.core.schedules import DiffusionSchedule
+    from repro_torch.core.splitting import CutPoint
+    from repro_torch.kernels import raw_stream
+    from repro_torch.kernels.ddpm_step import kernel, ops
+    from repro_torch.kernels.ddpm_step.ref import (ddpm_step_keyed_ref,
+                                                   ddpm_step_rowwise_ref)
+
+    sched = DiffusionSchedule.linear(1000, device="cuda")
+    for cut in (250, 0, 999):
+        cp = CutPoint(1000, cut)
+        tables = [(torch.from_numpy(cp.server_t_list()).float(), None)] + [
+            tuple(torch.from_numpy(a) for a in cp.client_step_table(adj))
+            for adj in (True, False)]
+        for t, tp in tables:
+            t = t.cuda()
+            tp = None if tp is None else tp.cuda()
+            table = ops.step_coefficient_table(sched, t, tp)
+            for i in range(t.shape[0]):
+                one = torch.stack(ops.step_coefficients(
+                    sched, t[i], None if tp is None else tp[i]))
+                if not torch.equal(table[i].view(torch.int32),
+                                   one.view(torch.int32)):
+                    raise AssertionError(f"keyed: coefficient table row {i}"
+                                         f" at cut {cut} != per-step call")
+    log("keyed/coefficient_tables: bitwise equal to per-step calls (T=1000,"
+        " cuts 250/0/999, server and client, adjusted on and off)")
+
+    # every launch passes kernels.raw_stream (a private torch call): it
+    # must name the current stream, also a side stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        if raw_stream(0) != torch.cuda.current_stream(0).cuda_stream:
+            raise AssertionError("kernels.raw_stream is not the current "
+                                 "stream's handle")
+    if raw_stream(0) != torch.cuda.current_stream(0).cuda_stream:
+        raise AssertionError("kernels.raw_stream is not the default "
+                             "stream's handle")
+    log(f"keyed/raw_stream: the current stream's handle (torch "
+        f"{torch.__version__})")
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    tt = torch.tensor([999.0, 500.5, 250.0, 2.0, 1.0], device="cuda")
+    rows = ops.step_coefficient_table(sched, tt)
+
+    def inputs(shape, dtype):
+        return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+                for _ in range(2)]
+
+    def check(out, ref, dtype, what):
+        err = (out.float() - ref.float()).abs().max().item()
+        if dtype == torch.float32:
+            u = _ulps(out, ref)
+            if u > KEYED_FP32_ULPS:
+                raise AssertionError(f"{what}: {u} ulps > {KEYED_FP32_ULPS}")
+        elif not torch.allclose(out.float(), ref.float(), **TOL_BF16):
+            raise AssertionError(f"{what}: max abs {err} beyond TOL_BF16")
+        else:
+            u = _ulps(out, ref)
+        return err, u
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for shape in [(B,) + IMG, (4, 16, 16, 3), (2, 8, 8, 1), (1, 37),
+                      (3, 129)]:
+            x, e = inputs(shape, dtype)
+            key = prng.PRNGKey(7, device="cuda")
+            buf = torch.empty_like(key)
+            worst = (0.0, 0)
+            for i in range(rows.shape[0]):        # a chain of keyed steps
+                out = ops.ddpm_step_keyed(x, e, key, rows[i], buf)
+                ref, k = ddpm_step_keyed_ref(x, e, key, rows[i])
+                if not torch.equal(buf, k):
+                    raise AssertionError(f"keyed {shape} {tag}: output key "
+                                         "!= split(k)[0]")
+                worst = max(worst, check(out, ref, dtype,
+                                         f"keyed {shape} {tag} step {i}"))
+                x, key, buf = out, buf, key
+            log(f"kernel/ddpm_step keyed {shape} {tag}: max_abs_err "
+                f"{worst[0]:.3g} ({worst[1]} ulps) over {rows.shape[0]} "
+                "chained steps; output key bitwise")
+        for shape in [(4, B) + IMG, (1, B) + IMG, (2, B) + IMG,
+                      (5, 4, 8, 8, 3), (3, 2, 37), (1, 1, 129)]:
+            K = shape[0]
+            x, e = inputs(shape, dtype)
+            t = torch.linspace(1.0, 999.0, K * 3, device="cuda")
+            table = ops.step_coefficient_table(
+                sched, t.reshape(K, 3), torch.clamp(t - 1.5, min=0.0)
+                .reshape(K, 3))
+            active = (torch.arange(K * 3, device="cuda") % 4 != 1).float() \
+                .reshape(K, 3)
+            keys = prng.split(prng.PRNGKey(3, device="cuda"), K)
+            worst = (0.0, 0)
+            for s in range(3):
+                out = ops.ddpm_step_rowwise(x, e, keys, 1 + s, table[:, s],
+                                            active[:, s])
+                ref = ddpm_step_rowwise_ref(x, e, keys, 1 + s, table[:, s],
+                                            active[:, s])
+                worst = max(worst, check(out, ref, dtype,
+                                         f"rowwise {shape} {tag} step {s}"))
+                x = out
+            log(f"kernel/ddpm_step_batched rowwise {shape} {tag}: "
+                f"max_abs_err {worst[0]:.3g} ({worst[1]} ulps) over 3 "
+                "steps, masked slabs included")
+
+    # the keyed launches beside the composed steps they replace, float32 at
+    # the main path's shapes: (B, 32, 32, 3) per request, K = 4 slabs
+    shape = (B,) + IMG
+    x, e = inputs(shape, torch.float32)
+    n = torch.randn(shape, generator=g, device="cuda")
+    key = prng.PRNGKey(9, device="cuda")
+    buf = torch.empty_like(key)
+    t0 = tt[1]
+    row = rows[1]
+    coef13 = row.reshape(1, 3).contiguous()
+
+    def composed():
+        _, kn = prng.split(key)
+        return ops.ddpm_step(x, e, prng.normal(kn, shape), sched, t0)
+
+    out = ops.ddpm_step_keyed(x, e, key, row, buf)
+    err = (out - ddpm_step_keyed_ref(x, e, key, row)[0]).abs().max().item()
+    rec = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: kernel.launch_keyed(x, e, key, row, buf)),
+        op_ms=time_ms(lambda: ops.ddpm_step_keyed(x, e, key, row, buf)),
+        plain_ms=time_ms(lambda: ddpm_step_keyed_ref(x, e, key, row),
+                         iters=50),
+        composed_ms=time_ms(composed, iters=50),
+        library_ms=None)
+    rec["bound_ms"], rec["bound_by"] = keyed_bound(
+        x.numel(), 4, 2, 2 * 16 + 12)
+    given = dict(records["ddpm_step"],
+                 launch_ms=time_ms(lambda: kernel.launch(
+                     x, e, n, coef13, "ddpm_step")))
+    comp = device_ms("keyed/composed_step", composed, n=20, per="step",
+                     shares=["ddpm_step"])
+    mine = device_ms("keyed/keyed_step", lambda: (
+        ops.ddpm_step_keyed(x, e, key, row, buf), e.neg()), n=20,
+        per="step (with one marker op)", shares=["ddpm_step"])
+    rec.update(composed_card_ms=comp["_ms"], composed_events=comp["_events"],
+               keyed_card_ms=mine["ddpm_step"],
+               keyed_events=mine["ddpm_step/events"], given=given)
+    log(f"kernel/ddpm_step keyed {shape} fp32: launch {rec['ms'] * 1e3:.2f}"
+        f" us (op {rec['op_ms'] * 1e3:.2f} us; given-noise launch "
+        f"{given['launch_ms'] * 1e3:.2f} us) plain {rec['plain_ms'] * 1e3:.1f}"
+        f" us composed step {rec['composed_ms'] * 1e3:.1f} us bound "
+        f"{rec['bound_ms'] * 1e3:.4f} us ({rec['bound_by']}); card: composed "
+        f"{fmt_ms(comp['_ms'])} over {comp['_events']} events, keyed "
+        f"{fmt_ms(mine['ddpm_step'])} over {mine['ddpm_step/events']} "
+        "events (profiler)")
+    records["ddpm_step"] = rec
+
+    K = 4
+    xs, es = inputs((K,) + shape, torch.float32)
+    ns = torch.randn((K,) + shape, generator=g, device="cuda")
+    keys = prng.split(prng.PRNGKey(5, device="cuda"), K)
+    tk = torch.linspace(2.0, 500.0, K, device="cuda")
+    table = ops.step_coefficient_table(sched, tk.reshape(K, 1),
+                                       (tk - 1.0).reshape(K, 1))
+    act = torch.ones(K, 1, device="cuda")
+    coefs, active = table[:, 0], act[:, 0]
+    lead = (K,) + (1,) * len(shape)
+
+    def composed_b():
+        noise = rowwise_normal(prng.fold_in(keys, 3), shape)
+        xn = ops.ddpm_step_batched(xs, es, noise, sched, tk, tk - 1.0)
+        return torch.where(active.reshape(lead) > 0, xn, xs)
+
+    out = ops.ddpm_step_rowwise(xs, es, keys, 3, coefs, active)
+    err = (out - ddpm_step_rowwise_ref(xs, es, keys, 3, coefs, active)) \
+        .abs().max().item()
+    recb = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: kernel.launch_rowwise(xs, es, keys, 3, coefs,
+                                                 active)),
+        op_ms=time_ms(lambda: ops.ddpm_step_rowwise(xs, es, keys, 3, coefs,
+                                                    active)),
+        plain_ms=time_ms(lambda: ddpm_step_rowwise_ref(
+            xs, es, keys, 3, coefs, active), iters=50),
+        composed_ms=time_ms(composed_b, iters=50),
+        library_ms=None)
+    recb["bound_ms"], recb["bound_by"] = keyed_bound(
+        xs.numel(), 4, K + K * B, K * (16 + 12 + 4))
+    givenb = dict(records["ddpm_step_batched"],
+                  launch_ms=time_ms(lambda: kernel.launch(
+                      xs, es, ns, table[:, 0].contiguous(),
+                      "ddpm_step_batched")))
+    comp = device_ms("keyed/composed_batched_step", composed_b, n=20,
+                     per="step", shares=["ddpm_step"])
+    mine = device_ms("keyed/rowwise_step", lambda: (
+        ops.ddpm_step_rowwise(xs, es, keys, 3, coefs, active), es.neg()),
+        n=20, per="step (with one marker op)", shares=["ddpm_step"])
+    recb.update(composed_card_ms=comp["_ms"],
+                composed_events=comp["_events"],
+                keyed_card_ms=mine["ddpm_step"],
+                keyed_events=mine["ddpm_step/events"], given=givenb)
+    log(f"kernel/ddpm_step_batched rowwise K={K} x {shape} fp32: launch "
+        f"{recb['ms'] * 1e3:.2f} us (op {recb['op_ms'] * 1e3:.2f} us; "
+        f"given-noise launch {givenb['launch_ms'] * 1e3:.2f} us) plain "
+        f"{recb['plain_ms'] * 1e3:.1f} us composed step "
+        f"{recb['composed_ms'] * 1e3:.1f} us bound "
+        f"{recb['bound_ms'] * 1e3:.4f} us ({recb['bound_by']}); card: "
+        f"composed {fmt_ms(comp['_ms'])} over {comp['_events']} events, "
+        f"rowwise {fmt_ms(mine['ddpm_step'])} over "
+        f"{mine['ddpm_step/events']} events (profiler)")
+    records["ddpm_step_batched"] = recb
     return records
 
 
@@ -460,7 +731,8 @@ def device_ms(tag: str, fn, n: int = 5, top: int = 0, shares=(),
     printed for the time breakdown; 'not measured' if the profiler
     reports no device time on this machine.  Returns, for each name in
     ``shares``, the device ms per call of the kernels whose name holds it
-    (None if not measured)."""
+    and, under ``<name>/events``, their device events per call; under
+    ``_ms`` and ``_events`` the totals per call (None if not measured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
@@ -478,16 +750,22 @@ def device_ms(tag: str, fn, n: int = 5, top: int = 0, shares=(),
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
             log(f"{tag}/device_top: {e.self_device_time_total / n:9.1f} us "
                 f"per {per}, {e.count / n:5.0f} calls  {e.key[:70]}")
+        parts["_ms"] = total_us / (n * 1e3)
+        parts["_events"] = sum(e.count for e in rows) / n
         for name in shares:
-            part = sum(e.self_device_time_total for e in rows
-                       if name in e.key)
+            mine = [e for e in rows if name in e.key]
+            part = sum(e.self_device_time_total for e in mine)
             parts[name] = part / (n * 1e3) if part > 0 else None
-            log(f"{tag}/device_share of {name}: {part / (n * 1e3):.3f} ms "
-                f"per {per}, {100 * part / total_us:.1f}%")
+            parts[f"{name}/events"] = sum(e.count for e in mine) / n
+            log(f"{tag}/device_share of {name}: {part / (n * 1e3):.4f} ms "
+                f"per {per} over {parts[f'{name}/events']:.0f} device "
+                f"events, {100 * part / total_us:.1f}%")
     else:
         log(f"{tag}/device_ms per {per}: not measured (profiler reported "
             "no device time)")
-    return {name: parts.get(name) for name in shares}
+    keys = ["_ms", "_events"] + [k for name in shares
+                                 for k in (name, f"{name}/events")]
+    return {k: parts.get(k) for k in keys}
 
 
 def phase_main_path(fwd_ms: float):
@@ -498,12 +776,12 @@ def phase_main_path(fwd_ms: float):
     import torch
     from repro_torch.configs.ddpm_unet import CONFIG
     from repro_torch.core import prng
-    from repro_torch.core.protocol import rowwise_normal
     from repro_torch.core.sampler import make_per_request_sampler
     from repro_torch.core.schedules import DiffusionSchedule
     from repro_torch.core.unet import init_unet, unet_apply
     from repro_torch.kernels.ddpm_step import kernel
-    from repro_torch.kernels.ddpm_step.ops import ddpm_step_batched
+    from repro_torch.kernels.ddpm_step.ops import (ddpm_step_rowwise,
+                                                   step_coefficient_table)
     from repro_torch.launch.collab_serve import synth_queue
     from repro_torch.obs import ObsConfig
     from repro_torch.serve import ServeConfig, ServeRuntime
@@ -559,32 +837,40 @@ def phase_main_path(fwd_ms: float):
         f"{single_s:.3f}")
     log(f"main/launches: {launches} scheduled batched steps {n_steps} "
         f"per-request steps {T}")
-    if launches["ddpm_step_batched"] != n_steps or n_steps == 0:
-        raise AssertionError(f"batched launches {launches} != steps "
-                             f"{n_steps}")
-    if launches["ddpm_step"] != T:
-        raise AssertionError(f"scalar launches {launches} != T {T}")
+    if n_steps == 0:
+        raise AssertionError("main: no batched step scheduled")
+    check_ddpm_launches("main", launches, T, n_steps)
+
+    # device events per per-request step: a short sample's profile (T=10,
+    # cut 3: ten steps), beside the U-Net forward's events (phase 4)
+    short = make_per_request_sampler(DiffusionSchedule.linear(
+        10, device="cuda"), unet_apply, (B,) + IMG)(3)
+    prof = device_ms("main/per_request_sample_T10", lambda: short(
+        sp, cp[1], prng.fold_in(key, 8), y0), n=1, per="sample",
+        shares=["ddpm_step"])
+    if prof["_events"] is not None:
+        log(f"main/per_request_step: {prof['_events'] / 10:.1f} device "
+            f"events and {prof['_ms'] / 10:.4f} ms of device a step "
+            "(profiler, T=10 sample; the forward's own in unet/device_ms)")
 
     # where a pass's time goes: model calls and scan steps times their
     # per-call wall cost (measured alone, at the client stage's K=4), the
     # host planning spans, and the rest (Python, indexing, key folding)
     keys = prng.fold_in(key, torch.arange(4, device="cuda"))
     shape = (B,) + IMG
-    xs = [torch.randn((4,) + shape, device="cuda") for _ in range(3)]
-    tk = torch.linspace(2.0, 500.0, 4, device="cuda")
-    mask = torch.ones(4, 1, 1, 1, 1, device="cuda") > 0
-    per_ms = {
-        "noise_draw": time_ms(lambda: rowwise_normal(
-            prng.fold_in(keys, 5), shape), iters=20),
-        "ddpm_step": time_ms(lambda: ddpm_step_batched(
-            xs[0], xs[1], xs[2], sched, tk, tk - 1.0), iters=50),
-        "stack_where": time_ms(lambda: torch.where(
-            mask, torch.stack(list(xs[0])), xs[1]), iters=50)}
-    # the batched DDPM step's own card time a launch, at the client
-    # stage's K=4 (its coefficients' torch ops around it)
-    part = device_ms("main/ddpm_step_batched", lambda: ddpm_step_batched(
-        xs[0], xs[1], xs[2], sched, tk, tk - 1.0), n=20,
-        shares=["ddpm_step"], per="call")
+    xs = [torch.randn((4,) + shape, device="cuda") for _ in range(2)]
+    tk = torch.linspace(2.0, 500.0, 4, device="cuda").reshape(4, 1)
+    coefs = step_coefficient_table(sched, tk, tk - 1.0)[:, 0]
+    active = torch.ones(4, device="cuda")
+    step = lambda: ddpm_step_rowwise(xs[0], xs[1], keys, 5, coefs, active)
+    per_ms = {"ddpm_step": time_ms(step, iters=50),
+              "stack": time_ms(lambda: torch.stack(list(xs[0])), iters=50)}
+    # the rowwise DDPM step's own card time a launch, at the client
+    # stage's K=4, in a profile with the step's torch op (the stack of
+    # the model outputs) beside it
+    part = device_ms("main/ddpm_step_batched", lambda: (
+        torch.stack(list(xs[1])), step()), n=20, shares=["ddpm_step"],
+        per="call")
     card_ms = part["ddpm_step"]
     log(f"kernel/ddpm_step_batched card_ms per launch (profiler, K=4 x "
         f"{shape}): {fmt_ms(card_ms)}")
@@ -605,6 +891,19 @@ def phase_main_path(fwd_ms: float):
             f"{calls} model calls, {n} scan steps): " + json.dumps(
                 {k: round(v, 3) for k, v in parts.items()}))
     return launches, card_ms
+
+
+def check_ddpm_launches(tag: str, launches: dict, per_request: int,
+                        batched: int) -> None:
+    """The DDPM-step launches of a main path: ``per_request`` keyed and
+    ``batched`` rowwise launches, none of the given-noise variant."""
+    want = {"ddpm_step": per_request, "ddpm_step/keyed": per_request,
+            "ddpm_step/given": 0, "ddpm_step_batched": batched,
+            "ddpm_step_batched/rowwise": batched,
+            "ddpm_step_batched/given": 0}
+    got = {k: launches.get(k) for k in want}
+    if got != want:
+        raise AssertionError(f"{tag}: DDPM-step launches {got} != {want}")
 
 
 def phase_contracts():
@@ -934,9 +1233,7 @@ def phase_train():
     log(f"train/sample: T={cfg.T} cut {cfg.t_cut} batch {B} from the trained "
         f"server and client 0, wall_s {sample_s:.3f}; launches {launches}; "
         f"card {card}")
-    if launches != {"ddpm_step": cfg.T, "ddpm_step_batched": 0}:
-        raise AssertionError(f"train: sample launches {launches} != "
-                             f"{cfg.T} per-request DDPM steps")
+    check_ddpm_launches("train sample", launches, cfg.T, 0)
 
     # the DDPM step's own card time a launch, from the profile of a short
     # sample (T=10: 10 launches among the U-Net forwards)
@@ -1207,10 +1504,7 @@ def dit_serve_path(tag, sp, cp, apply_fn, n_classes, key, fwd_ms, per_fwd,
         if launches[name] != n * forwards:
             raise AssertionError(f"{tag}: {name} launches {launches[name]} "
                                  f"!= {n} x {forwards} forwards")
-    if launches["ddpm_step"] != DIT_SAMPLE_T or \
-            launches["ddpm_step_batched"] != n_steps:
-        raise AssertionError(f"{tag}: ddpm launches {launches} != steps "
-                             f"{DIT_SAMPLE_T} / {n_steps}")
+    check_ddpm_launches(tag, launches, DIT_SAMPLE_T, n_steps)
 
     t0 = time.perf_counter()
     for rid, req in enumerate(queue):       # a fresh runtime: rid = order
@@ -1593,7 +1887,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     phase_build()
-    records = phase_kernels()
+    records = phase_keyed(phase_kernels())
     phase_flash_ssd()
     fwd_ms = phase_unet()
     launches, batched_card_ms = phase_main_path(fwd_ms)

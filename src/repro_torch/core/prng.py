@@ -21,8 +21,9 @@ on the CPU and on CUDA.  The layout follows jax 0.9.0 with
   keys and uniforms equal JAX's exactly; ``torch.erfinv`` may differ from
   XLA's by a few ulps.
 
-Each draw is ~170 elementwise launches on a card (a later candidate for a
-fused kernel).  ``fill_normal_`` draws a large parameter window by window
+Each draw is ~170 elementwise launches on a card; the samplers' per-step
+draws run instead inside the DDPM-step kernel (``csrc/threefry.cuh``, the
+same bits).  ``fill_normal_`` draws a large parameter window by window
 of its flat index, bit for bit the one-shot draw, so an expert tensor of
 10^9 elements needs no 10^9-element int64 temporaries.
 """

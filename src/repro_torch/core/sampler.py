@@ -8,7 +8,9 @@ Client: remap its schedule over [1, M], M = ⌊t_ζ + (t_ζ/T)(T − t_ζ)⌋, t
 run its t_ζ steps with interpolated coefficients.  ``adjusted=False``
 ablates the M-remap.  They draw with JAX's chained ``split`` keys, so for
 the same key they follow the JAX package's samplers draw for draw.  Each
-step goes through the scalar entry of the fused DDPM-step kernel.
+step is one keyed DDPM-step launch (``ddpm_step_keyed``): the kernel
+splits the chain key, draws the noise and steps with its row of a
+coefficient table computed once per sample.
 
 Batched sampling engine (``make_sample_engine``)
 ------------------------------------------------
@@ -17,21 +19,23 @@ masked step loops:
 
 * **Server stage.**  Over the step axis of the (G, S_max) server table:
   each of the G groups' (B, H, W, C) batch goes through the server model
-  in its own call, then one batched DDPM-step launch advances all G
-  states, each at its own timestep (``server_ddim=True`` takes the
-  deterministic DDIM update instead, for strided tables).
+  in its own call, then one rowwise DDPM-step launch advances all G
+  states, each at its own timestep, with its row of a (G, S_max, 3)
+  coefficient table computed once per stage (``server_ddim=True`` takes
+  the deterministic DDIM update instead, for strided tables).
 * **Client stage.**  Each request gathers its handoff from the combined
   ``[scanned | injected]`` group axis (cache hits arrive as injected rows
   and cost zero server calls), then the (R, C_max) client table is
   stepped with each request's own client model, one call per request, and
-  one batched kernel launch per step.
-* **Masked steps pass x through bitwise** (``where(active, xn, x)``), so
-  padding S_max/C_max/G/R never perturbs a real row.  A masked step still
-  runs its model call (the physical accounting counts it).
+  one rowwise kernel launch per step.
+* **Masked steps pass x through bitwise** (``where(active, xn, x)``, in
+  the launch), so padding S_max/C_max/G/R never perturbs a real row.  A
+  masked step still runs its model call (the physical accounting counts
+  it).
 * **Row-keyed noise, stable seeds.**  Every draw is ``rowwise_normal``
-  keyed by (phase key, group/request seed, step index, row), so padding
-  consumes no real row's randomness; the serve runtime passes content-
-  and arrival-stable seeds.
+  keyed by (phase key, group/request seed, step index, row), drawn inside
+  the step's launch, so padding consumes no real row's randomness; the
+  serve runtime passes content- and arrival-stable seeds.
 * **One batch per model call.**  A row's bits never depend on which
   other requests share its wave: every call sees exactly one group's or
   one request's batch, and on CUDA the serve runtime pins cuDNN to
@@ -61,7 +65,9 @@ from repro_torch.core.sample_plan import (InjectTables, PlanTables,
 from repro_torch.core.schedules import DiffusionSchedule
 from repro_torch.core.splitting import CutPoint
 from repro_torch.kernels.ddpm_step.ops import (ddpm_step as fused_ddpm_step,
-                                               ddpm_step_batched)
+                                               ddpm_step_keyed,
+                                               ddpm_step_rowwise,
+                                               step_coefficient_table)
 
 
 def client_list(client_params) -> List:
@@ -90,13 +96,12 @@ def server_denoise(server_params, key, y, shape, sched: DiffusionSchedule,
     if cut.n_server_steps == 0:
         return x
     t_list = torch.from_numpy(cut.server_t_list()).float().to(x.device)
-    k = kloop
+    coefs = step_coefficient_table(sched, t_list)
+    keys = [kloop.clone(), torch.empty_like(kloop)]
     for i in range(cut.n_server_steps):
-        k, kn = prng.split(k)
         t = t_list[i]
         eps = apply_fn(server_params, x, _full(t, x.shape[0]), y)
-        noise = prng.normal(kn, x.shape)
-        x = fused_ddpm_step(x, eps, noise, sched, t)
+        x = ddpm_step_keyed(x, eps, keys[i % 2], coefs[i], keys[1 - i % 2])
     return x
 
 
@@ -108,14 +113,13 @@ def client_denoise(client_params, key, x_cut, y, sched: DiffusionSchedule,
         return x_cut
     t_np, tp_np = cut.client_step_table(adjusted)
     t_list = torch.from_numpy(t_np).to(x_cut.device)
-    t_prev = torch.from_numpy(tp_np).to(x_cut.device)
-    x, k = x_cut, key
+    coefs = step_coefficient_table(sched, t_list,
+                                   torch.from_numpy(tp_np).to(x_cut.device))
+    keys = [key.clone(), torch.empty_like(key)]
+    x = x_cut
     for i in range(cut.n_client_steps):
-        k, kn = prng.split(k)
         eps = apply_fn(client_params, x, _full(t_list[i], x.shape[0]), y)
-        noise = prng.normal(kn, x.shape)
-        x = fused_ddpm_step(x, eps, noise, sched, t_list[i],
-                            t_prev=t_prev[i])
+        x = ddpm_step_keyed(x, eps, keys[i % 2], coefs[i], keys[1 - i % 2])
     return x
 
 
@@ -187,19 +191,20 @@ def make_sample_engine(sched: DiffusionSchedule, apply_fn,
         skey, _ = prng.split(key)
         gkeys = prng.fold_in(skey, gseed)                    # (G, 2)
         x = _rowwise_normal(prng.fold_in(gkeys, 0), shape)   # (G, B, ...)
+        coefs = None if server_ddim else \
+            step_coefficient_table(sched, gt, gtp)           # (G, S, 3)
         for s in range(gt.shape[1]):
-            t, t_prev, active = gt[:, s], gtp[:, s], ga[:, s]
+            t, active = gt[:, s], ga[:, s]
             eps = torch.stack([
                 apply_fn(server_params, x[g], _full(t[g], B), gy[g])
                 for g in range(G)])
             if server_ddim:
                 xn = sched.ddim_step(x, eps, _lead(t, x.ndim),
-                                     _lead(t_prev, x.ndim))
+                                     _lead(gtp[:, s], x.ndim))
+                x = torch.where(_lead(active, x.ndim) > 0, xn, x)
             else:
-                noise = _rowwise_normal(prng.fold_in(gkeys, 1 + s), shape)
-                xn = ddpm_step_batched(x, eps, noise, sched, t,
-                                       t_prev=t_prev)
-            x = torch.where(_lead(active, x.ndim) > 0, xn, x)
+                x = ddpm_step_rowwise(x, eps, gkeys, 1 + s, coefs[:, s],
+                                      active)
         return x
 
     @torch.no_grad()
@@ -208,7 +213,6 @@ def make_sample_engine(sched: DiffusionSchedule, apply_fn,
         (gy, _gt, _gtp, _ga, _gseed, rgroup, rclient, rseed, ct, ctp,
          ca) = tables
         B = gy.shape[1]
-        shape = shape_of(B)
         _, ckey = prng.split(key)
         models = client_list(client_params)
         params_r = [models[int(c)] for c in rclient]
@@ -221,14 +225,13 @@ def make_sample_engine(sched: DiffusionSchedule, apply_fn,
         x = handoff_all[rgroup.long()]                       # (R, B, ...)
         rkeys = prng.fold_in(ckey, rseed)                    # (R, 2)
         R = x.shape[0]
+        coefs = step_coefficient_table(sched, ct, ctp)       # (R, C, 3)
         for c in range(ct.shape[1]):
-            t, t_prev, active = ct[:, c], ctp[:, c], ca[:, c]
+            t = ct[:, c]
             eps = torch.stack([
                 apply_fn(params_r[r], x[r], _full(t[r], B), y_r[r])
                 for r in range(R)])
-            noise = _rowwise_normal(prng.fold_in(rkeys, c), shape)
-            xn = ddpm_step_batched(x, eps, noise, sched, t, t_prev=t_prev)
-            x = torch.where(_lead(active, x.ndim) > 0, xn, x)
+            x = ddpm_step_rowwise(x, eps, rkeys, c, coefs[:, c], ca[:, c])
         return x
 
     def engine(server_params, client_params, key, tables: PlanTables,

@@ -4,6 +4,17 @@ from __future__ import annotations
 import torch
 
 
+def raw_stream(device_index: int) -> int:
+    """The raw handle of the current CUDA stream on ``device_index``, the
+    last argument of every kernel launch.  ``torch._C`` is private: this
+    call skips building a ``torch.cuda.Stream`` at every launch, and was
+    checked on torch 2.11 (cu128) to return
+    ``torch.cuda.current_stream(device_index).cuda_stream``;
+    ``chip_smoke.py`` phase 3 checks that again on a side stream, so a
+    torch that drops or changes it fails there."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
 def refuse_grad(kernel: str, *tensors) -> None:
     """Raise if autograd would need a gradient through ``kernel``: the
     CUDA kernels have no backward yet, and an output filled through

@@ -1,10 +1,20 @@
-"""Public wrapper of the fused DDPM step.
+"""Public wrappers of the fused DDPM step.
 
 Routing follows the tensor's device and nothing else: a CPU tensor takes
-the plain version (ref.py); a CUDA tensor takes the hand-written kernel
-(kernel.py) or raises.  Coefficients come from a DiffusionSchedule at
-(real-valued) t exactly as core/schedules.ddpm_step derives them, computed
-on the schedule's device.
+the plain version; a CUDA tensor takes the hand-written kernel (kernel.py)
+or raises.  Coefficients come from a DiffusionSchedule at (real-valued) t
+exactly as core/schedules.ddpm_step derives them, computed on the
+schedule's device.
+
+``ddpm_step`` / ``ddpm_step_batched`` take the noise as an input (the
+Pallas kernel's interface).  The samplers' steps draw it themselves:
+``ddpm_step_keyed`` (the per-request chain) and ``ddpm_step_rowwise`` (the
+batched engine, with its active mask), each reading its coefficients from
+a table that ``step_coefficient_table`` computes once per sample or
+stage.  Their plain versions (ref.py) are the composition they replace,
+op for op (``prng.split`` / ``prng.normal`` or the row-keyed draw,
+``ddpm_step_ref``, ``torch.where``), so a CPU run gives the same bits as
+before the kernel drew its own noise.
 """
 from __future__ import annotations
 
@@ -12,7 +22,9 @@ import torch
 
 from repro_torch.core.schedules import DiffusionSchedule
 from repro_torch.kernels.ddpm_step import kernel
-from repro_torch.kernels.ddpm_step.ref import ddpm_step_ref
+from repro_torch.kernels.ddpm_step.ref import (ddpm_step_keyed_ref,
+                                               ddpm_step_ref,
+                                               ddpm_step_rowwise_ref)
 
 
 def step_coefficients(sched: DiffusionSchedule, t, t_prev=None):
@@ -31,10 +43,23 @@ def step_coefficients(sched: DiffusionSchedule, t, t_prev=None):
     return inv_sqrt_alpha, coef, sigma
 
 
+def step_coefficient_table(sched: DiffusionSchedule, t, t_prev=None):
+    """(..., 3) float32 table of (inv_sqrt_alpha, coef, sigma) at every
+    entry of ``t`` (and ``t_prev``): the steps of a sample or an engine
+    stage in one computation.  The arithmetic is elementwise, so row i
+    equals ``step_coefficients(sched, t[i], t_prev[i])`` bitwise."""
+    return torch.stack(step_coefficients(sched, t, t_prev), dim=-1) \
+        .contiguous()
+
+
 def _route(x_t):
-    if x_t.device.type not in ("cpu", "cuda"):
+    """True for a CUDA tensor, False for a CPU one (by the tensor's flags:
+    this runs at every denoising step)."""
+    if x_t.is_cuda:
+        return True
+    if not x_t.is_cpu:
         raise ValueError(f"ddpm_step runs on cpu or cuda, not {x_t.device}")
-    return x_t.device.type == "cuda"
+    return False
 
 
 def ddpm_step(x_t, eps_pred, noise, sched: DiffusionSchedule, t,
@@ -61,3 +86,27 @@ def ddpm_step_batched(x_t, eps_pred, noise, sched: DiffusionSchedule, t,
                              c.reshape(bshape), s.reshape(bshape))
     coef = torch.stack([a, c, s], dim=1).contiguous()
     return kernel.launch(x_t, eps_pred, noise, coef, "ddpm_step_batched")
+
+
+def ddpm_step_keyed(x_t, eps_pred, key, coef, key_out):
+    """One step of the per-request chain: ``k, kn = split(key)``, x_{t-1}
+    with noise ``normal(kn, x_t.shape)`` and the coefficient row ``coef``
+    (3,) of a ``step_coefficient_table``; ``k`` is written into the (2,)
+    buffer ``key_out`` (not ``key`` itself: a sampler alternates two)."""
+    if not _route(x_t):
+        out, k = ddpm_step_keyed_ref(x_t, eps_pred, key, coef)
+        key_out.copy_(k)
+        return out
+    return kernel.launch_keyed(x_t, eps_pred, key, coef, key_out)
+
+
+def ddpm_step_rowwise(x_t, eps_pred, keys, datum: int, coef, active):
+    """One step of the batched engine over (K, B, ...) slabs: row b of
+    slab k draws its noise from ``fold_in(fold_in(keys[k], datum), b)``
+    (``rowwise_normal``), slab k steps with row k of the (K, 3) ``coef``
+    (a step's column of a (K, S, 3) table), and a slab whose ``active``
+    entry is not > 0 keeps x_t bitwise."""
+    if not _route(x_t):
+        return ddpm_step_rowwise_ref(x_t, eps_pred, keys, datum, coef,
+                                     active)
+    return kernel.launch_rowwise(x_t, eps_pred, keys, datum, coef, active)

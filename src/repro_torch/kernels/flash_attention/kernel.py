@@ -20,7 +20,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels import build, raw_stream, refuse_grad
 from repro_torch.kernels.tma import BF16_BYTES, TmaMap, as_ctypes
 
 SOURCE = "flash_attention.cu"
@@ -116,7 +116,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = build.bind(SOURCE, "flash_attention_launch", _ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, H, Hkv, S, dh, int(causal), int(window), 1.0 / math.sqrt(dh),
-        code, *maps, torch._C._cuda_getCurrentRawStream(dev.index))
+        code, *maps, raw_stream(dev.index))
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel ({variant}) launch "
                            f"failed: cudaError {rc}")

@@ -20,7 +20,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels import build, raw_stream, refuse_grad
 from repro_torch.kernels.tma import BF16_BYTES, TmaMap, as_ctypes
 
 SOURCE = "grouped_matmul.cu"
@@ -133,7 +133,7 @@ def launch(tokens: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     rc = build.bind(SOURCE, "grouped_matmul_launch", _ARGTYPES)(
         tokens.data_ptr(), weights.data_ptr(), out.data_ptr(), E, C, D, F,
         se, sc, _VARIANT_CODES[variant], *maps,
-        torch._C._cuda_getCurrentRawStream(tokens.device.index))
+        raw_stream(tokens.device.index))
     if rc != 0:
         raise RuntimeError(f"grouped_matmul kernel ({variant}) launch "
                            f"failed: cudaError {rc}")

@@ -19,7 +19,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels import build, raw_stream, refuse_grad
 from repro_torch.kernels.tma import BF16_BYTES, TmaMap, as_ctypes
 
 SOURCE = "ssd_scan.cu"
@@ -159,7 +159,7 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     rc = build.bind(SOURCE, "ssd_scan_launch", _ARGTYPES)(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), y.data_ptr(), fs.data_ptr(), b, s, h, p, n, tq, code,
-        *maps, torch._C._cuda_getCurrentRawStream(dev.index))
+        *maps, raw_stream(dev.index))
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel ({variant}) launch failed: "
                            f"cudaError {rc}")

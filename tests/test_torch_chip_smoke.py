@@ -6,9 +6,11 @@ kernel; the CPU op's self device time repeats the time of the kernels it
 launched.  Device time is the sum over the device rows alone (the rule of
 torch's own profiler table); summing every row counted those kernels
 twice.  The grouped matmul's bound counts its bytes (tokens read once,
-one set when broadcast to every expert) and its flops; the ``kernels``
-line lists all five kernels with every key the contract names, and the
-three kernels with variants their launches per variant.  The training
+one set when broadcast to every expert) and its flops, the keyed DDPM
+step's its bytes and its draw's operations; the ``kernels`` line lists
+all five kernels with every key the contract names, and the kernels with
+variants their launches per variant; a main path's DDPM-step launches
+must all be keyed.  The training
 phase's checks (state copies, bitwise and toleranced comparisons of
 params, moments and step counters, the per-step recorder) run on a tiny
 round on the CPU.
@@ -94,13 +96,18 @@ def test_kernels_line_lists_every_kernel_with_every_key():
         head_dim_128=dict(ms=0.028, library_ms=0.035, bound_ms=0.0022))
     records["ssd_scan"].update(library_ms=None, card_ms=0.0054,
                                simt_ms=0.082)
-    records["ddpm_step"].update(card_ms=0.0016)
-    records["ddpm_step_batched"].update(card_ms=0.0021)
+    keyed = dict(op_ms=0.004, composed_ms=0.9, composed_card_ms=0.05,
+                 composed_events=420, keyed_card_ms=0.002, keyed_events=1,
+                 given=dict(ms=0.015, launch_ms=0.012))
+    records["ddpm_step"].update(card_ms=0.0016, **keyed)
+    records["ddpm_step_batched"].update(card_ms=0.0021, **keyed)
     launches = {n: i + 1 for i, n in enumerate(names)}
     launches.update({"flash_attention/wgmma": 3, "flash_attention/simt": 0,
                      "grouped_matmul/wgmma": 5, "grouped_matmul/wmma": 0,
                      "grouped_matmul/simt": 0, "ssd_scan/wgmma": 4,
-                     "ssd_scan/simt": 0})
+                     "ssd_scan/simt": 0, "ddpm_step/keyed": 2,
+                     "ddpm_step/given": 0, "ddpm_step_batched/rowwise": 1,
+                     "ddpm_step_batched/given": 0})
     line = cs.kernels_line(records, launches)
     assert [k["name"] for k in line["kernels"]] == names
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -109,7 +116,9 @@ def test_kernels_line_lists_every_kernel_with_every_key():
                                  "head_dim_128"},
              "ssd_scan": {"launches_by_variant", "card_ms", "simt_ms"},
              "grouped_matmul": {"launches_by_variant", "card_ms", "shapes"},
-             "ddpm_step": {"card_ms"}, "ddpm_step_batched": {"card_ms"}}
+             "ddpm_step": {"card_ms", "launches_by_variant"} | set(keyed),
+             "ddpm_step_batched": {"card_ms", "launches_by_variant"} |
+             set(keyed)}
     for k in line["kernels"]:
         assert set(k) == keys | extra.get(k["name"], set())
         assert k["route"] == "cuda"
@@ -134,6 +143,56 @@ def test_kernels_line_lists_every_kernel_with_every_key():
     assert line["kernels"][0]["library_ms"] is None
     assert line["kernels"][1]["card_ms"] == 0.0016
     assert line["kernels"][0]["card_ms"] == 0.0021
+    assert line["kernels"][1]["launches_by_variant"] == {"keyed": 2,
+                                                         "given": 0}
+    assert line["kernels"][0]["launches_by_variant"] == {"rowwise": 1,
+                                                         "given": 0}
+    assert line["kernels"][1]["given"] == keyed["given"]
+
+
+def test_keyed_bound_counts_bytes_and_the_draws_operations():
+    """At the per-request shape (4, 32, 32, 3) fp32: x and eps read and
+    the output written, the two keys and a coefficient row take 0.044 us;
+    the draw's integer operations at 64 an SM a clock take longer, 0.060
+    us, and bind.  Integer and float operations together at one a lane a
+    clock stay under that.  At K = 4 slabs of it: 0.176 us of bytes, 0.241
+    us of integer operations; a masked slab moves x only and draws
+    nothing."""
+    cs = _chip_smoke()
+    assert cs.FP32_INSTR_PER_S == cs.FP32_FLOPS_PER_S / 2
+    assert cs.INT32_OPS_PER_S == cs.FP32_FLOPS_PER_S / 4
+    n = 4 * 32 * 32 * 3
+    ms, by = cs.keyed_bound(n, 4, 2, 44)
+    t_bytes = (3 * n * 4 + 44) / cs.HBM_BYTES_PER_S * 1e3
+    int_ops = n * cs.DRAW_INT_OPS + 2 * cs.THREEFRY_INT_OPS
+    assert round(t_bytes * 1e3, 3) == 0.044
+    assert by == "operations" and ms == int_ops / cs.INT32_OPS_PER_S * 1e3
+    assert round(ms * 1e3, 3) == 0.060
+    all_ops = int_ops + n * cs.DRAW_FLOAT_OPS
+    assert all_ops / cs.FP32_INSTR_PER_S * 1e3 < ms
+    msb, byb = cs.keyed_bound(4 * n, 4, 4 + 16, 4 * 32)
+    assert byb == "operations" and round(msb * 1e3, 3) == 0.241
+    assert (3 * 4 * n * 4 + 4 * 32) / cs.HBM_BYTES_PER_S * 1e3 < msb
+    masked, _ = cs.keyed_bound(3 * n, 4, 3 + 12, 4 * 32, passed=n)
+    assert masked < msb
+    # bytes bind where the draw is small beside what moves: one element
+    # of a slab that is masked off but for it
+    _, by_masked = cs.keyed_bound(1, 4, 2, 44, passed=n)
+    assert by_masked == "bytes"
+    assert cs.THREEFRY_INT_OPS == 2 + 5 * 4 * 3 + 5 * 3
+
+
+def test_check_ddpm_launches_wants_only_the_keyed_variants():
+    cs = _chip_smoke()
+    good = {"ddpm_step": 10, "ddpm_step/keyed": 10, "ddpm_step/given": 0,
+            "ddpm_step_batched": 7, "ddpm_step_batched/rowwise": 7,
+            "ddpm_step_batched/given": 0}
+    cs.check_ddpm_launches("t", good, 10, 7)
+    for bad in (dict(good, **{"ddpm_step/given": 1, "ddpm_step": 11}),
+                dict(good, **{"ddpm_step_batched/rowwise": 6}),
+                {"ddpm_step": 10, "ddpm_step_batched": 7}):
+        with pytest.raises(AssertionError, match="DDPM-step launches"):
+            cs.check_ddpm_launches("t", bad, 10, 7)
 
 
 def _small_round_inputs():

@@ -83,7 +83,8 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(ops.ddpm_step(x, x, x, sched, 5.0),
                        ddpm_step_ref(x, x, x, a, c, s))
     ops.ddpm_step_batched(x, x, x, sched, torch.tensor([3.0, 9.0]))
-    assert kernel.COUNTS == {"ddpm_step": 0, "ddpm_step_batched": 0}
+    assert set(kernel.COUNTS) >= {"ddpm_step", "ddpm_step_batched"}
+    assert all(n == 0 for n in kernel.COUNTS.values())
 
 
 def test_kernel_refuses_cpu_tensors():
