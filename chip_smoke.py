@@ -44,18 +44,35 @@ package).  Phases, each of which fails the run on any error:
    peak memory.  Then, with the DDPM-step counters zeroed just before, one
    Alg.-2 sample (``sample_for_client``) from the trained server and
    client 0: exactly T = 1000 keyed DDPM-step launches;
-8. flash attention and the SSD scan against their plain versions on the
+8. the federated training runtime: the CLI's ``--smoke`` contracts (a)-(f)
+   on the card with the toy denoiser, then ``TrainRuntime`` with the same
+   six CONFIG U-Nets and batches (bernoulli p 0.8, mid-round dropout 0.1,
+   FedAvg every 2 rounds, EMA 0.99, RT_ROUNDS rounds): one engine
+   signature per participation tier, a restore of the round-2 checkpoint
+   that finishes bitwise equal to the uninterrupted run, round 1 against
+   the same round on the CPU port (cohorts bitwise; params, moments and
+   steps within TRAIN_TOL and TRAIN_MOMENT_RTOL), the gap between a
+   cohort padded to its tier and the cohort alone (within TRAIN_TOL,
+   "bitwise" when 0), a DP run (clip 1.0, noise 0.8) with secagg on
+   bitwise equal to off; per round the wall (CUDA events), rounds/s,
+   Alg.-1 steps/s, device ms (profiler) and idle share, peak memory and
+   the checkpoint's save / restore seconds; then, with the DDPM-step
+   counters zeroed just before, one Alg.-2 sample from the EMA server
+   (``sampling_server_params``) and client 0: exactly 1,000 keyed
+   launches;
+9. flash attention and the SSD scan against their plain versions on the
    card at the JAX package's test shapes (tests/test_kernels.py sweeps)
    and shapes that reach the wgmma variants (flash at head dim 128 and
    over three K/V tiles; the SSD scan's SSD_WGMMA, in bf16), float32 and
    bfloat16, with those tests' tolerances (SSD_WGMMA: SSD_BF16_RANGE);
    both variants (wgmma, simt) of each must be launched;
-9. the DiT path: server and three client Zamba2-1.2B DiTs at full width
+10. the DiT path: server and three client Zamba2-1.2B DiTs at full width
    (configs/zamba2_1p2b.py, bf16, 38 Mamba2 layers, the shared
    attention+MLP block every 6) on 32x32x3 images in 4x4 patches (64
    tokens), threefry-initialised on the card.  An Alg.-1 loss through
-   the DiT with grad enabled must raise the kernels' refusal (no backward
-   on CUDA yet).  The flash and SSD kernels
+   the DiT with grad enabled, and a ``TrainRuntime`` round with the DiT as
+   its denoiser, must raise the kernels' refusal (no backward on CUDA
+   yet).  The flash and SSD kernels
    are held against their plain versions on the inputs the first forward
    feeds them and timed there; then, with every launch counter zeroed just
    before, one per-request Alg.-2 sample (T=1000, cut 250, batch 4) and
@@ -65,13 +82,13 @@ package).  Phases, each of which fails the run on any error:
    variants.  Flash's and the SSD scan's rows of batch 1 must equal those
    of batch 4 bitwise.  The pass's outputs must equal
    ``sample_plan_reference`` bitwise on the card;
-10. the grouped matmul against its plain version on the card at the JAX
+11. the grouped matmul against its plain version on the card at the JAX
    package's test shapes (tests/test_kernels.py sweep) and shapes that
    reach the wgmma variant (C over one 256-row tile, ragged F), float32
    and bfloat16, with contiguous tokens and tokens broadcast to every
    expert (expert stride 0), and a misaligned token pointer; the wgmma,
    wmma and simt variants must all be launched;
-11. the MoE path: the Zamba2 models are freed, then server and three
+12. the MoE path: the Zamba2 models are freed, then server and three
    client DiTs with DBRX-132B blocks at full width (configs/dbrx_132b.py:
    d_model 6144, 48 query / 8 KV heads of 128, 16 experts of FFN width
    10,752, top-4, bf16) cut to 2 blocks (MOE_LAYERS), on the same 64
@@ -87,7 +104,7 @@ package).  Phases, each of which fails the run on any error:
    6 grouped-matmul and 2 flash launches per forward, all on the wgmma
    variants.  The pass's outputs must equal ``sample_plan_reference``
    bitwise;
-12. a ``kernels`` JSON line, the card line again, and the result line.
+13. a ``kernels`` JSON line, the card line again, and the result line.
 
 Exits nonzero, printing no result line, without a CUDA device or outside
 a checkout.
@@ -182,6 +199,14 @@ TRAIN_CLIENTS, TRAIN_CUT, TRAIN_BATCH, TRAIN_BATCHES = 5, 250, 8, 2
 # the card with TF32 allowed must fall outside these limits.
 TRAIN_TOL = dict(atol=2e-5, rtol=2e-3)
 TRAIN_MOMENT_RTOL = 2e-3
+# the training runtime: the same six CONFIG U-Nets and batches under
+# bernoulli participation p 0.8 with mid-round dropout 0.1, FedAvg every 2
+# rounds, server EMA 0.99, 4 rounds from base key PRNGKey(RT_SEED): seed 1
+# seats cohorts of 5, 5, 5 and 4 clients (tiers 8, 8, 8, 4; rounds 1-3
+# drop members at slots 0 and 1), so pad slots and a strict subset both
+# occur; the DP run clips at 1.0 with noise multiplier 0.8
+RT_ROUNDS, RT_P, RT_DROP, RT_FEDAVG, RT_EMA, RT_SEED = 4, 0.8, 0.1, 2, 0.99, 1
+RT_DP = dict(clip=1.0, noise_multiplier=0.8)
 TRAIN_METRIC_RTOL = 1e-4
 REPLACES = {"ddpm_step": "src/repro/kernels/ddpm_step/kernel.py:43",
             "ddpm_step_batched": "src/repro/kernels/ddpm_step/kernel.py:85",
@@ -310,11 +335,13 @@ def gmm_bound(E: int, C: int, D: int, F: int, itemsize: int,
                   BF16_FLOPS_PER_S if itemsize == 2 else FP32_FLOPS_PER_S)
 
 
-def kernels_line(records, launches):
+def kernels_line(records, launches, by_path=None):
     """The ``kernels`` JSON object: one entry per kernel with its route,
     source, the TPU kernel it replaces, its main-path launches and the
     numbers measured in this run, with its card time (from a profile of
-    the path) where measured.  A kernel with variants also carries its
+    the path) where measured.  With ``by_path`` ({path: launches}) each
+    entry also carries its launches per main path.  A kernel with
+    variants also carries its
     launches per variant (``launches`` keys ``<name>/<variant>``); flash
     attention its numbers at head dim 128 as well, the SSD scan the simt
     variant's time at the path's shape, and the two DDPM entries (whose
@@ -336,6 +363,9 @@ def kernels_line(records, launches):
                       if k.startswith(name + "/")}
         if by_variant:
             entry["launches_by_variant"] = by_variant
+        if by_path is not None:
+            entry["launches_by_path"] = {p: n.get(name, 0)
+                                         for p, n in by_path.items()}
         entry.update({k: records[name][k] for k in extra
                       if k in records[name]})
         line.append(entry)
@@ -983,8 +1013,14 @@ def compare_states(a, b, tol=None) -> dict:
     """Per kind of tensor ("p", "m", "v", "step"): (max |a − b|, elements
     beyond ``tol`` — any that differ when ``tol`` is None) over two
     ``CollabState``s of one layout, b's tensors moved to a's device."""
+    return compare_tensors(state_tensors(a), state_tensors(b), tol)
+
+
+def compare_tensors(ta: dict, tb: dict, tol=None) -> dict:
+    """``compare_states`` over two ``{name: tensor}`` maps named as
+    ``state_tensors`` names them (``<model>.<kind>.<param>`` and
+    ``<model>.step``)."""
     import torch
-    ta, tb = state_tensors(a), state_tensors(b)
     if set(ta) != set(tb):
         raise AssertionError("compare_states: the states differ in layout")
     out = {}
@@ -1004,7 +1040,11 @@ def moment_gaps(a, b) -> dict:
     """For "m" and "v": the largest over leaves of max |a − b| / max |b|
     (0 where both are zero, inf where only b is) over two ``CollabState``s
     of one layout, b's tensors moved to a's device."""
-    ta, tb = state_tensors(a), state_tensors(b)
+    return tensor_moment_gaps(state_tensors(a), state_tensors(b))
+
+
+def tensor_moment_gaps(ta: dict, tb: dict) -> dict:
+    """``moment_gaps`` over two ``{name: tensor}`` maps."""
     out = {"m": 0.0, "v": 0.0}
     for name, x in ta.items():
         kind = name.split(".")[1]
@@ -1250,6 +1290,327 @@ def phase_train():
     torch.cuda.empty_cache()
     log(f"train/phase_s: {time.perf_counter() - t_phase:.1f}")
     return launches, card_ms
+
+
+def runtime_tensors(rt) -> dict:
+    """Every tensor of a ``TrainRuntime`` by name, as ``state_tensors``
+    names a ``CollabState``'s: the server, each client (``client<uid>``),
+    the EMA track (``ema``) and the DP reference (``dpref``) — parameters,
+    both AdamW moments and step counters."""
+    from repro_torch.core import trees
+    models = [("server", rt.server_params, rt.server_opt)] + [
+        (f"client{u}", rt.registry.get(u).params, rt.registry.get(u).opt)
+        for u in rt.registry.uids()] + [
+        ("ema", rt.ema_server, None), ("dpref", rt._dp_ref, None)]
+    out = {}
+    for tag, model, opt in models:
+        if model is None:
+            continue
+        for n, p in trees.as_tree(model).items():
+            out[f"{tag}.p.{n}"] = p.detach()
+        if opt is not None:
+            for kind in ("m", "v"):
+                for n, t in opt[kind].items():
+                    out[f"{tag}.{kind}.{n}"] = t
+            out[f"{tag}.step"] = opt["step"]
+    return out
+
+
+def runtime_counters(rt) -> tuple:
+    """A runtime's cursor, step and DP counters, its accountant's RDP
+    vector and each client's sample counters and membership."""
+    acc = None if rt._accountant is None else \
+        (rt._accountant.steps, rt._accountant.state_dict()["rdp"].tolist())
+    return (rt.round, rt.total_steps, rt.dp_epoch, acc, len(rt._pending),
+            [(u, r.seen, r.window_seen, r.window_member, r.active)
+             for u, r in ((u, rt.registry.get(u))
+                          for u in rt.registry.uids())])
+
+
+def assert_runtime_bitwise(tag: str, a, b) -> None:
+    diff = compare_tensors(runtime_tensors(a), runtime_tensors(b))
+    if any(bad for _, bad in diff.values()) or \
+            runtime_counters(a) != runtime_counters(b):
+        raise AssertionError(f"runtime: {tag} not bitwise: {diff}; "
+                             f"{runtime_counters(a)} vs {runtime_counters(b)}")
+
+
+def padding_gap(rt, cfg, apply_fn, cohort, drops) -> float:
+    """The largest |padded − unpadded| over the server's and the cohort's
+    params, moments and steps after one engine round from ``rt``'s state:
+    the cohort seated in its participation tier (or twice its size when
+    it fills its tier), pad slots all-masked, against the cohort alone."""
+    import numpy as np
+    import torch
+    from repro_torch.core import prng, trees
+    from repro_torch.core.collab import make_vectorized_round
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import plan_round
+    from repro_torch.train.participation import TAG_ROUND
+    plan = plan_round(rt.registry, cohort, rt.round, rt._key,
+                      n_batches=cfg.batches_per_round,
+                      batch_size=cfg.batch_size, image_shape=cfg.image_shape,
+                      n_classes=cfg.n_classes, drops=drops, device=rt.device)
+    m = len(plan.cohort)
+    width = plan.tier if plan.tier > m else 2 * plan.tier
+    engine = make_vectorized_round(rt.sched, rt.cut, apply_fn,
+                                   AdamWConfig(lr=cfg.lr),
+                                   identity_keyed=True)
+    rkey = prng.fold_in(prng.fold_in(rt._key, TAG_ROUND), rt.round)
+
+    def seat(k: int) -> dict:
+        pad = k - m
+        xs, ys = plan.xs[:, :m], plan.ys[:, :m]
+        xs = torch.cat([xs, xs.new_zeros((xs.shape[0], pad) + xs.shape[2:])],
+                       1)
+        ys = torch.cat([ys, ys.new_zeros((ys.shape[0], pad) + ys.shape[2:])],
+                       1)
+        mask = np.concatenate([plan.mask[:, :m], np.zeros(
+            (plan.mask.shape[0], pad, plan.mask.shape[2]), np.float32)], 1)
+        uids = np.asarray(list(plan.uids[:m]) + [plan.uids[0]] * pad,
+                          np.int32)
+        cp = [trees.copy(rt.registry.get(u).params) for u in plan.cohort]
+        co = [trees.copy(rt.registry.get(u).opt) for u in plan.cohort]
+        sp, so = trees.copy(rt.server_params), trees.copy(rt.server_opt)
+        engine(cp + [cp[0]] * pad, co + [co[0]] * pad, sp, so, xs, ys, mask,
+               uids, rkey.to(rt.device))
+        out = {}
+        for tag, model, opt in [("server", sp, so)] + [
+                (f"client{u}", p, o) for u, p, o in zip(plan.cohort, cp, co)]:
+            for n, t in trees.as_tree(model).items():
+                out[f"{tag}.p.{n}"] = t
+            for kind in ("m", "v"):
+                for n, t in opt[kind].items():
+                    out[f"{tag}.{kind}.{n}"] = t
+            out[f"{tag}.step"] = opt["step"]
+        return out
+
+    padded, alone = seat(width), seat(m)
+    diff = compare_tensors(padded, alone, TRAIN_TOL)
+    gap = max(e for e, _ in diff.values())
+    if any(bad for _, bad in diff.values()):
+        raise AssertionError(f"runtime: tier padding beyond TRAIN_TOL: {diff}")
+    log(f"runtime/tier_padding: cohort {plan.cohort} seated in {width} slots "
+        f"vs alone, one round: max |gap| {gap:.3g} over params, moments and "
+        f"steps (tolerance {TRAIN_TOL})" + (": bitwise" if gap == 0 else ""))
+    return gap
+
+
+def phase_train_runtime():
+    """The federated training runtime on the card: (A) the CLI's ``--smoke``
+    contracts with the toy denoiser; (B) ``TrainRuntime`` with six CONFIG
+    U-Nets over RT_ROUNDS rounds of cohort sampling, FedAvg and EMA — one
+    signature per tier, a bitwise resume from the round-2 checkpoint,
+    round 1 against the CPU port, the tier-padding gap, a DP run with
+    secagg on equal to off — then one Alg.-2 sample from the EMA server
+    and client 0.  Returns the DDPM-step launches of the sample."""
+    import tempfile
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.ddpm_unet import CONFIG
+    from repro_torch.core import prng
+    from repro_torch.core.collab import CollabConfig, build_denoiser
+    from repro_torch.core.sampler import collaborative_sample
+    from repro_torch.core.unet import UNet
+    from repro_torch.data.synthetic import (SyntheticConfig,
+                                            make_client_datasets)
+    from repro_torch.device import deterministic_cuda
+    from repro_torch.kernels.ddpm_step import kernel as dkernel
+    from repro_torch.launch import collab_train
+    from repro_torch.train import (ParticipationConfig, PrivacyConfig,
+                                   TrainConfig, TrainRuntime)
+    from repro_torch.train.participation import sample_drops
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    t0 = time.perf_counter()
+    collab_train.main(["--smoke", "--device", "cuda"])
+    log(f"runtime/smoke_s: {time.perf_counter() - t0:.1f} (the CLI's "
+        "contracts (a)-(f) with the toy denoiser on the card)")
+
+    deterministic_cuda()
+    cfg = TrainConfig(
+        T=1000, t_cut=TRAIN_CUT, image_shape=IMG, n_classes=CONFIG.n_classes,
+        batch_size=TRAIN_BATCH, batches_per_round=TRAIN_BATCHES, lr=1e-3,
+        participation=ParticipationConfig(policy="bernoulli", p=RT_P,
+                                          drop_p=RT_DROP),
+        fedavg_every=RT_FEDAVG, ema_decay=RT_EMA)
+    ccfg = CollabConfig(n_clients=TRAIN_CLIENTS, T=cfg.T, t_cut=cfg.t_cut,
+                        image_size=IMG[0], channels=IMG[2],
+                        n_classes=CONFIG.n_classes, batch_size=TRAIN_BATCH,
+                        unet=CONFIG)
+    init_one, apply_fn = build_denoiser(None, ccfg, "cuda")
+    scfg = SyntheticConfig(image_size=IMG[0], channels=IMG[2],
+                           n_attrs=CONFIG.n_classes)
+    data = make_client_datasets(prng.PRNGKey(1), scfg, TRAIN_CLIENTS,
+                                TRAIN_BATCH * TRAIN_BATCHES, non_iid=True,
+                                device="cuda")
+    key = prng.PRNGKey(RT_SEED)
+
+    def fresh(config):
+        rt = TrainRuntime(config, init_one, apply_fn, key, device="cuda")
+        for x, y in data:
+            rt.register_client(x, y)
+        return rt
+
+    def attach(rt, device):
+        for uid, (x, y) in enumerate(data):
+            rt.attach_data(uid, x.to(device), y.to(device))
+
+    tmp = tempfile.TemporaryDirectory()
+    p0, p2 = f"{tmp.name}/round0.msgpack", f"{tmp.name}/round2.msgpack"
+    rt = fresh(cfg)
+    t0 = time.perf_counter()
+    rt.save(p0)
+    save_s = time.perf_counter() - t0
+    ckpt_mb = Path(p0).stat().st_size / 1e6
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps, walls = [], []
+    for r in range(RT_ROUNDS):
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        start.record()
+        reps.append(rt.run_round())
+        end.record()
+        end.synchronize()
+        walls.append(start.elapsed_time(end))
+        if r == 0:
+            after0 = {n: t.clone() for n, t in runtime_tensors(rt).items()}
+        if r == 1:
+            rt.save(p2)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for rep, w in zip(reps, walls):
+        log(f"runtime/round {rep['round']}: cohort {rep['cohort']} tier "
+            f"{rep['tier']} drops {rep['mid_round_drops']} real_samples "
+            f"{rep['real_samples']} client_loss {rep['client_loss']:.6g} "
+            f"server_loss {rep['server_loss']:.6g} fedavg "
+            f"{rep['fedavg_applied']} traces {rep['engine_traces']}; wall "
+            f"{w:.3f} ms (events)")
+    tiers = {rep["tier"] for rep in reps if rep["tier"]}
+    if rt.traces != len(tiers) or reps[-1]["max_signatures_per_tier"] != 1:
+        raise AssertionError(f"runtime: {rt.traces} signatures for tiers "
+                             f"{sorted(tiers)}")
+    if not any(rep["strict_subset"] for rep in reps):
+        raise AssertionError("runtime: no round seated a strict subset")
+    log(f"runtime/signatures: {rt.traces} for tiers {sorted(tiers)} (one "
+        "per tier)")
+
+    t0 = time.perf_counter()
+    resumed = TrainRuntime.restore(cfg, init_one, apply_fn, p2,
+                                   device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    attach(resumed, "cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        resumed.run_round()
+        torch.cuda.synchronize()
+    resumed.run_round()
+    assert_runtime_bitwise("resume at round 2", resumed, rt)
+    log(f"runtime/resume: restored at round 2 from {ckpt_mb:.1f} MB, two "
+        "more rounds: bitwise equal to the uninterrupted run (params, "
+        "moments, steps, EMA, registry counters)")
+    rows = device_rows(prof.key_averages())
+    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    dev_events = sum(e.count for e in rows)
+    del resumed
+
+    # round 1 on the CPU port from the same state (the round-0 file)
+    cpu = TrainRuntime.restore(cfg, lambda k: UNet(CONFIG), apply_fn, p0,
+                               device="cpu")
+    attach(cpu, "cpu")
+    t0 = time.perf_counter()
+    rep_cpu = cpu.run_round()
+    cpu_s = time.perf_counter() - t0
+    same = ("cohort", "tier", "mid_round_drops", "real_samples",
+            "padded_cells")
+    if [rep_cpu[k] for k in same] != [reps[0][k] for k in same]:
+        raise AssertionError(f"runtime: CPU round 1 {rep_cpu} vs card "
+                             f"{reps[0]}")
+    tcpu = runtime_tensors(cpu)
+    diff = compare_tensors(after0, tcpu, TRAIN_TOL)
+    gaps = tensor_moment_gaps(after0, tcpu)
+    fails = [f"{k}: {n} beyond" for k, (_, n) in diff.items() if n] + [
+        f"{k} scaled {g:.3g}" for k, g in gaps.items()
+        if not g <= TRAIN_MOMENT_RTOL]
+    log(f"runtime/card_vs_cpu ({cpu_s:.1f} s on the CPU): cohorts, tiers, "
+        "drops bitwise; " + "; ".join(
+            f"{k} max abs {e:.3g}, {n} beyond" for k, (e, n) in diff.items())
+        + f" (tolerance {TRAIN_TOL}, steps exact); moments scaled "
+        + ", ".join(f"{k} {g:.3g}" for k, g in gaps.items())
+        + f" (tolerance {TRAIN_MOMENT_RTOL})")
+    if fails:
+        raise AssertionError(f"runtime: card vs CPU beyond tolerance: "
+                             f"{fails}")
+    del cpu
+
+    base = TrainRuntime.restore(cfg, init_one, apply_fn, p0, device="cuda")
+    attach(base, "cuda")
+    gap = padding_gap(base, cfg, apply_fn, reps[0]["cohort"], sample_drops(
+        cfg.participation, key, 0, reps[0]["cohort"], cfg.batches_per_round))
+    del base
+    tmp.cleanup()
+
+    runs = {}
+    for secagg in (False, True):
+        dcfg = dataclasses.replace(cfg, privacy=PrivacyConfig(
+            secagg=secagg, **RT_DP))
+        t0 = time.perf_counter()
+        runs[secagg] = fresh(dcfg)
+        dreps = runs[secagg].run(2)
+        torch.cuda.synchronize()
+        log(f"runtime/dp secagg={secagg}: 2 rounds in "
+            f"{time.perf_counter() - t0:.2f} s, dp_epoch "
+            f"{dreps[-1]['dp_epoch']}, eps {dreps[-1]['dp_epsilon']:.6g} "
+            f"(delta {dcfg.privacy.delta}), clip_frac "
+            f"{dreps[-1]['dp_clip_frac']}")
+    if runs[False].dp_epoch < 1:
+        raise AssertionError("runtime: the DP run released nothing")
+    assert_runtime_bitwise("DP secagg on vs off", runs[True], runs[False])
+    log("runtime/dp: secagg on == off bitwise (params, moments, steps, EMA, "
+        "DP reference, accountant)")
+    del runs
+
+    # Alg. 2 from the trained runtime: the EMA server and client 0
+    eye = np.eye(cfg.n_classes, dtype=np.float32)
+    y0 = torch.from_numpy(np.broadcast_to(eye[0], (B, cfg.n_classes))
+                          .copy()).cuda()
+    torch.cuda.synchronize()
+    dkernel.reset_counts()                       # --- sample starts
+    t0 = time.perf_counter()
+    x0 = collaborative_sample(rt.sampling_server_params(),
+                              rt.registry.get(0).params,
+                              prng.fold_in(key, 7).cuda(), y0, (B,) + IMG,
+                              rt.sched, rt.cut, apply_fn)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    launches = dict(dkernel.COUNTS)              # --- sample ends
+    if tuple(x0.shape) != (B,) + IMG or not torch.isfinite(x0).all():
+        raise AssertionError(f"runtime: sample {tuple(x0.shape)} not finite")
+    check_ddpm_launches("runtime sample", launches, cfg.T, 0)
+    log(f"runtime/sample: T={cfg.T} cut {cfg.t_cut} batch {B} from the EMA "
+        f"server and client 0, wall_s {sample_s:.3f}; launches {launches}")
+
+    steady = walls[1:]
+    round_ms = sum(steady) / len(steady)
+    log(f"runtime/round: wall {round_ms:.3f} ms (events, mean of rounds "
+        f"2-{RT_ROUNDS}; round 1 {walls[0]:.3f} ms), "
+        f"{1e3 / round_ms:.3f} rounds/s, "
+        f"{rt.total_steps / (sum(walls) / 1e3):.3f} Alg.-1 steps/s "
+        f"({rt.total_steps} real (client, batch) cells in {RT_ROUNDS} "
+        f"rounds); device {dev_ms:.3f} ms over {dev_events} device events "
+        f"(profiler, round 3 of the resumed run; the uninterrupted run's "
+        f"round 3: {walls[2]:.3f} ms wall), idle "
+        f"{100 * (1 - dev_ms / walls[2]):.1f}%; DDPM-step launches a round "
+        f"0; peak memory {peak_gb:.3f} GB; checkpoint {ckpt_mb:.1f} MB, save "
+        f"{save_s:.2f} s, restore {restore_s:.2f} s; tier padding gap "
+        f"{gap:.3g}; card {card}")
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"runtime/phase_s: {time.perf_counter() - t_phase:.1f}")
+    return launches
 
 
 def ssd_range_check(out, ref, what: str) -> float:
@@ -1573,6 +1934,38 @@ def refuse_dit_loss(apply_fn, sp, xty) -> None:
                              "through kernels that have no backward")
 
 
+def refuse_dit_runtime(apply_fn, sp, n_classes: int) -> None:
+    """A ``TrainRuntime`` round whose denoiser is the full-width DiT must
+    raise the kernels' refusal on the card too (no fallback) and leave the
+    runtime where it was: server and client are ``sp`` itself, one client
+    with one batch of B images."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.train import ParticipationConfig, TrainConfig, \
+        TrainRuntime
+    cfg = TrainConfig(T=1000, t_cut=250, image_shape=IMG,
+                      n_classes=n_classes, batch_size=B, batches_per_round=1,
+                      participation=ParticipationConfig(policy="full"))
+    rt = TrainRuntime(cfg, lambda k: sp, apply_fn, prng.PRNGKey(0),
+                      device="cuda")
+    eye = torch.eye(n_classes, device="cuda")
+    rt.register_client(torch.zeros((B,) + IMG, device="cuda"),
+                       eye[torch.arange(B, device="cuda") % n_classes])
+    try:
+        rt.run_round()
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        log(f"dit/runtime_refusal: TrainRuntime.run_round raised: {e}")
+    else:
+        raise AssertionError("dit: a training round ran through kernels "
+                             "that have no backward")
+    if rt.round != 0 or int(rt.server_opt["step"]) != 0:
+        raise AssertionError("dit: the refused round moved the runtime")
+    del rt
+    torch.cuda.empty_cache()
+
+
 def phase_dit():
     """The DiT path at full width.  Returns (kernel records at the DiT's
     shapes, launches of the path's run)."""
@@ -1612,6 +2005,7 @@ def phase_dit():
     if eps.shape != xty[0].shape or not torch.isfinite(eps).all():
         raise AssertionError(f"dit: bad forward {tuple(eps.shape)}")
     refuse_dit_loss(apply_fn, sp, xty)
+    refuse_dit_runtime(apply_fn, sp, dcfg.n_classes)
 
     records = {}
     (q, k, v), kw, out = captured["flash_attention"][0]
@@ -1893,6 +2287,7 @@ def main() -> int:
     launches, batched_card_ms = phase_main_path(fwd_ms)
     phase_contracts()
     train_launches, ddpm_card_ms = phase_train()
+    runtime_launches = phase_train_runtime()
     dit_records, dit_launches = phase_dit()
     phase_grouped_matmul()
     moe_records, moe_launches = phase_moe()
@@ -1902,13 +2297,15 @@ def main() -> int:
     records["flash_attention"]["head_dim_128"] = \
         moe_records.pop("flash_attention@128")
     records.update(moe_records)
-    # launches of the four main paths (each counted from zero just
+    # launches of the five main paths (each counted from zero just
     # before it)
-    for path in (train_launches, dit_launches, moe_launches):
-        launches = {name: launches.get(name, 0) + path.get(name, 0)
-                    for name in set(launches) | set(path)}
+    by_path = {"serve": launches, "train": train_launches,
+               "train_runtime": runtime_launches, "dit": dit_launches,
+               "moe": moe_launches}
+    launches = {name: sum(path.get(name, 0) for path in by_path.values())
+                for name in set().union(*by_path.values())}
     log(f"total_s: {time.perf_counter() - t_start:.1f}")
-    log(json.dumps(kernels_line(records, launches)))
+    log(json.dumps(kernels_line(records, launches, by_path)))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -82,15 +82,13 @@ def make_payload(x0, y, key, sched: DiffusionSchedule, cut: CutPoint,
                  dp_sigma: float = 0.0, dp_clip: float = 0.0
                  ) -> ServerPayload:
     """Lines 6–10 of Alg. 1 (the diffusion process on the client node).
-    The Gaussian mechanism on the shipped x_{t_s} (``dp_sigma`` > 0) is
-    not ported yet: it comes with the ``privacy/`` slice, and until then
-    asking for it raises rather than skipping the noise."""
-    if dp_sigma > 0.0 and dp_clip > 0.0:
-        raise NotImplementedError(
-            "make_payload: differential privacy (dp_sigma > 0) comes with "
-            "the port's privacy/ slice; not ported yet")
+    With ``dp_sigma`` > 0 and ``dp_clip`` > 0 the shipped x_{t_s} also
+    goes through the Gaussian mechanism (privacy/dp.privatize_payload:
+    per-row L2 clip to ``dp_clip``, then N(0, (dp_sigma·dp_clip)²)
+    row-keyed noise from the fourth key of the split); ε_s is unchanged,
+    so the server sees the noise as label noise."""
     B = x0.shape[0]
-    k_ts, k_es, k_ec, _ = prng.split(key, 4)
+    k_ts, k_es, k_ec, k_dp = prng.split(key, 4)
     if eps_c is None:
         eps_c = rowwise_normal(k_ec, x0.shape)
     t_s = cut.sample_server_t(k_ts, B)
@@ -98,21 +96,28 @@ def make_payload(x0, y, key, sched: DiffusionSchedule, cut: CutPoint,
     t_cut = torch.full((B,), float(cut.t_cut), device=x0.device)
     x_cut = sched.q_sample(x0, t_cut, eps_c)
     x_ts = sched.renoise(x_cut, cut.t_cut, t_s, eps_s)
+    if dp_sigma > 0.0 and dp_clip > 0.0:
+        from repro_torch.privacy.dp import privatize_payload  # no cycle
+        x_ts = privatize_payload(x_ts, k_dp, dp_sigma, dp_clip)
     return ServerPayload(x_ts, eps_s, t_s, y)
 
 
 def client_losses(client_params, x0, y, key, sched: DiffusionSchedule,
-                  cut: CutPoint, apply_fn
+                  cut: CutPoint, apply_fn, weights=None
                   ) -> Tuple[torch.Tensor, ServerPayload]:
     """(client loss, server payload).  Differentiable in client_params
-    only; the payload is detached."""
+    only; the payload is detached.  ``weights`` (B,): the validity mask of
+    a padded batch; masked rows carry no loss or gradient, and since every
+    draw is row-keyed the real rows draw what their unpadded batch would.
+    The payload holds every row; the caller weights the server loss."""
     B = x0.shape[0]
     k_tc, k_ec, k_pay = prng.split(key, 3)
     eps_c = rowwise_normal(k_ec, x0.shape)
     if cut.t_cut > 0:
         t_c = cut.sample_client_t(k_tc, B)
         x_tc = sched.q_sample(x0, t_c, eps_c)
-        loss_c = mse_eps_loss(apply_fn, client_params, x_tc, t_c, y, eps_c)
+        loss_c = mse_eps_loss(apply_fn, client_params, x_tc, t_c, y, eps_c,
+                              weights=weights)
     else:
         loss_c = torch.zeros((), dtype=torch.float32, device=x0.device)
     payload = make_payload(x0, y, k_pay, sched, cut, eps_c=eps_c)
@@ -120,9 +125,10 @@ def client_losses(client_params, x0, y, key, sched: DiffusionSchedule,
 
 
 def server_loss(server_params, payload: ServerPayload,
-                sched: DiffusionSchedule, apply_fn) -> torch.Tensor:
+                sched: DiffusionSchedule, apply_fn,
+                weights=None) -> torch.Tensor:
     return mse_eps_loss(apply_fn, server_params, payload.x_ts, payload.t_s,
-                        payload.y, payload.eps_s)
+                        payload.y, payload.eps_s, weights=weights)
 
 
 def _grads(loss: torch.Tensor, params) -> Dict[str, torch.Tensor]:

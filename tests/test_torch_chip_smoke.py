@@ -281,3 +281,83 @@ def test_train_phase_is_the_paper_round():
             cs.TRAIN_BATCHES) == (5, 250, 8, 2)
     assert cs.TRAIN_TOL == dict(atol=2e-5, rtol=2e-3)
     assert cs.TRAIN_MOMENT_RTOL == 2e-3
+
+
+def _toy_runtime(**kw):
+    import numpy as np
+    from repro_torch.core import prng
+    from repro_torch.launch.collab_train import toy_apply, toy_init
+    from repro_torch.train import ParticipationConfig, TrainConfig, \
+        TrainRuntime
+    cfg = TrainConfig(T=20, t_cut=5, image_shape=(6, 6, 3), n_classes=4,
+                      batch_size=4, batches_per_round=2,
+                      participation=ParticipationConfig(policy="full"), **kw)
+    rt = TrainRuntime(cfg, toy_init, toy_apply, prng.PRNGKey(0),
+                      device="cpu")
+    rng = np.random.default_rng(0)
+    for n in (8, 6, 4):
+        rt.register_client(
+            torch.from_numpy(rng.normal(size=(n, 6, 6, 3)).astype(
+                np.float32)),
+            torch.from_numpy(np.eye(4, dtype=np.float32)[
+                rng.integers(0, 4, n)]))
+    return cfg, rt
+
+
+def test_runtime_phase_checks_on_the_cpu():
+    """The training-runtime phase's checks on a toy runtime: its tensors
+    name every model, moment, step, the EMA and the DP reference; equal
+    runs compare bitwise, a run one round further does not; a cohort of 3
+    seated in 4 slots (and 3 seated in 8) leaves a zero gap."""
+    from repro_torch.launch.collab_train import toy_apply
+    from repro_torch.train import PrivacyConfig
+    cs = _chip_smoke()
+    cfg, a = _toy_runtime(ema_decay=0.9, fedavg_every=1,
+                          privacy=PrivacyConfig(clip=1.0,
+                                                noise_multiplier=0.5))
+    _, b = _toy_runtime(ema_decay=0.9, fedavg_every=1,
+                        privacy=PrivacyConfig(clip=1.0,
+                                              noise_multiplier=0.5))
+    names = cs.runtime_tensors(a)
+    assert {"server.p.a", "server.m.b", "server.step", "client2.v.a",
+            "client0.step", "ema.p.a", "dpref.p.b"} <= set(names)
+    a.run(2)
+    b.run(2)
+    cs.assert_runtime_bitwise("twins", a, b)
+    assert cs.runtime_counters(a)[2] == 2            # two DP releases
+    b.run_round()
+    with pytest.raises(AssertionError, match="not bitwise"):
+        cs.assert_runtime_bitwise("one round apart", a, b)
+    assert cs.padding_gap(a, cfg, toy_apply, [0, 1, 2], {}) == 0.0
+    assert cs.padding_gap(a, cfg, toy_apply, [0, 2], {0: 1}) == 0.0
+
+
+def test_kernels_line_counts_launches_per_path():
+    cs = _chip_smoke()
+    names = ["ddpm_step_batched", "ddpm_step", "flash_attention",
+             "ssd_scan", "grouped_matmul"]
+    records = {n: dict(max_abs_err=0.0, ms=1.0, plain_ms=2.0, bound_ms=0.5,
+                       bound_by="bytes", library_ms=None) for n in names}
+    by_path = {"serve": {"ddpm_step": 1000, "ddpm_step_batched": 3875},
+               "train": {"ddpm_step": 1000},
+               "train_runtime": {"ddpm_step": 1000},
+               "dit": {"ddpm_step": 1000, "flash_attention": 6}}
+    launches = {n: sum(p.get(n, 0) for p in by_path.values())
+                for n in names}
+    line = cs.kernels_line(records, launches, by_path)
+    ddpm = line["kernels"][1]
+    assert ddpm["launches"] == 4000
+    assert ddpm["launches_by_path"] == {"serve": 1000, "train": 1000,
+                                        "train_runtime": 1000, "dit": 1000}
+    assert line["kernels"][-1]["launches_by_path"] == dict.fromkeys(
+        by_path, 0)
+
+
+def test_runtime_phase_configuration():
+    """The runtime phase's configuration: 4 rounds, bernoulli p 0.8 with
+    dropout 0.1, FedAvg every 2, EMA 0.99, base key 1, DP clip 1.0 and
+    noise 0.8, on the training phase's six U-Nets and batches."""
+    cs = _chip_smoke()
+    assert (cs.RT_ROUNDS, cs.RT_P, cs.RT_DROP, cs.RT_FEDAVG, cs.RT_EMA,
+            cs.RT_SEED) == (4, 0.8, 0.1, 2, 0.99, 1)
+    assert cs.RT_DP == dict(clip=1.0, noise_multiplier=0.8)

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and its entry points
+``chip_smoke.py`` imports JAX, the JAX package, ``msgpack`` or
+``ml_dtypes`` (the card's machine has neither), and its entry points
 run on CUDA unless the caller asks for the CPU — without a card they
 raise instead of falling back."""
 import pkgutil
@@ -18,17 +19,20 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 IMPORT_RE = re.compile(
-    r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))")
+    r"^\s*(import\s+(jax|repro|msgpack|ml_dtypes)\b|"
+    r"from\s+(jax|repro|msgpack|ml_dtypes)(\.|\s))")
 
 _BLOCKED_IMPORT = r'''
 import importlib, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack",
+                                  "ml_dtypes"):
             raise ImportError("blocked: " + name)
         return None
 sys.meta_path.insert(0, Block())
-sys.modules["jax"] = None
+for blocked in ("jax", "msgpack", "ml_dtypes"):
+    sys.modules[blocked] = None
 sys.path[:0] = [{src!r}, {root!r}]
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
@@ -36,8 +40,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke
-assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules
-               if sys.modules[m] is not None), "jax/repro imported"
+assert not any(m.split(".")[0] in ("jax", "repro", "msgpack", "ml_dtypes")
+               for m in sys.modules
+               if sys.modules[m] is not None), "jax/repro/msgpack imported"
 print(len(names))
 '''
 

@@ -166,8 +166,25 @@ def test_make_payload_matches_jax(t_cut):
 
 
 def test_make_payload_refuses_dp_until_the_privacy_slice():
-    x0 = torch.zeros(2, 4, 4, 3)
-    with pytest.raises(NotImplementedError, match="privacy"):
-        protocol.make_payload(x0, torch.zeros(2, 8), prng.PRNGKey(0),
-                              DiffusionSchedule.linear(10), CutPoint(10, 5),
-                              dp_sigma=1.0, dp_clip=1.0)
+    """The privacy slice has landed: payload DP (dp_sigma > 0) no longer
+    raises; it clips and noises x_{t_s} as the reference does, from the
+    split's fourth key (x_{t_s} within NORMAL_ATOL·(1 + σ·C), t_s
+    bitwise, ε_s untouched)."""
+    rng = np.random.default_rng(2)
+    x0 = rng.uniform(-1, 1, (4, 4, 4, 3)).astype(np.float32)
+    y = np.eye(8, dtype=np.float32)[rng.integers(0, 8, 4)]
+    kj, kt = _k(13)
+    ref = jprotocol.make_payload(jnp.asarray(x0), jnp.asarray(y), kj,
+                                 JSched.linear(10), JCut(10, 5),
+                                 dp_sigma=1.0, dp_clip=1.0)
+    out = protocol.make_payload(torch.from_numpy(x0), torch.from_numpy(y),
+                                kt, DiffusionSchedule.linear(10),
+                                CutPoint(10, 5), dp_sigma=1.0, dp_clip=1.0)
+    plain = protocol.make_payload(torch.from_numpy(x0), torch.from_numpy(y),
+                                  kt, DiffusionSchedule.linear(10),
+                                  CutPoint(10, 5))
+    np.testing.assert_array_equal(out.t_s.numpy(), np.asarray(ref.t_s))
+    np.testing.assert_allclose(out.x_ts.numpy(), np.asarray(ref.x_ts),
+                               rtol=1e-5, atol=2 * NORMAL_ATOL)
+    assert torch.equal(out.eps_s, plain.eps_s)
+    assert not torch.equal(out.x_ts, plain.x_ts)
