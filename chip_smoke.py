@@ -60,13 +60,24 @@ package).  Phases, each of which fails the run on any error:
    counters zeroed just before, one Alg.-2 sample from the EMA server
    (``sampling_server_params``) and client 0: exactly 1,000 keyed
    launches;
-9. flash attention and the SSD scan against their plain versions on the
+9. the evaluation (eval/) of the models phase 8 trained: one
+   shared-handoff pass of EVAL_N samples for clients 0 and 1 on client
+   1's labels (750 server + 2 x 250 client steps: exactly 1,250 keyed
+   launches, counted from zero just before), the FD proxy of each
+   client's real data against its samples and against the handoff,
+   attribute-inference F1 on client 1's q_sample intermediates at
+   EVAL_TS, the inversion attack at EVAL_INV_T (client 0 attacks client
+   1); ``features`` and ``frechet_distance`` against the CPU port on the
+   same inputs (TRAIN_TOL, EVAL_FD_RTOL), the two trainers over
+   EVAL_SHORT_STEPS steps (the classifier at TRAIN_TOL, the inverter at
+   EVAL_INV_ATOL);
+10. flash attention and the SSD scan against their plain versions on the
    card at the JAX package's test shapes (tests/test_kernels.py sweeps)
    and shapes that reach the wgmma variants (flash at head dim 128 and
    over three K/V tiles; the SSD scan's SSD_WGMMA, in bf16), float32 and
    bfloat16, with those tests' tolerances (SSD_WGMMA: SSD_BF16_RANGE);
    both variants (wgmma, simt) of each must be launched;
-10. the DiT path: server and three client Zamba2-1.2B DiTs at full width
+11. the DiT path: server and three client Zamba2-1.2B DiTs at full width
    (configs/zamba2_1p2b.py, bf16, 38 Mamba2 layers, the shared
    attention+MLP block every 6) on 32x32x3 images in 4x4 patches (64
    tokens), threefry-initialised on the card.  An Alg.-1 loss through
@@ -82,13 +93,13 @@ package).  Phases, each of which fails the run on any error:
    variants.  Flash's and the SSD scan's rows of batch 1 must equal those
    of batch 4 bitwise.  The pass's outputs must equal
    ``sample_plan_reference`` bitwise on the card;
-11. the grouped matmul against its plain version on the card at the JAX
+12. the grouped matmul against its plain version on the card at the JAX
    package's test shapes (tests/test_kernels.py sweep) and shapes that
    reach the wgmma variant (C over one 256-row tile, ragged F), float32
    and bfloat16, with contiguous tokens and tokens broadcast to every
    expert (expert stride 0), and a misaligned token pointer; the wgmma,
    wmma and simt variants must all be launched;
-12. the MoE path: the Zamba2 models are freed, then server and three
+13. the MoE path: the Zamba2 models are freed, then server and three
    client DiTs with DBRX-132B blocks at full width (configs/dbrx_132b.py:
    d_model 6144, 48 query / 8 KV heads of 128, 16 experts of FFN width
    10,752, top-4, bf16) cut to 2 blocks (MOE_LAYERS), on the same 64
@@ -104,7 +115,24 @@ package).  Phases, each of which fails the run on any error:
    6 grouped-matmul and 2 flash launches per forward, all on the wgmma
    variants.  The pass's outputs must equal ``sample_plan_reference``
    bitwise;
-13. a ``kernels`` JSON line, the card line again, and the result line.
+14. the LM serving path: Zamba2-1.2B as a language model at the
+   published widths (38 Mamba2 layers, d_model 2048, 64 SSD heads of 64,
+   state 64, the shared block every 6 layers, vocab 32,000, bf16,
+   threefry seed 0): (a) the ``serve`` CLI twice (batch 4, 512 prompt
+   tokens, 32 new, greedy), counters zeroed just before each: tokens
+   bitwise equal, 6 flash and 38 SSD launches (all wgmma) for the
+   prefill and none for the 31 decode steps; (b) prefill + one decode
+   step against the full forward at S, for S in LM_PROMPTS (512: two SSD
+   chunks; 333: a ragged tail); (c) four greedy decode steps against
+   repeated full forwards at 512; (d) flash and the SSD scan (y, its
+   tail rows and the final state) against their plain versions on each
+   prefill's own inputs, rows bitwise across the batch, timed beside
+   SDPA and the bound; (e) a model cut to LM_CPU_LAYERS layers on the
+   card against the CPU port with the same weights; every logit gap
+   within LM_BF16_RTOL; (g) prefill and decode wall (events), device
+   time and idle share; then flash and the SSD scan at the DiT's shapes
+   again, after the LM's tensor maps;
+15. a ``kernels`` JSON line, the card line again, and the result line.
 
 Exits nonzero, printing no result line, without a CUDA device or outside
 a checkout.
@@ -115,6 +143,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -343,14 +372,15 @@ def kernels_line(records, launches, by_path=None):
     entry also carries its launches per main path.  A kernel with
     variants also carries its
     launches per variant (``launches`` keys ``<name>/<variant>``); flash
-    attention its numbers at head dim 128 as well, the SSD scan the simt
-    variant's time at the path's shape, and the two DDPM entries (whose
-    main numbers are the keyed variants') the composed step they replace
-    and the given-noise variant's numbers."""
+    attention its numbers at head dim 128 as well, flash and the SSD scan
+    their numbers at the LM prefill's shapes (``lm_prefill``), the SSD
+    scan the simt variant's time at the path's shape, and the two DDPM
+    entries (whose main numbers are the keyed variants') the composed
+    step they replace and the given-noise variant's numbers."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    extra = ("card_ms", "simt_ms", "head_dim_128", "shapes", "op_ms",
-             "composed_ms", "composed_card_ms", "composed_events",
+    extra = ("card_ms", "simt_ms", "head_dim_128", "lm_prefill", "shapes",
+             "op_ms", "composed_ms", "composed_card_ms", "composed_events",
              "keyed_card_ms", "keyed_events", "given")
     line = []
     for name in ("ddpm_step_batched", "ddpm_step", "flash_attention",
@@ -556,8 +586,9 @@ def phase_keyed(records):
 
     for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
-        for shape in [(B,) + IMG, (4, 16, 16, 3), (2, 8, 8, 1), (1, 37),
-                      (3, 129)]:
+        # (EVAL_N,) + IMG: the eval path's shared-handoff samples
+        for shape in [(B,) + IMG, (EVAL_N,) + IMG, (4, 16, 16, 3),
+                      (2, 8, 8, 1), (1, 37), (3, 129)]:
             x, e = inputs(shape, dtype)
             key = prng.PRNGKey(7, device="cuda")
             buf = torch.empty_like(key)
@@ -1403,7 +1434,9 @@ def phase_train_runtime():
     signature per tier, a bitwise resume from the round-2 checkpoint,
     round 1 against the CPU port, the tier-padding gap, a DP run with
     secagg on equal to off — then one Alg.-2 sample from the EMA server
-    and client 0.  Returns the DDPM-step launches of the sample."""
+    and client 0.  Returns the DDPM-step launches of the sample and the
+    trained models (the EMA server, clients 0 and 1) with their schedule,
+    cut and denoiser, which the evaluation phase scores."""
     import tempfile
     import numpy as np
     import torch
@@ -1591,6 +1624,10 @@ def phase_train_runtime():
     check_ddpm_launches("runtime sample", launches, cfg.T, 0)
     log(f"runtime/sample: T={cfg.T} cut {cfg.t_cut} batch {B} from the EMA "
         f"server and client 0, wall_s {sample_s:.3f}; launches {launches}")
+    trained = dict(server=rt.sampling_server_params(),
+                   clients=[rt.registry.get(c).params for c in (0, 1)],
+                   sched=rt.sched, cut=rt.cut, apply_fn=apply_fn,
+                   n_classes=cfg.n_classes)
 
     steady = walls[1:]
     round_ms = sum(steady) / len(steady)
@@ -1610,7 +1647,7 @@ def phase_train_runtime():
     gc.collect()
     torch.cuda.empty_cache()
     log(f"runtime/phase_s: {time.perf_counter() - t_phase:.1f}")
-    return launches
+    return launches, trained
 
 
 def ssd_range_check(out, ref, what: str) -> float:
@@ -2261,6 +2298,520 @@ def phase_moe():
         launches
 
 
+# the evaluation phase: the paper's Fig. 4 / 7 / 8 measurements on the
+# models the training runtime trained; N_EVAL samples a client
+# (benchmarks/privacy_frontier.py's N_EVAL), intermediates at EVAL_TS,
+# the inversion attack at EVAL_INV_T; the trainers are held against the
+# CPU port over EVAL_SHORT_STEPS steps (a full run there takes minutes)
+EVAL_N = 96
+EVAL_TS = (0, 250, 500)
+EVAL_INV_T = 250
+EVAL_SHORT_STEPS = 20
+# card vs CPU port: features elementwise at TOL; the FD (the same
+# statistics and eigenvalues of a full-rank 64x64 product, N = 96 > 64)
+# at EVAL_FD_RTOL of itself; the trainers after EVAL_SHORT_STEPS: the
+# classifier at TOL, the inverter's weights at EVAL_INV_ATOL.  Measured
+# on an H100 80GB HBM3 at 700 W: 1.8e-5 at these 32x32 inputs, where no
+# gradient element reaches AdamW's eps scale; at 8x8 on the CPU such
+# elements take updates of up to lr = 3e-3 that summation order decides
+# (tests/test_torch_eval.py, 1.2e-3), which this limit would catch.
+EVAL_FD_RTOL = 1e-4
+EVAL_INV_ATOL = 1e-4
+# the LM serving path: Zamba2-1.2B at the published widths, bf16, threefry
+# seed 0; prompts of LM_PROMPTS tokens (two SSD chunks of 256; a ragged
+# tail), LM_NEW new tokens, batch LM_BATCH; the CPU port runs LM_CPU_LAYERS
+# (one shared group of 6 and one tail layer) at batch 1
+LM_ARCH = "zamba2-1.2b"
+LM_BATCH, LM_PROMPTS, LM_NEW, LM_GREEDY_STEPS = 4, (512, 333), 32, 4
+LM_CPU_LAYERS = 7
+# bf16 logits: max |a - b| / max(1, max |b|).  Decode (the recurrent
+# step, plain torch) against the full forward (the chunked scan kernel,
+# flash) differ by bf16 roundings through 38 layers; the card against the
+# CPU port by cuBLAS / the kernels against CPU GEMMs and plain versions.
+# Measured on an H100 80GB HBM3 at 700 W: at most 0.042 (the fourth
+# greedy step; one decode step 0.024, card vs CPU 0.020; logits reach
+# ~6, where a bf16 ulp is 0.031).  A decode step from a zero state (the
+# prompt forgotten) must fall outside the limit.
+LM_BF16_RTOL = 0.1
+PATHS = ("serve", "train", "train_runtime", "eval", "dit", "moe",
+         "lm_serve")
+
+
+def eval_scores(trained, data, key, n: int = EVAL_N) -> dict:
+    """The evaluation path on the data's device: one shared-handoff pass
+    of ``n`` samples for clients 0 and 1 on client 1's labels, the FD
+    proxy of each client's real data against its samples and the handoff,
+    q_sample intermediates at EVAL_TS (``fold_in(fold_in(key, t), c)``
+    noise; t = 0 is the data), attribute-inference F1 on client 1's at
+    each t and the inversion attack at EVAL_INV_T (client 0 attacks
+    client 1)."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core.sampler import shared_handoff_sample
+    from repro_torch.eval import attr_inference, fd_proxy, inversion
+    (x0, _), (x1, y1) = data
+    x0, x1, y1 = x0[:n], x1[:n], y1[:n]
+    sched, cut = trained["sched"], trained["cut"]
+    t0 = time.perf_counter()
+    samples, handoff = shared_handoff_sample(
+        trained["server"], trained["clients"], prng.fold_in(key, 0), y1,
+        tuple(x1.shape), sched, cut, trained["apply_fn"])
+    for name, t in (("samples", samples), ("handoff", handoff)):
+        want = ((2,) if name == "samples" else ()) + tuple(x1.shape)
+        if tuple(t.shape) != want or not torch.isfinite(t).all():
+            raise AssertionError(f"eval: {name} {tuple(t.shape)} not finite")
+    sample_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fds = {}
+    for c, x in enumerate((x0, x1)):
+        fds[f"client{c}/samples"] = fd_proxy.fd_proxy(x, samples[c])
+        fds[f"client{c}/handoff"] = fd_proxy.fd_proxy(x, handoff)
+    inter = {}
+    for c, x in enumerate((x0, x1)):
+        for t in EVAL_TS:
+            eps = prng.normal(prng.fold_in(prng.fold_in(key, t), c),
+                              tuple(x.shape))
+            inter[c, t] = x if t == 0 else sched.q_sample(
+                x, torch.full((n,), float(t), device=x.device), eps)
+    f1 = {t: attr_inference.attribute_inference_f1(
+        prng.fold_in(key, 77 + t), inter[1, t], y1) for t in EVAL_TS}
+    inv = inversion.inversion_attack(prng.fold_in(key, 8),
+                                     inter[0, EVAL_INV_T], x0,
+                                     inter[1, EVAL_INV_T], x1)
+    for k, v in list(fds.items()) + list(inv.items()):
+        if not math.isfinite(v):
+            raise AssertionError(f"eval: {k} = {v}")
+    return dict(samples=samples, handoff=handoff, fd=fds, inter=inter,
+                f1=f1, inversion=inv, sample_s=sample_s,
+                score_s=time.perf_counter() - t0)
+
+
+def phase_eval(trained):
+    """The paper's evaluation (eval/) on the card, scoring the models
+    that the training runtime trained (phase 8): one shared-handoff pass
+    of EVAL_N samples for clients 0 and 1 conditioned on the victim's
+    (client 1's) labels — 750 server + 2 x 250 client keyed DDPM-step
+    launches — then the FD proxy of each client's real data against its
+    samples and against the handoff, attribute-inference F1 at each of
+    EVAL_TS on client 1's intermediates, and the inversion attack at
+    EVAL_INV_T (client 0 attacks client 1).  ``features`` and
+    ``frechet_distance`` are held against the CPU port in full, the two
+    trainers over EVAL_SHORT_STEPS steps.  Returns the DDPM-step
+    launches of the path."""
+    import torch
+    from repro_torch.configs.ddpm_unet import CONFIG
+    from repro_torch.core import prng
+    from repro_torch.data.synthetic import (SyntheticConfig,
+                                            make_client_datasets)
+    from repro_torch.device import deterministic_cuda
+    from repro_torch.eval import attr_inference, fd_proxy, inversion
+    from repro_torch.kernels.ddpm_step import kernel as dkernel
+    from repro_torch.kernels.ddpm_step import ops as dops
+    from repro_torch.kernels.ddpm_step.ref import ddpm_step_keyed_ref
+
+    t_phase = time.perf_counter()
+    deterministic_cuda()
+    card = card_line()
+    sched, cut = trained["sched"], trained["cut"]
+    scfg = SyntheticConfig(image_size=IMG[0], channels=IMG[2],
+                           n_attrs=CONFIG.n_classes)
+    (x0, y0), (x1, y1) = make_client_datasets(
+        prng.PRNGKey(1), scfg, TRAIN_CLIENTS, EVAL_N, non_iid=True,
+        device="cuda")[:2]
+    key = prng.PRNGKey(19, device="cuda")
+    torch.cuda.synchronize()
+    dkernel.reset_counts()                       # --- eval path starts
+    out = eval_scores(trained, ((x0, y0), (x1, y1)), key)
+    torch.cuda.synchronize()
+    launches = dict(dkernel.COUNTS)              # --- eval path ends
+    check_ddpm_launches("eval", launches,
+                        sched.T - cut.t_cut + 2 * cut.t_cut, 0)
+    samples, handoff, inter = out["samples"], out["handoff"], out["inter"]
+    fds, f1, inv = out["fd"], out["f1"], out["inversion"]
+    log(f"eval/sample: shared handoff, {EVAL_N} samples for clients 0 and "
+        f"1 on client 1's labels, T={sched.T} cut {cut.t_cut}, wall_s "
+        f"{out['sample_s']:.3f}; launches {launches}")
+    log("eval/fd_proxy: " + ", ".join(f"{k} {v:.6g}" for k, v in
+                                      fds.items()))
+    for t in EVAL_TS:
+        log(f"eval/attr_inference_f1 t={t}: mean {float(f1[t].mean()):.4f} "
+            f"per attribute {[round(float(v), 4) for v in f1[t]]}")
+    log(f"eval/inversion t={EVAL_INV_T}: " + ", ".join(
+        f"{k} {v:.6g}" for k, v in inv.items()))
+    log(f"eval/scoring_s: {out['score_s']:.2f}")
+
+    # the keyed kernel on the path's own tensor (the handoff, the input of
+    # the clients' first step) against its plain version: bitwise
+    row = dops.step_coefficient_table(
+        sched, torch.tensor([float(cut.t_cut)], device="cuda"))[0]
+    kk = prng.fold_in(key, 3)
+    buf = torch.empty_like(kk)
+    got = dops.ddpm_step_keyed(handoff, samples[1], kk, row, buf)
+    ref, k_ref = ddpm_step_keyed_ref(handoff, samples[1], kk, row)
+    if not (torch.equal(got, ref) and torch.equal(buf, k_ref)):
+        raise AssertionError(f"eval: keyed step on the handoff "
+                             f"{tuple(handoff.shape)} != its plain version")
+    log(f"eval/keyed_step: the handoff {tuple(handoff.shape)} "
+        f"{handoff.dtype}: bitwise with its plain version, output key too")
+
+    # card against the CPU port on the same inputs
+    fails = []
+    for name, x in (("real0", x0), ("samples0", samples[0]),
+                    ("handoff", handoff)):
+        a = fd_proxy.features(x)
+        b = fd_proxy.features(x.cpu())
+        err = (a.cpu() - b).abs().max().item()
+        ok = torch.allclose(a.cpu(), b, **TRAIN_TOL)
+        log(f"eval/card_vs_cpu features({name}): max abs {err:.3g} "
+            f"(max |cpu| {b.abs().max().item():.3g})")
+        fails += [] if ok else [f"features({name}) {err:.3g}"]
+    for c, x in enumerate((x0, x1)):
+        fa, fb = fd_proxy.features(x), fd_proxy.features(samples[c])
+        card_fd = fd_proxy.frechet_distance(fa, fb)
+        cpu_fd = fd_proxy.frechet_distance(fa.cpu(), fb.cpu())
+        rel = abs(card_fd - cpu_fd) / max(abs(cpu_fd), 1e-12)
+        log(f"eval/card_vs_cpu frechet_distance client {c}: card "
+            f"{card_fd:.6g} cpu {cpu_fd:.6g} (same features), rel {rel:.3g}")
+        fails += [] if rel <= EVAL_FD_RTOL else [f"frechet {c} {rel:.3g}"]
+        full = fd_proxy.fd_proxy(x.cpu(), samples[c].cpu())
+        rel = abs(fds[f"client{c}/samples"] - full) / max(abs(full), 1e-12)
+        log(f"eval/card_vs_cpu fd_proxy client {c} samples: cpu {full:.6g}, "
+            f"rel {rel:.3g}")
+        fails += [] if rel <= EVAL_FD_RTOL else [f"fd_proxy {c} {rel:.3g}"]
+    xc, x0c = inter[0, EVAL_INV_T], x0
+    k_inv = prng.fold_in(key, 8)
+    t0 = time.perf_counter()
+    inv_card = inversion.train_inverter(k_inv, xc, x0c,
+                                        steps=EVAL_SHORT_STEPS)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inv_cpu = inversion.train_inverter(k_inv, xc.cpu(), x0c.cpu(),
+                                       steps=EVAL_SHORT_STEPS)
+    cpu_s = time.perf_counter() - t0
+    err = max((a.detach().cpu() - b.detach()).abs().max().item() for a, b in
+              zip(inv_card.parameters(), inv_cpu.parameters()))
+    log(f"eval/card_vs_cpu train_inverter ({EVAL_SHORT_STEPS} steps, card "
+        f"{card_s:.2f} s, cpu {cpu_s:.2f} s): weights max abs {err:.3g} "
+        f"(limit {EVAL_INV_ATOL})")
+    fails += [] if err <= EVAL_INV_ATOL else [f"inverter {err:.3g}"]
+    k_clf = prng.fold_in(key, 77 + EVAL_INV_T)
+    xt, yt = inter[1, EVAL_INV_T], y1
+    clf_card = attr_inference.train_attr_classifier(
+        k_clf, xt, yt, steps=EVAL_SHORT_STEPS)
+    clf_cpu = attr_inference.train_attr_classifier(
+        k_clf, xt.cpu(), yt.cpu(), steps=EVAL_SHORT_STEPS)
+    bad, err = 0, 0.0
+    for a, b in zip(clf_card.parameters(), clf_cpu.parameters()):
+        a = a.detach().cpu()
+        err = max(err, (a - b.detach()).abs().max().item())
+        bad += int((~torch.isclose(a, b.detach(), **TRAIN_TOL)).sum())
+    log(f"eval/card_vs_cpu train_attr_classifier ({EVAL_SHORT_STEPS} steps):"
+        f" weights max abs {err:.3g}, {bad} beyond {TRAIN_TOL}")
+    fails += [] if bad == 0 else [f"classifier {bad} beyond TOL"]
+    if fails:
+        raise AssertionError(f"eval: card vs CPU beyond tolerance: {fails}")
+    log(f"eval/phase_s: {time.perf_counter() - t_phase:.1f}; card {card}")
+    return launches
+
+
+def lm_gap(a, b) -> float:
+    """max |a − b| over max(1, max |b|), in float32."""
+    a, b = a.float(), b.float().to(a.device)
+    return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+
+
+def lm_counts(*kmods) -> dict:
+    out = {}
+    for kmod in kmods:
+        out.update(kmod.COUNTS)
+    return out
+
+
+def check_lm_launches(tag: str, got: dict, per_prefill: dict,
+                      prefills: int) -> None:
+    want = {k: n * prefills for k, n in per_prefill.items()}
+    if got != want:
+        raise AssertionError(f"{tag}: kernel launches {got}, expected {want}")
+
+
+def phase_lm_serve():
+    """The LM serving path at full width: Zamba2-1.2B (38 Mamba2 layers,
+    d_model 2048, 64 SSD heads of 64, state 64, the shared attention+MLP
+    block every 6 layers, vocab 32,000, bf16, threefry seed 0).
+    (a) the CLI (``launch/serve.py``) twice, greedy, batch 4, 512 prompt
+    tokens, 32 new: the tokens bitwise equal, 6 flash and 38 SSD launches
+    (all wgmma) for its one prefill and none in its 31 decode steps;
+    (b) prefill + one decode step against the full forward at position S,
+    for S in LM_PROMPTS, the logits within LM_BF16_RTOL; (c) four greedy
+    decode steps against repeated full forwards at S = 512; (d) flash and
+    the SSD scan (y and the final state) against their plain versions on
+    the prefill's own inputs at both lengths, rows bitwise across the
+    batch, timed beside SDPA and the bound; (e) a 7-layer model of the
+    same widths on the card against the CPU port with the same weights;
+    (g) prefill wall and device ms, decode ms a token, tok/s and idle
+    shares.  Then the DiT's kernel shapes again, after the LM's (the
+    tensor-map cache keys on pointer and geometry).  Returns (kernel
+    records at the prefill shapes, launches of the CLI's first run)."""
+    import copy
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import prng
+    from repro_torch.device import deterministic_cuda
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssd_scan import kernel as skernel
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.models.hybrid import _grouping, hybrid_forward
+    from repro_torch.models.transformer import logits_of
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    deterministic_cuda()
+    card = card_line()
+    cfg = get_arch(LM_ARCH)
+    n_attn = _grouping(cfg)[1]
+    per_prefill = {"flash_attention": n_attn, "flash_attention/wgmma": n_attn,
+                   "flash_attention/simt": 0, "ssd_scan": cfg.n_layers,
+                   "ssd_scan/wgmma": cfg.n_layers, "ssd_scan/simt": 0}
+    kmods = (fkernel, skernel)
+
+    # (a) the CLI, twice
+    argv = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
+            str(LM_PROMPTS[0]), "--new-tokens", str(LM_NEW), "--device",
+            "cuda"]
+    runs = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        for kmod in kmods:                       # --- main path starts
+            kmod.reset_counts()
+        t0 = time.perf_counter()
+        gen, rep = serve.run(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = lm_counts(*kmods)                  # --- main path ends
+        check_lm_launches(f"lm_serve CLI run {i + 1}", got, per_prefill, 1)
+        runs.append((gen, rep, got, wall))
+        log(f"lm_serve/cli run {i + 1}: {wall:.2f} s (init included); "
+            f"prefill {rep['prefill_ms']:.3f} ms, decode "
+            f"{rep['decode_ms_per_token']:.3f} ms a step, "
+            f"{rep['tok_per_s']:.1f} tok/s (synchronised host clock); "
+            f"launches {got}")
+    (gen, rep, launches, _), (gen2, _, _, _) = runs
+    if tuple(gen.shape) != (LM_BATCH, LM_NEW) or not torch.equal(gen, gen2):
+        raise AssertionError("lm_serve: the CLI's two runs differ")
+    log(f"lm_serve/cli: the two runs' {tuple(gen.shape)} tokens are bitwise "
+        f"equal; row 0 {gen[0, :8].tolist()}")
+
+    params = api.init_params(prng.PRNGKey(0), cfg, "cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"lm_serve/model: {cfg.name} {n_params} parameters ({cfg.dtype}), "
+        f"{cfg.n_layers} Mamba2 layers, {n_attn} shared-block applications")
+    key = prng.PRNGKey(7, device="cuda")
+    records, gaps = {}, {}
+
+    def full_logits(tok):
+        hid, _, _ = hybrid_forward(params, tok, cfg)
+        return logits_of(params, hid)
+
+    for S in LM_PROMPTS:
+        tok = prng.randint(prng.fold_in(key, S), (LM_BATCH, S + 1), 0,
+                           cfg.vocab_size).long()
+        # (b) prefill + one decode step against the full forward at S
+        for kmod in kmods:
+            kmod.reset_counts()
+        with capture_calls({"flash_attention": (fops, "flash_attention"),
+                            "ssd_scan": (sops, "ssd_scan")}) as captured:
+            lg, state = api.prefill_fn(params, {"tokens": tok[:, :S]}, cfg,
+                                       cache_len=S + LM_NEW)
+            torch.cuda.synchronize()
+        check_lm_launches(f"lm_serve prefill S={S}", lm_counts(*kmods),
+                          per_prefill, 1)
+        for kmod in kmods:
+            kmod.reset_counts()
+        dec, _ = api.decode_fn(params, tok[:, S:S + 1], state, S, cfg)
+        torch.cuda.synchronize()
+        check_lm_launches(f"lm_serve decode S={S}", lm_counts(*kmods),
+                          per_prefill, 0)
+        full = full_logits(tok)
+        if not (torch.isfinite(lg).all() and torch.isfinite(dec).all()):
+            raise AssertionError(f"lm_serve S={S}: logits not finite")
+        gaps[f"prefill S={S}"] = lm_gap(lg, full[:, S - 1:S])
+        gaps[f"decode S={S}"] = lm_gap(dec, full[:, S:S + 1])
+        zero = api.init_decode_state(cfg, LM_BATCH, S + LM_NEW,
+                                     device="cuda")
+        forgot = lm_gap(api.decode_fn(params, tok[:, S:S + 1], zero, S,
+                                      cfg)[0], full[:, S:S + 1])
+        log(f"lm_serve/control S={S}: a decode step from a zero state vs "
+            f"the full forward {forgot:.4g} (must exceed {LM_BF16_RTOL})")
+        if not forgot > LM_BF16_RTOL:
+            raise AssertionError("lm_serve: the logit check passed a decode "
+                                 "step that forgot the prompt")
+        log(f"lm_serve/S={S}: prefill logits vs full forward "
+            f"{gaps[f'prefill S={S}']:.4g}, decode at S vs full forward "
+            f"{gaps[f'decode S={S}']:.4g} (max |a-b| / max(1, max |b|); "
+            f"max |logit| {full.float().abs().max().item():.3g})")
+        # (d) the kernels on the prefill's own inputs
+        (q, k, v), kw, out = captured["flash_attention"][0]
+        if kw != {"causal": True, "window": cfg.sliding_window}:
+            raise AssertionError(f"lm_serve: attention called with {kw}")
+        ref = attention_ref(q, k, v, **kw)
+        ferr = (out.float() - ref.float()).abs().max().item()
+        if not torch.allclose(out.float(), ref.float(), **TOL_BF16):
+            raise AssertionError(f"lm_serve flash S={S}: max abs {ferr:.3g}")
+        qc, kc_, vc = q.contiguous(), k.contiguous(), v.contiguous()
+        one = fkernel.launch(qc[:1], kc_[:1], vc[:1], True,
+                             cfg.sliding_window)
+        if not torch.equal(one, out[:1]):
+            raise AssertionError(f"lm_serve flash S={S}: rows of batch 1 "
+                                 f"!= those of batch {q.shape[0]}")
+        (xs, dt, A, Bm, Cm, chunk), _, (yk, fk) = captured["ssd_scan"][0]
+        yr, fr = ssd_chunked(xs, dt, A, Bm, Cm, chunk)
+        serr = [ssd_range_check(yk, yr, f"lm_serve ssd y S={S}"),
+                ssd_range_check(fk, fr, f"lm_serve ssd state S={S}")]
+        tail = S - S % 64 if S % 64 else S - 64
+        serr.append(ssd_range_check(yk[:, tail:], yr[:, tail:],
+                                    f"lm_serve ssd y tail S={S}"))
+        cargs = (xs.contiguous(), dt.float().contiguous(),
+                 A.float().contiguous(), Bm.to(xs.dtype).contiguous(),
+                 Cm.to(xs.dtype).contiguous())
+        ssd_rows_bitwise(f"lm_serve S={S}", skernel, cargs, chunk, yk, fk)
+        log(f"lm_serve/kernels S={S}: flash {tuple(q.shape)} causal window "
+            f"{cfg.sliding_window} max abs {ferr:.3g} (TOL_BF16), rows "
+            f"bitwise; ssd {tuple(xs.shape)} chunk {chunk} y / state / tail "
+            f"rows {serr[0]:.3g} / {serr[1]:.3g} / {serr[2]:.3g} of max(1, "
+            f"max |plain|) (limit {SSD_BF16_RANGE}), rows bitwise")
+        if S == LM_PROMPTS[0]:
+            ms = time_ms(lambda: fkernel.launch(qc, kc_, vc, True,
+                                                cfg.sliding_window))
+            plain = time_ms(lambda: attention_ref(q, k, v, **kw), iters=20)
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qc, kc_, vc, is_causal=True))
+            bnd, by = flash_bound(q, k, True, cfg.sliding_window)
+            records["flash_attention"] = dict(
+                shape=list(q.shape), max_abs_err=ferr, ms=ms, plain_ms=plain,
+                bound_ms=bnd, bound_by=by, library_ms=lib)
+            ms = time_ms(lambda: skernel.launch(*cargs, chunk))
+            plain = time_ms(lambda: ssd_chunked(xs, dt, A, Bm, Cm, chunk),
+                            iters=20)
+            bnd, by = ssd_bound(xs, Bm, chunk)
+            records["ssd_scan"] = dict(
+                shape=list(xs.shape), chunk=chunk, max_abs_err=max(serr),
+                ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=None)
+            for name, r in records.items():
+                log(f"kernel/{name} at the LM prefill's {r['shape']}: kernel "
+                    f"{r['ms'] * 1e3:.2f} us plain {r['plain_ms'] * 1e3:.2f} "
+                    f"us library {fmt_ms(r['library_ms'])} bound "
+                    f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
+            # (c) four greedy decode steps against repeated full forwards
+            seq, lg_s, st = tok[:, :S], lg, state
+            for i in range(LM_GREEDY_STEPS):
+                nxt = torch.argmax(lg_s[:, -1:, :], dim=-1)
+                seq = torch.cat([seq, nxt], dim=1)
+                lg_s, st = api.decode_fn(params, nxt, st, S + i, cfg)
+                gaps[f"greedy step {i + 1}"] = lm_gap(
+                    lg_s, full_logits(seq)[:, -1:])
+            log("lm_serve/greedy decode vs full forwards: " + ", ".join(
+                f"{gaps[f'greedy step {i + 1}']:.4g}"
+                for i in range(LM_GREEDY_STEPS)))
+        del captured, state, full
+
+    # (g) prefill and decode on the card: wall (events) and device time
+    S = LM_PROMPTS[0]
+    tok = prng.randint(prng.fold_in(key, S), (LM_BATCH, S + 1), 0,
+                       cfg.vocab_size).long()
+    prefill = lambda: api.prefill_fn(params, {"tokens": tok[:, :S]}, cfg,
+                                     cache_len=S + LM_NEW)
+    pre_ms = time_ms(prefill, iters=5, warmup=1)
+    _, state = prefill()
+    step = lambda: api.decode_fn(params, tok[:, S:S + 1], state, S, cfg)
+    dec_ms = time_ms(step, iters=20, warmup=2)
+    pre = device_ms("lm_serve/prefill", prefill, n=2, top=8,
+                    shares=["flash_wgmma_kernel", "ssd_wgmma_kernel"],
+                    per="prefill")
+    dec = device_ms("lm_serve/decode", step, n=5, top=6, per="decode step")
+    for name, kname, n in (("flash_attention", "flash_wgmma_kernel", n_attn),
+                           ("ssd_scan", "ssd_wgmma_kernel", cfg.n_layers)):
+        records[name]["card_ms"] = None if pre[kname] is None else \
+            pre[kname] / n
+    idle = lambda dev, wall: "not measured" if dev is None else \
+        f"{100 * (1 - dev / wall):.1f}%"
+    log(f"lm_serve/prefill: B={LM_BATCH} S={S} wall {pre_ms:.3f} ms "
+        f"(events), device {fmt_ms(pre['_ms'])}, idle "
+        f"{idle(pre['_ms'], pre_ms)}; card ms a launch: flash "
+        f"{fmt_ms(records['flash_attention']['card_ms'])}, ssd "
+        f"{fmt_ms(records['ssd_scan']['card_ms'])}")
+    log(f"lm_serve/decode: B={LM_BATCH} a step {dec_ms:.3f} ms (events), "
+        f"{LM_BATCH * 1e3 / dec_ms:.1f} tok/s, device {fmt_ms(dec['_ms'])} "
+        f"over {dec['_events']} events, idle {idle(dec['_ms'], dec_ms)}; "
+        f"card {card}")
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the same path on the CPU port: LM_CPU_LAYERS layers, the same
+    # weights, batch 1, the longer prompt
+    small = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS)
+    m_card = api.init_params(prng.PRNGKey(0), small, "cuda")
+    m_cpu = copy.deepcopy(m_card).to("cpu")
+    tok1 = tok[:1]
+    t0 = time.perf_counter()
+    outs = {}
+    for dev, m in (("cuda", m_card), ("cpu", m_cpu)):
+        t = tok1.to(dev)
+        lg, st = api.prefill_fn(m, {"tokens": t[:, :S]}, small,
+                                cache_len=S + LM_NEW)
+        dec, _ = api.decode_fn(m, t[:, S:S + 1], st, S, small)
+        outs[dev] = (lg, dec, st["head"][0][-1]["ssm"])
+    cpu_s = time.perf_counter() - t0
+    for i, what in enumerate(("prefill logits", "decode logits",
+                              "group 1's last SSM state")):
+        gaps[f"card vs cpu {what}"] = lm_gap(outs["cuda"][i],
+                                             outs["cpu"][i])
+    log(f"lm_serve/card_vs_cpu ({LM_CPU_LAYERS} layers, B=1, S={S}, "
+        f"{cpu_s:.1f} s): " + ", ".join(
+            f"{w} {gaps[f'card vs cpu {w}']:.4g}" for w in
+            ("prefill logits", "decode logits", "group 1's last SSM state")))
+    del m_card, m_cpu, outs
+
+    worst = max(gaps.values())
+    log(f"lm_serve/bf16 gaps: worst {worst:.4g} (limit {LM_BF16_RTOL}): "
+        f"{gaps}")
+    if not worst <= LM_BF16_RTOL:
+        raise AssertionError(f"lm_serve: a bf16 gap beyond {LM_BF16_RTOL}: "
+                             f"{gaps}")
+
+    # the DiT's shapes again, after the LM's tensor maps
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    q, k, v = (rn(B, 32, 64, 64).bfloat16() for _ in range(3))
+    err = (fkernel.launch(q, k, v, False, 0).float() -
+           attention_ref(q, k, v, False, 0).float()).abs().max().item()
+    x = rn(B, 64, 64, 64).bfloat16()
+    dt, A = F.softplus(rn(B, 64, 64) - 1), -torch.exp(rn(64))
+    Bm, Cm = rn(B, 64, 64).bfloat16(), rn(B, 64, 64).bfloat16()
+    y, fs = skernel.launch(x, dt, A, Bm, Cm, 64)
+    yr, fr = ssd_chunked(x, dt, A, Bm, Cm, 64)
+    if not torch.allclose(fkernel.launch(q, k, v, False, 0).float(),
+                          attention_ref(q, k, v, False, 0).float(),
+                          **TOL_BF16):
+        raise AssertionError(f"lm_serve: flash at the DiT's shape after the "
+                             f"LM's: max abs {err:.3g}")
+    ssd_range_check(y, yr, "lm_serve: ssd y at the DiT's shape")
+    ssd_range_check(fs, fr, "lm_serve: ssd state at the DiT's shape")
+    log(f"lm_serve/dit_shapes_after: flash max abs {err:.3g}, ssd within "
+        f"{SSD_BF16_RANGE}")
+    log(f"lm_serve/phase_s: {time.perf_counter() - t_phase:.1f}; card {card}")
+    return records, launches
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").is_file():
@@ -2287,21 +2838,26 @@ def main() -> int:
     launches, batched_card_ms = phase_main_path(fwd_ms)
     phase_contracts()
     train_launches, ddpm_card_ms = phase_train()
-    runtime_launches = phase_train_runtime()
+    runtime_launches, trained = phase_train_runtime()
+    eval_launches = phase_eval(trained)
+    del trained
     dit_records, dit_launches = phase_dit()
     phase_grouped_matmul()
     moe_records, moe_launches = phase_moe()
+    lm_records, lm_launches = phase_lm_serve()
     records["ddpm_step"]["card_ms"] = ddpm_card_ms
     records["ddpm_step_batched"]["card_ms"] = batched_card_ms
     records.update(dit_records)
     records["flash_attention"]["head_dim_128"] = \
         moe_records.pop("flash_attention@128")
     records.update(moe_records)
-    # launches of the five main paths (each counted from zero just
+    for name, rec in lm_records.items():
+        records[name]["lm_prefill"] = rec
+    # launches of the seven main paths (each counted from zero just
     # before it)
-    by_path = {"serve": launches, "train": train_launches,
-               "train_runtime": runtime_launches, "dit": dit_launches,
-               "moe": moe_launches}
+    by_path = dict(zip(PATHS, (launches, train_launches, runtime_launches,
+                               eval_launches, dit_launches, moe_launches,
+                               lm_launches)))
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in set().union(*by_path.values())}
     log(f"total_s: {time.perf_counter() - t_start:.1f}")

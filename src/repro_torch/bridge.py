@@ -15,6 +15,11 @@ JAX side — no JAX is imported here) and:
   (d, E) / (E, d, F) / (E, F, d) layouts) goes into the parameter of the
   same name without a transpose, and bf16 leaves come in exactly through
   float32.
+* ``load_params`` also copies the evaluation nets (eval/: the FD
+  proxy's feature-net tuple, the reconstructor's and the classifier's
+  dicts), whose bare HWIO kernels become bias-free OIHW convs;
+  ``load_dit`` also copies a language model (models/api.init_params: the
+  DiT's stacks ``layers`` / ``mamba``, the embedding (V, D) as it is).
 * ``unstack`` splits params stacked on a leading client axis k (the
   JAX package's stacked-clients layout) into k per-client trees.
 * ``load_opt_state`` turns a JAX AdamW state (``{"m", "v", "step"}``)
@@ -107,6 +112,10 @@ def _walk(module, tree, name: str, leaf):
         return None
     if isinstance(module, torch.Tensor):        # a bare parameter
         return leaf(module, tree, "as_is", name)
+    if isinstance(module, nn.Embedding):        # (V, D) in both layouts
+        return leaf(module.weight, tree, "as_is", name)
+    if isinstance(module, nn.Conv2d) and module.bias is None:
+        return leaf(module.weight, tree, "hwio", name)   # a bare kernel
     if isinstance(module, nn.Conv2d):
         return {"w": leaf(module.weight, tree["w"], "hwio", name + ".w"),
                 "b": leaf(module.bias, tree["b"], "as_is", name + ".b")}
@@ -245,7 +254,8 @@ def load_unet(model: nn.Module, params) -> nn.Module:
 
 def load_dit(model: nn.Module, params) -> nn.Module:
     """Copy a JAX-layout DiT parameter tree (core/dit.init_dit, numpy
-    leaves) into a ``core.dit.DiT`` in place.  The layer stacks
+    leaves) into a ``core.dit.DiT`` in place, or a language model's
+    (models/api.init_params) into its module.  The layer stacks
     (``mamba``, ``layers``) carry a leading layer axis in JAX
     (``stacked_init``); they are unstacked into the module's layer lists.
     Every parameter of the module must be covered."""

@@ -133,13 +133,15 @@ def _backbone(params: DiT, h, arch: ArchConfig):
     N = h.shape[1]
     positions = torch.arange(N, device=h.device)[None]
     if not _is_ssm(arch):
-        return _scan_blocks(params.layers, h, arch, positions, causal=False)
+        return _scan_blocks(params.layers, h, arch, positions,
+                            causal=False)[0]
     g, G, _ = _grouping(arch)
     head, tail = _split_groups(params.mamba, g, G)
     for group in head:
         for layer in group:
             h = mamba_forward(layer, h, arch)
-        h, _ = block_apply(params.shared, h, arch, positions, causal=False)
+        h, _, _ = block_apply(params.shared, h, arch, positions,
+                              causal=False)
     for layer in tail:
         h = mamba_forward(layer, h, arch)
     return h

@@ -251,6 +251,19 @@ def permutation(key: torch.Tensor, x) -> torch.Tensor:
     return x[idx.to(x.device)]
 
 
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                axis: int = -1) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis)``: the Gumbel-max
+    trick, argmax(logits + g) with g = −log(−log(u)), u ``uniform`` on
+    [tiny, 1) of the logits' shape (float32 logits).  The uniforms equal
+    JAX's bit for bit; the logarithms may differ by an ulp.  Returns
+    int64 indices (JAX's int32 values)."""
+    tiny = float(torch.finfo(logits.dtype).tiny)
+    u = uniform(key.to(logits.device), tuple(logits.shape), minval=tiny,
+                maxval=1.0).to(logits.dtype)
+    return torch.argmax(-torch.log(-torch.log(u)) + logits, dim=axis)
+
+
 FILL_CHUNK = 1 << 26     # elements per window: ~3 GB of int64 temporaries
 
 

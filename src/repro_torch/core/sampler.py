@@ -54,6 +54,8 @@ or a stacked tree of tensors with a leading client axis, unstacked with
 """
 from __future__ import annotations
 
+import warnings
+
 from typing import Callable, List, Tuple
 
 import torch
@@ -339,6 +341,18 @@ def shared_handoff_sample(server_params, client_params_list, key, y, shape,
                            apply_fn, adjusted)
             for i, cp in enumerate(client_list(client_params_list))]
     return torch.stack(outs), x_cut
+
+
+def shared_handoff_sample_list(*args, **kwargs):
+    """Deprecated shim for the pre-engine API that rebuilt a Python list
+    from the stacked output: use ``shared_handoff_sample`` (stacked (k, B,
+    ...) tensor) and index rows instead."""
+    warnings.warn(
+        "shared_handoff_sample_list is deprecated: shared_handoff_sample "
+        "now returns the stacked (k, B, ...) array directly",
+        DeprecationWarning, stacklevel=2)
+    outs, x_cut = shared_handoff_sample(*args, **kwargs)
+    return [outs[i] for i in range(outs.shape[0])], x_cut
 
 
 def collaborative_sample(server_params, client_params, key, y, shape,

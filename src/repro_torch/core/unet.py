@@ -61,12 +61,14 @@ class GroupNorm(nn.Module):
 class Conv2dSame(nn.Conv2d):
     """Square-kernel conv with XLA's ``SAME`` padding: the total padding
     max((⌈n/s⌉−1)·s + k − n, 0) is split with the odd row/column at the
-    end."""
+    end.  ``bias=False`` gives the bare ``conv_general_dilated`` of the
+    evaluation nets (eval/)."""
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+                 bias: bool = True):
         symmetric = stride == 1 and k % 2 == 1
         super().__init__(cin, cout, k, stride=stride,
-                         padding=k // 2 if symmetric else 0)
+                         padding=k // 2 if symmetric else 0, bias=bias)
         self._symmetric = symmetric
 
     def forward(self, x):

@@ -5,8 +5,12 @@ The port of the JAX package's ``models/attention.py`` for the DiT path:
 and ``self_attention``.  The full-sequence product in ``self_attention``
 goes through ``kernels.flash_attention.ops`` (the CUDA kernel on the card,
 its plain version on the CPU); ``attend`` is the model's generic core,
-kept for tests and callers with an arbitrary mask.  Decode, cross-attention
-and the KV cache come with the LM slice.
+used by ``decode_attention`` (one query against a cache, computed outside
+any kernel in the reference too) and by callers with an arbitrary mask.
+The KV cache (``init_cache``, ``cache_len_for``) is a fixed-size buffer,
+a ring indexed by ``pos % C`` when a sliding window bounds it.
+Cross-attention (``cross_attention``, ``encoder_kv``) comes with the
+encoder-decoder.
 
 RoPE rotates interleaved pairs (``x[..., ::2]``, ``x[..., 1::2]``) as JAX
 does, not the half-split ``rotate_half`` of common PyTorch code.
@@ -157,3 +161,54 @@ def self_attention(params: Attention, x, *, n_heads, n_kv_heads, head_dim,
     if return_kv:
         return out, (k, v)
     return out
+
+
+# ---------------------------------------------------------------------------
+# KV cache (fixed-size buffer; ring semantics when window > 0)
+# ---------------------------------------------------------------------------
+
+
+def init_cache(batch: int, n_kv_heads: int, cache_len: int, head_dim: int,
+               dtype, device=None):
+    shape = (batch, n_kv_heads, cache_len, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_len_for(seq_len: int, window: int) -> int:
+    return min(seq_len, window) if window > 0 else seq_len
+
+
+def decode_attention(params: Attention, x, cache, pos: int, *, n_heads,
+                     n_kv_heads, head_dim, theta=10_000.0, fraction=1.0,
+                     window=0, use_rope=True):
+    """One-token decode.  x: (B, 1, D); ``pos`` the current position (a
+    host int).  Returns (out (B, 1, D), new cache); the given cache is
+    not changed.
+
+    The buffer has length C = cache_len_for(seq, window); with a window
+    it is a ring indexed by pos % C.  RoPE uses absolute positions, so
+    the relative geometry holds whatever the ring's rotation."""
+    B = x.shape[0]
+    C = cache["k"].shape[2]
+    dev = x.device
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=dev)
+    q, k_new, v_new = qkv(params, x, n_heads, n_kv_heads, head_dim,
+                          positions, theta, fraction, use_rope)
+    slot = pos % C
+    k, v = cache["k"].clone(), cache["v"].clone()
+    k[:, :, slot:slot + 1] = k_new
+    v[:, :, slot:slot + 1] = v_new
+    # valid slots: those already written (<= pos), within the window
+    idx = torch.arange(C, device=dev)
+    written = (torch.ones(C, dtype=torch.bool, device=dev) if pos + 1 >= C
+               else idx <= slot)
+    if window > 0:
+        # the absolute position held in each ring slot
+        abs_pos = torch.where(idx <= slot, pos - slot + idx,
+                              pos - slot + idx - C)
+        valid = written & (pos - abs_pos < window) & (abs_pos >= 0)
+    else:
+        valid = written
+    out = params.wo(_merge_heads(attend(q, k, v, valid[None, None, None])))
+    return out, {"k": k, "v": v}

@@ -1,16 +1,38 @@
-"""Grouping of a Mamba2 stack around the hybrid's shared block.
+"""SSM language-model stacks: pure Mamba2 (mamba2-2.7b) and the
+Zamba2-style hybrid — a Mamba2 backbone with ONE shared attention+MLP
+block applied after every ``shared_attn_every`` layers (shared weights,
+one KV cache per application).
 
-From the JAX package's ``models/hybrid.py`` the DiT path needs only
-``_grouping`` and ``_split_groups``: Zamba2 applies ONE shared
-attention+MLP block after every ``shared_attn_every`` Mamba2 layers.
-The hybrid language model (embedding, prefill, decode) comes with the LM
-slice.
+The port of the JAX package's ``models/hybrid.py``: ``_grouping``,
+``_split_groups``, ``init_hybrid_params``, ``hybrid_forward`` (with
+``collect_state``), ``init_hybrid_state``, ``hybrid_prefill`` and
+``hybrid_decode_step``; ``hybrid_loss`` comes with LM training.
+``shared_attn_every = 0`` gives the pure-SSM stack.  The prefill runs
+each Mamba2 layer's scan through the SSD kernel and each shared block's
+attention through the flash kernel on the card; decode is plain torch.
+
+Decode state, as lists where JAX stacks: ``head`` holds G groups of g
+per-layer ``{"ssm", "conv"}`` states, ``tail`` the r remaining layers',
+``shared`` the G ring KV caches ``{"k", "v"}`` of the shared block's
+applications .
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import prng
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (dense, embedding, fill_dense,
+                                       fill_embedding, rmsnorm, rmsnorm_init)
+from repro_torch.models.ssm import (Mamba, fill_mamba, mamba_decode,
+                                    mamba_forward, mamba_init_state)
+from repro_torch.models.transformer import (Block, block_apply, block_decode,
+                                            fill_block, logits_of, ring_cache,
+                                            stacked_init)
 
 
 def _grouping(cfg: ArchConfig) -> Tuple[int, int, int]:
@@ -27,3 +49,129 @@ def _split_groups(layers: Sequence, g: int, G: int
     layers = list(layers)
     head = [layers[i * g:(i + 1) * g] for i in range(G)]
     return head, layers[G * g:]
+
+
+class HybridLM(nn.Module):
+    """JAX's keys: ``embed`` (V, D), ``mamba`` (the stack), ``final_norm``,
+    ``unembed`` and, for the hybrid, the ``shared`` block.  Uninitialised
+    until ``init_hybrid_params`` or ``bridge.load_dit`` fills it."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        dtype, d = cfg.torch_dtype, cfg.d_model
+        self.embed = embedding(cfg.vocab_size, d, dtype, device)
+        self.mamba = nn.ModuleList(Mamba(cfg, dtype, device)
+                                   for _ in range(cfg.n_layers))
+        self.final_norm = rmsnorm_init(d, dtype, device)
+        self.unembed = dense(d, cfg.vocab_size, dtype, device)
+        if cfg.shared_attn_every > 0:
+            self.shared = Block(cfg, dtype, device)
+
+
+def init_hybrid_params(key: torch.Tensor, cfg: ArchConfig) -> HybridLM:
+    """A model on the key's device whose weights equal JAX's
+    ``init_hybrid_params(key, cfg)`` (normals within the ulps of
+    ``torch.erfinv``)."""
+    ke, km, ks, ku = prng.split(key, 4)
+    m = HybridLM(cfg, key.device)
+    fill_embedding(m.embed, ke)
+    stacked_init(km, m.mamba, lambda layer, k: fill_mamba(layer, k, cfg))
+    fill_dense(m.unembed, ku)
+    if cfg.shared_attn_every > 0:
+        fill_block(m.shared, ks)
+    return m
+
+
+def hybrid_forward(params: HybridLM, tokens, cfg: ArchConfig,
+                   collect_state: bool = False):
+    """Returns (hidden, states | None, shared_kvs | None): with
+    ``collect_state`` the Mamba2 layers' decode states ``{"head",
+    "tail"}`` and each shared application's full-sequence (k, v)."""
+    x = params.embed(tokens)
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
+    g, G, _ = _grouping(cfg)
+    head, tail = _split_groups(params.mamba, g, G)
+
+    def mamba_group(x, layers):
+        states = []
+        for layer in layers:
+            if collect_state:
+                x, st = mamba_forward(layer, x, cfg, return_state=True)
+                states.append(st)
+            else:
+                x = mamba_forward(layer, x, cfg)
+        return x, states
+
+    head_states, shared_kvs = [], []
+    for group in head:
+        x, st = mamba_group(x, group)
+        x, _, kv = block_apply(params.shared, x, cfg, positions)
+        head_states.append(st)
+        shared_kvs.append(kv)
+    x, tail_states = mamba_group(x, tail)
+    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+    if not collect_state:
+        return x, None, None
+    return x, {"head": head_states, "tail": tail_states}, \
+        (shared_kvs if G > 0 else None)
+
+
+def init_hybrid_state(cfg: ArchConfig, batch: int, seq_len: int, dtype=None,
+                      device=None) -> dict:
+    dtype = dtype or cfg.torch_dtype
+    g, G, r = _grouping(cfg)
+    one = lambda: mamba_init_state(cfg, batch, dtype, device)
+    state = {"head": [[one() for _ in range(g)] for _ in range(G)],
+             "tail": [one() for _ in range(r)]}
+    if cfg.shared_attn_every > 0:
+        C = attn.cache_len_for(seq_len, cfg.sliding_window)
+        state["shared"] = [attn.init_cache(batch, cfg.n_kv_heads, C,
+                                           cfg.head_dim_, dtype, device)
+                           for _ in range(G)]
+    return state
+
+
+def hybrid_prefill(params: HybridLM, tokens, cfg: ArchConfig,
+                   cache_len: Optional[int] = None):
+    """Run the prompt; return (last-token logits (B, 1, V), decode
+    state)."""
+    hidden, states, shared_kvs = hybrid_forward(params, tokens, cfg,
+                                                collect_state=True)
+    S = tokens.shape[1]
+    state = dict(states)
+    if cfg.shared_attn_every > 0:
+        C = cache_len or attn.cache_len_for(S, cfg.sliding_window)
+        state["shared"] = ring_cache(shared_kvs, C, S)
+    return logits_of(params, hidden[:, -1:, :]), state
+
+
+def hybrid_decode_step(params: HybridLM, token, state, pos: int,
+                       cfg: ArchConfig):
+    """token: (B, 1); ``state`` from ``init_hybrid_state`` or a prefill;
+    ``pos`` the token's position (a host int).  Returns (logits (B, 1,
+    V), new state); the given state is not changed."""
+    x = params.embed(token)
+    g, G, _ = _grouping(cfg)
+    head, tail = _split_groups(params.mamba, g, G)
+
+    def mamba_group(x, layers, states):
+        new = []
+        for layer, st in zip(layers, states, strict=True):
+            x, st = mamba_decode(layer, x, st, cfg)
+            new.append(st)
+        return x, new
+
+    new_state = dict(state)
+    if G > 0:
+        hs, skv = [], []
+        for group, gs, kv in zip(head, state["head"], state["shared"],
+                                 strict=True):
+            x, gs = mamba_group(x, group, gs)
+            x, kv = block_decode(params.shared, x, kv, pos, cfg)
+            hs.append(gs)
+            skv.append(kv)
+        new_state["head"], new_state["shared"] = hs, skv
+    x, new_state["tail"] = mamba_group(x, tail, state["tail"])
+    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+    return logits_of(params, x), new_state

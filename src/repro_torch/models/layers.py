@@ -1,6 +1,6 @@
 """Shared building blocks: the dense-weight initialiser (threefry-keyed,
-equal to the JAX package's for the same key), the sinusoidal timestep
-embedding, RMSNorm and the two MLPs.
+equal to the JAX package's for the same key), the token embedding, the
+sinusoidal timestep embedding, RMSNorm and the two MLPs.
 
 Parameters live in ``nn.Module``s whose attribute names are the JAX
 package's parameter keys (``scale``, ``w_gate``, ``w_up`` …), so
@@ -54,6 +54,26 @@ def fill_dense(lin: nn.Linear, key: torch.Tensor,
     """``dense_init`` into an ``nn.Linear`` (transposed to (out, in))."""
     fill(lin.weight, dense_init(key, lin.in_features, lin.out_features,
                                 lin.weight.dtype, scale).t())
+
+
+def embed_init(key: torch.Tensor, vocab: int, d: int,
+               dtype=torch.float32) -> torch.Tensor:
+    """(vocab, d) token embedding ~ N(0, 0.02²), JAX's ``embed_init``."""
+    return (prng.normal(key, (vocab, d)) * 0.02).to(dtype)
+
+
+def embedding(vocab: int, d: int, dtype, device=None) -> nn.Embedding:
+    """An uninitialised ``nn.Embedding``: its (vocab, d) weight is JAX's
+    ``embed`` array as it is, and ``embedding(tokens)`` is
+    ``embed[tokens]``."""
+    return skip_init(nn.Embedding, vocab, d,
+                     device="cpu" if device is None else device, dtype=dtype)
+
+
+def fill_embedding(emb: nn.Embedding, key: torch.Tensor) -> None:
+    """``embed_init`` into an embedding."""
+    fill(emb.weight, embed_init(key, emb.num_embeddings, emb.embedding_dim,
+                                emb.weight.dtype))
 
 
 def sinusoidal_embedding(positions: torch.Tensor, dim: int,

@@ -1,10 +1,13 @@
 """Mamba2 (SSD, state-space duality) mixer layer [arXiv:2405.21060].
 
-The port of the JAX package's ``models/ssm.py`` for the full-sequence
-path: ``mamba_init``, ``_causal_conv`` and ``mamba_forward``.  The chunked
-scan goes through ``kernels.ssd_scan.ops`` (the CUDA kernel on the card;
-on the CPU its plain version, the port of ``ssd_chunked``).  The decode
-step (``ssd_decode_step``, ``mamba_decode``) comes with the LM slice.
+The port of the JAX package's ``models/ssm.py``: ``mamba_init``,
+``_causal_conv`` and ``mamba_forward`` (train / prefill; with
+``return_state`` also the decode state it leaves), and the O(1) decode
+step: ``ssd_decode_step``, ``_conv_decode``, ``mamba_init_state`` and
+``mamba_decode``.  The chunked scan goes through ``kernels.ssd_scan.ops``
+(the CUDA kernel on the card; on the CPU its plain version, the port of
+``ssd_chunked``), whose final state seeds the decode.  The decode step is
+plain torch, as it is plain JAX in the reference.
 
 Shapes per layer: d_inner = expand · d_model, P = ssm_head_dim,
 H = d_inner / P, N = ssm_state; x, B and C go through the depthwise conv.
@@ -89,22 +92,89 @@ def _causal_conv(xBC, w, b):
     return F.silu(out.transpose(1, 2) + b)
 
 
-def mamba_forward(params: Mamba, x, cfg: ArchConfig):
-    """Full-sequence mixer with its residual.  x: (B, S, D)."""
+def _conv_decode(conv_state, xBC_new, w, b):
+    """conv_state: (B, K−1, Cd) the previous raw inputs; xBC_new: (B, Cd).
+    Returns (SiLU of the conv's newest output, the next state)."""
+    window = torch.cat([conv_state, xBC_new[:, None, :]], dim=1)  # (B,K,Cd)
+    out = torch.einsum("bkc,kc->bc", window, w) + b
+    return F.silu(out), window[:, 1:, :]
+
+
+def ssd_decode_step(state, x, dt, A, B, C):
+    """O(1) recurrent update.  state: (b, h, p, n); x: (b, h, p); dt:
+    (b, h); B, C: (b, n).  Returns (y (b, h, p) in x's type, new state
+    float32)."""
+    f32 = torch.float32
+    dA = torch.exp(dt.to(f32) * A.to(f32))                  # (b, h)
+    dBx = torch.einsum("bn,bhp,bh->bhpn", B.to(f32), x.to(f32), dt.to(f32))
+    new = dA[:, :, None, None] * state.to(f32) + dBx
+    y = torch.einsum("bn,bhpn->bhp", C.to(f32), new)
+    return y.to(x.dtype), new
+
+
+def mamba_forward(params: Mamba, x, cfg: ArchConfig,
+                  return_state: bool = False):
+    """Full-sequence mixer with its residual.  x: (B, S, D).  With
+    ``return_state``, also the decode state it leaves: the scan's final
+    state (``ssm``, float32) and the last K−1 RAW conv inputs, x_raw ‖
+    bc_raw (``conv``)."""
     B_, S, _ = x.shape
     di, n, h, p = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_n_heads,
                    cfg.ssm_head_dim)
     xn = rmsnorm(params.norm, x, cfg.norm_eps)
     z = params.z_proj(xn)
-    xc = _causal_conv(params.x_proj(xn), params.conv_x_w, params.conv_x_b)
-    bc = _causal_conv(params.bc_proj(xn), params.conv_bc_w,
-                      params.conv_bc_b)
+    x_raw = params.x_proj(xn)
+    bc_raw = params.bc_proj(xn)
+    xc = _causal_conv(x_raw, params.conv_x_w, params.conv_x_b)
+    bc = _causal_conv(bc_raw, params.conv_bc_w, params.conv_bc_b)
     xs = xc.reshape(B_, S, h, p)
     Bm, Cm = bc[..., :n], bc[..., n:]
     dt = F.softplus(params.dt_proj(xn).float() + params.dt_bias)
     A = -torch.exp(params.A_log)
-    y, _ = ssd_ops.ssd_scan(xs, dt, A, Bm, Cm, min(cfg.ssm_chunk, S))
+    y, final_state = ssd_ops.ssd_scan(xs, dt, A, Bm, Cm,
+                                      min(cfg.ssm_chunk, S))
     y = y + xs * params.D[None, None, :, None].to(y.dtype)
     y = y.reshape(B_, S, di)
     y = rmsnorm(params.out_norm, y * F.silu(z), cfg.norm_eps)
-    return x + params.out_proj(y)
+    out = x + params.out_proj(y)
+    if return_state:
+        K = cfg.ssm_conv_kernel
+        conv_state = torch.cat([x_raw, bc_raw], dim=-1)[:, -(K - 1):, :]
+        return out, {"ssm": final_state, "conv": conv_state}
+    return out
+
+
+def mamba_init_state(cfg: ArchConfig, batch: int, dtype, device=None):
+    """A zero decode state: the SSM state in float32, the conv state in
+    the model's type."""
+    di, n, h, p = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_n_heads,
+                   cfg.ssm_head_dim)
+    K = cfg.ssm_conv_kernel
+    return {"ssm": torch.zeros((batch, h, p, n), dtype=torch.float32,
+                               device=device),
+            "conv": torch.zeros((batch, K - 1, di + 2 * n), dtype=dtype,
+                                device=device)}
+
+
+def mamba_decode(params: Mamba, x, state, cfg: ArchConfig):
+    """One-token step.  x: (B, 1, D); ``state`` from ``mamba_init_state``
+    or a prefill.  Returns (out (B, 1, D), new state)."""
+    B_ = x.shape[0]
+    di, n, h, p = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_n_heads,
+                   cfg.ssm_head_dim)
+    xn = rmsnorm(params.norm, x[:, 0], cfg.norm_eps)
+    z = params.z_proj(xn)
+    xBC_raw = torch.cat([params.x_proj(xn), params.bc_proj(xn)], dim=-1)
+    conv_w = torch.cat([params.conv_x_w, params.conv_bc_w], dim=-1)
+    conv_b = torch.cat([params.conv_x_b, params.conv_bc_b], dim=-1)
+    xBC, conv_state = _conv_decode(state["conv"], xBC_raw, conv_w, conv_b)
+    xs = xBC[..., :di].reshape(B_, h, p)
+    Bm, Cm = xBC[..., di:di + n], xBC[..., di + n:]
+    dt = F.softplus(params.dt_proj(xn).float() + params.dt_bias)
+    A = -torch.exp(params.A_log)
+    y, ssm_state = ssd_decode_step(state["ssm"], xs, dt, A, Bm, Cm)
+    y = y + xs * params.D[None, :, None].to(y.dtype)
+    y = y.reshape(B_, di)
+    y = rmsnorm(params.out_norm, y * F.silu(z), cfg.norm_eps)
+    out = x + params.out_proj(y)[:, None, :]
+    return out, {"ssm": ssm_state, "conv": conv_state}

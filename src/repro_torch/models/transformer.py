@@ -1,27 +1,39 @@
-"""One pre-norm transformer block (attention + MLP or MoE) and the stack
-of them.
+"""Decoder-only transformer: one pre-norm block (attention + MLP or MoE),
+the stack of them, and the language model over it (dense, moe and vlm
+families).
 
-The port of the JAX package's ``models/transformer.py`` for the DiT path:
-``block_init``, ``block_apply``, ``stacked_init`` and ``_scan_blocks``
-(a Python loop where JAX scans).  JAX's ``Runtime`` carries the mesh,
-remat, unroll and Pallas switches; this path reads none of them (one
-device, no tracing, kernels chosen by the tensors' device), so the port
-has no ``Runtime``.  A block of an MoE architecture (``n_experts`` set)
-holds ``moe`` where the others hold ``mlp``, and runs it as JAX's
-``moe_apply`` does on one device (``models/moe.moe_dense``).
+The port of the JAX package's ``models/transformer.py``: ``block_init``,
+``block_apply``, ``block_decode``, ``stacked_init`` and ``_scan_blocks``
+(a Python loop where JAX scans), and the LM entry points
+``init_lm_params``, ``lm_forward``, ``logits_of``, ``_to_ring``,
+``lm_prefill``, ``init_lm_cache`` and ``lm_decode_step``.  JAX's
+``Runtime`` carries the mesh, remat, unroll and Pallas switches; the port
+reads none of them (one device, no tracing, kernels chosen by the
+tensors' device, MoE always JAX's one-device ``moe_dense``), so it has no
+``Runtime``.  A block of an MoE architecture (``n_experts`` set) holds
+``moe`` where the others hold ``mlp``.
+
+Prefill runs the full-sequence blocks (attention through the flash
+kernel on the card) and keeps each layer's K/V; the cache is a list of
+per-layer ``{"k", "v"}`` buffers (B, Hkv, C, dh), where JAX stacks them
+on a leading layer axis.
+Decode is plain torch, one token against the cache, as in JAX.
+``cross_entropy`` and ``lm_loss`` come with LM training.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (fill_mlp, make_mlp, mlp_apply,
-                                       rmsnorm, rmsnorm_init)
+from repro_torch.models.layers import (dense, embedding, fill_dense,
+                                       fill_embedding, fill_mlp, make_mlp,
+                                       mlp_apply, rmsnorm, rmsnorm_init)
 from repro_torch.models.moe import MoE, fill_moe, moe_apply
 
 
@@ -59,8 +71,9 @@ def block_init(key: torch.Tensor, cfg: ArchConfig, dtype) -> Block:
 
 def block_apply(params: Block, x, cfg: ArchConfig, positions,
                 window: Optional[int] = None, causal: bool = True):
-    """Full-sequence block.  Returns (x, (k, v)); an MoE block's aux loss
-    is dropped, as ``dit_apply`` drops it in JAX."""
+    """Full-sequence block (train / prefill).  Returns (x, aux, (k, v)):
+    aux is the MoE router's auxiliary loss, the Python float 0.0 for an
+    MLP block (no device tensor, so a dense stack adds no launch)."""
     w = cfg.sliding_window if window is None else window
     h = rmsnorm(params.norm1, x, cfg.norm_eps)
     a, kv = attn.self_attention(
@@ -70,10 +83,29 @@ def block_apply(params: Block, x, cfg: ArchConfig, positions,
     x = x + a
     h = rmsnorm(params.norm2, x, cfg.norm_eps)
     if cfg.n_experts:
+        m, aux = moe_apply(params.moe, h, cfg)
+    else:
+        m = mlp_apply(params.mlp, h, cfg.mlp_type)
+        aux = 0.0
+    return x + m, aux, kv
+
+
+def block_decode(params: Block, x, cache, pos: int, cfg: ArchConfig):
+    """One token through a block against its cache.  Returns (x, new
+    cache)."""
+    h = rmsnorm(params.norm1, x, cfg.norm_eps)
+    a, cache = attn.decode_attention(
+        params.attn, h, cache, pos, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+        theta=cfg.rope_theta, fraction=cfg.rope_fraction,
+        window=cfg.sliding_window)
+    x = x + a
+    h = rmsnorm(params.norm2, x, cfg.norm_eps)
+    if cfg.n_experts:
         m, _ = moe_apply(params.moe, h, cfg)
     else:
         m = mlp_apply(params.mlp, h, cfg.mlp_type)
-    return x + m, kv
+    return x + m, cache
 
 
 def stacked_init(key: torch.Tensor, layers: Sequence[nn.Module],
@@ -84,8 +116,115 @@ def stacked_init(key: torch.Tensor, layers: Sequence[nn.Module],
         fill_fn(layer, k)
 
 
-def _scan_blocks(layers, x, cfg: ArchConfig, positions, window=None,
-                 causal: bool = True):
+def _scan_blocks(layers, x, cfg: ArchConfig, positions,
+                 collect_kv: bool = False, window=None, causal: bool = True):
+    """The blocks in order.  Returns (x, summed aux, [(k, v)] per layer
+    when ``collect_kv``, else None); the aux stays the float 0.0 through
+    MLP blocks."""
+    aux = 0.0
+    kvs = [] if collect_kv else None
     for layer in layers:
-        x, _ = block_apply(layer, x, cfg, positions, window, causal)
-    return x
+        x, a, kv = block_apply(layer, x, cfg, positions, window, causal)
+        aux = aux + a
+        if collect_kv:
+            kvs.append(kv)
+    return x, aux, kvs
+
+
+# ---------------------------------------------------------------------------
+# The language model
+# ---------------------------------------------------------------------------
+
+
+class LM(nn.Module):
+    """A decoder-only LM under JAX's keys: ``embed`` (V, D), ``layers``,
+    ``final_norm`` and ``unembed`` (JAX's (D, V) as an ``nn.Linear``).
+    Uninitialised until ``init_lm_params`` or ``bridge.load_dit`` fills
+    it."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        dtype, d = cfg.torch_dtype, cfg.d_model
+        self.embed = embedding(cfg.vocab_size, d, dtype, device)
+        self.layers = nn.ModuleList(Block(cfg, dtype, device)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = rmsnorm_init(d, dtype, device)
+        self.unembed = dense(d, cfg.vocab_size, dtype, device)
+
+
+def init_lm_params(key: torch.Tensor, cfg: ArchConfig) -> LM:
+    """An LM on the key's device whose weights equal JAX's
+    ``init_lm_params(key, cfg)`` (normals within the ulps of
+    ``torch.erfinv``)."""
+    ke, kl, ku = prng.split(key, 3)
+    m = LM(cfg, key.device)
+    fill_embedding(m.embed, ke)
+    stacked_init(kl, m.layers, fill_block)
+    fill_dense(m.unembed, ku)
+    return m
+
+
+def lm_forward(params: LM, tokens, cfg: ArchConfig, embeds_prefix=None,
+               collect_kv: bool = False):
+    """tokens: (B, S) integer.  embeds_prefix: optional (B, P, D)
+    prepended (VLM vision patches).  Returns (hidden (B, S[+P], D), aux,
+    [(k, v)] per layer or None)."""
+    x = params.embed(tokens)
+    if embeds_prefix is not None:
+        x = torch.cat([embeds_prefix.to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
+    x, aux, kvs = _scan_blocks(params.layers, x, cfg, positions, collect_kv)
+    return rmsnorm(params.final_norm, x, cfg.norm_eps), aux, kvs
+
+
+def logits_of(params, hidden):
+    return params.unembed(hidden)
+
+
+def _to_ring(k, cache_len: int, seq: int):
+    """Pack full-sequence K/V (B, H, S, dh) into the ring layout (B, H, C,
+    dh): zero-padded when C >= S, else the last C positions rolled so
+    that position p sits in slot p % C."""
+    if cache_len >= seq:
+        return F.pad(k, (0, 0, 0, cache_len - seq))
+    return torch.roll(k[:, :, -cache_len:, :], seq % cache_len, dims=2)
+
+
+def ring_cache(kvs, cache_len: int, seq: int) -> List[dict]:
+    """Per-layer (k, v) of a full sequence → the per-layer ring caches."""
+    return [{"k": _to_ring(k, cache_len, seq), "v": _to_ring(v, cache_len,
+                                                             seq)}
+            for k, v in kvs]
+
+
+def lm_prefill(params: LM, tokens, cfg: ArchConfig,
+               cache_len: Optional[int] = None, embeds_prefix=None):
+    """Run the prompt; return (last-token logits (B, 1, V), the cache: a
+    list of per-layer ``{"k", "v"}``)."""
+    hidden, _, kvs = lm_forward(params, tokens, cfg,
+                                embeds_prefix=embeds_prefix, collect_kv=True)
+    S = hidden.shape[1]
+    C = cache_len or attn.cache_len_for(S, cfg.sliding_window)
+    return logits_of(params, hidden[:, -1:, :]), ring_cache(kvs, C, S)
+
+
+def init_lm_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=None,
+                  device=None) -> List[dict]:
+    C = attn.cache_len_for(seq_len, cfg.sliding_window)
+    dtype = dtype or cfg.torch_dtype
+    return [attn.init_cache(batch, cfg.n_kv_heads, C, cfg.head_dim_, dtype,
+                            device) for _ in range(cfg.n_layers)]
+
+
+def lm_decode_step(params: LM, token, cache, pos: int, cfg: ArchConfig):
+    """token: (B, 1) integer; cache: per-layer ``{"k", "v"}``; ``pos``
+    the token's position (a host int).  Returns (logits (B, 1, V), new
+    cache)."""
+    x = params.embed(token)
+    new_cache = []
+    for layer, c in zip(params.layers, cache):
+        x, c = block_decode(layer, x, c, pos, cfg)
+        new_cache.append(c)
+    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+    return logits_of(params, x), new_cache

@@ -15,6 +15,7 @@ phase's checks (state copies, bitwise and toleranced comparisons of
 params, moments and step counters, the per-step recorder) run on a tiny
 round on the CPU.
 """
+import dataclasses
 import importlib.util
 from pathlib import Path
 from types import SimpleNamespace
@@ -361,3 +362,133 @@ def test_runtime_phase_configuration():
     assert (cs.RT_ROUNDS, cs.RT_P, cs.RT_DROP, cs.RT_FEDAVG, cs.RT_EMA,
             cs.RT_SEED) == (4, 0.8, 0.1, 2, 0.99, 1)
     assert cs.RT_DP == dict(clip=1.0, noise_multiplier=0.8)
+
+
+def test_main_runs_every_phase_in_order():
+    """The phases main() drives, in order: the evaluation scores what the
+    training runtime trained, and the LM serving path runs last, after
+    the DiT's and the MoE's kernel shapes."""
+    import inspect
+    import re
+    cs = _chip_smoke()
+    calls = re.findall(r"\b(phase_\w+)\(", inspect.getsource(cs.main))
+    assert calls == ["phase_build", "phase_keyed", "phase_kernels",
+                     "phase_flash_ssd", "phase_unet", "phase_main_path",
+                     "phase_contracts", "phase_train", "phase_train_runtime",
+                     "phase_eval", "phase_dit", "phase_grouped_matmul",
+                     "phase_moe", "phase_lm_serve"]
+    assert cs.PATHS == ("serve", "train", "train_runtime", "eval", "dit",
+                        "moe", "lm_serve")
+    for name in calls:
+        assert callable(getattr(cs, name))
+
+
+def test_kernels_line_carries_the_new_paths_and_lm_shapes():
+    """``launches_by_path`` has an entry for every path of PATHS (eval
+    and lm_serve included); flash and the SSD scan carry their numbers at
+    the LM prefill's shapes."""
+    cs = _chip_smoke()
+    names = ["ddpm_step_batched", "ddpm_step", "flash_attention",
+             "ssd_scan", "grouped_matmul"]
+    records = {n: dict(max_abs_err=0.0, ms=1.0, plain_ms=2.0, bound_ms=0.5,
+                       bound_by="bytes", library_ms=None) for n in names}
+    lm = {"flash_attention": dict(shape=[4, 32, 512, 64], ms=0.03,
+                                  library_ms=0.04, card_ms=0.02),
+          "ssd_scan": dict(shape=[4, 512, 64, 64], chunk=256, ms=0.05,
+                           library_ms=None, card_ms=0.04)}
+    for n, r in lm.items():
+        records[n]["lm_prefill"] = r
+    per = {"serve": {"ddpm_step": 1000}, "train": {"ddpm_step": 1000},
+           "train_runtime": {"ddpm_step": 1000},
+           "eval": {"ddpm_step": 1250}, "dit": {"flash_attention": 6},
+           "moe": {"grouped_matmul": 6}, "lm_serve": {"flash_attention": 6,
+                                                      "ssd_scan": 38}}
+    by_path = dict(zip(cs.PATHS, (per[p] for p in cs.PATHS)))
+    launches = {n: sum(p.get(n, 0) for p in by_path.values())
+                for n in names}
+    line = cs.kernels_line(records, launches, by_path)["kernels"]
+    for k in line:
+        assert list(k["launches_by_path"]) == list(cs.PATHS)
+    assert line[1]["launches_by_path"]["eval"] == 1250
+    assert line[2]["launches_by_path"]["lm_serve"] == 6
+    assert line[3]["launches_by_path"]["lm_serve"] == 38
+    assert line[2]["lm_prefill"] == lm["flash_attention"]
+    assert line[3]["lm_prefill"] == lm["ssd_scan"]
+    assert "lm_prefill" not in line[0]
+
+
+def test_eval_and_lm_phase_configuration():
+    """The evaluation scores N_EVAL = 96 samples (the privacy frontier's),
+    intermediates at t 0 / 250 / 500, the inversion at 250; the LM phase
+    runs Zamba2-1.2B with prompts of 512 (two SSD chunks of 256) and 333
+    tokens (a ragged tail) at batch 4, and a 7-layer CPU model (one shared
+    group of 6 and a tail layer)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.hybrid import _grouping
+    cs = _chip_smoke()
+    assert (cs.EVAL_N, cs.EVAL_TS, cs.EVAL_INV_T, cs.EVAL_SHORT_STEPS) == \
+        (96, (0, 250, 500), 250, 20)
+    cfg = get_arch(cs.LM_ARCH)
+    assert (cfg.n_layers, cfg.d_model, cfg.ssm_n_heads, cfg.ssm_head_dim,
+            cfg.ssm_state, cfg.vocab_size, cfg.dtype) == \
+        (38, 2048, 64, 64, 64, 32_000, "bfloat16")
+    assert (cs.LM_BATCH, cs.LM_PROMPTS, cs.LM_NEW) == (4, (512, 333), 32)
+    assert cfg.ssm_chunk == 256 and 512 // cfg.ssm_chunk == 2
+    assert 333 % cfg.ssm_chunk and 333 % 64
+    g, G, r = _grouping(cfg)
+    assert (g, G, r) == (6, 6, 2)
+    small = dataclasses.replace(cfg, n_layers=cs.LM_CPU_LAYERS)
+    assert _grouping(small) == (6, 1, 1)
+
+
+def test_lm_helpers():
+    cs = _chip_smoke()
+    a = torch.tensor([[0.5, 3.0]], dtype=torch.bfloat16)
+    assert cs.lm_gap(a, a) == 0.0
+    assert cs.lm_gap(torch.tensor([0.1]), torch.tensor([0.3])) == \
+        pytest.approx(0.2)
+    assert cs.lm_gap(torch.tensor([4.0]), torch.tensor([2.0])) == 1.0
+    per = {"flash_attention": 6, "ssd_scan": 38}
+    cs.check_lm_launches("t", {"flash_attention": 12, "ssd_scan": 76}, per, 2)
+    cs.check_lm_launches("t", {"flash_attention": 0, "ssd_scan": 0}, per, 0)
+    with pytest.raises(AssertionError, match="kernel launches"):
+        cs.check_lm_launches("t", {"flash_attention": 1, "ssd_scan": 0}, per,
+                             0)
+
+
+def test_eval_path_on_the_cpu():
+    """The evaluation path with a toy denoiser at T = 1000, cut 250, on
+    8x8 images of 16 a client: samples and handoff of the right shapes,
+    finite FD, F1 and inversion metrics, and the same numbers again."""
+    from repro_torch.core import prng
+    from repro_torch.core.schedules import DiffusionSchedule
+    from repro_torch.core.splitting import CutPoint
+    from repro_torch.data.synthetic import (SyntheticConfig,
+                                            make_client_datasets)
+    cs = _chip_smoke()
+
+    def toy(p, x, t, y):
+        return x * p["a"]
+
+    trained = dict(server={"a": torch.tensor(0.3)},
+                   clients=[{"a": torch.tensor(0.1)},
+                            {"a": torch.tensor(0.2)}],
+                   sched=DiffusionSchedule.linear(1000, device="cpu"),
+                   cut=CutPoint(1000, 250), apply_fn=toy)
+    data = make_client_datasets(prng.PRNGKey(1), SyntheticConfig(
+        image_size=8), 2, 16, device="cpu")
+    out = cs.eval_scores(trained, data, prng.PRNGKey(19), n=16)
+    assert out["samples"].shape == (2, 16, 8, 8, 3)
+    assert out["handoff"].shape == (16, 8, 8, 3)
+    assert set(out["fd"]) == {"client0/samples", "client0/handoff",
+                              "client1/samples", "client1/handoff"}
+    assert set(out["f1"]) == set(cs.EVAL_TS)
+    assert torch.equal(out["inter"][1, 0], data[1][0])
+    assert not torch.equal(out["inter"][1, 250], data[1][0])
+    assert set(out["inversion"]) == {"mse_own", "mse_cross", "fd_own",
+                                     "fd_cross"}
+    again = cs.eval_scores(trained, data, prng.PRNGKey(19), n=16)
+    assert again["fd"] == out["fd"] and again["inversion"] == \
+        out["inversion"]
+    for t in cs.EVAL_TS:
+        assert torch.equal(again["f1"][t], out["f1"][t])

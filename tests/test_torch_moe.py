@@ -128,13 +128,14 @@ def test_block_apply_matches_jax(name):
     assert hasattr(block, "moe") and not hasattr(block, "mlp")
     x = _x((2, 24, cfg.d_model), seed=3)
     pos = np.arange(24, dtype=np.int32)[None]
-    ref, _, _ = jtransformer.block_apply(jp, x, jcfg, jdit.CPU, pos,
-                                         causal=False)
+    ref, ref_aux, _ = jtransformer.block_apply(jp, x, jcfg, jdit.CPU, pos,
+                                               causal=False)
     with torch.no_grad():
-        out, _ = ttransformer.block_apply(block, torch.from_numpy(x), cfg,
-                                          torch.from_numpy(pos),
-                                          causal=False)
+        out, aux, _ = ttransformer.block_apply(block, torch.from_numpy(x),
+                                               cfg, torch.from_numpy(pos),
+                                               causal=False)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **FWD)
+    np.testing.assert_allclose(float(aux), float(ref_aux), **FWD)
 
 
 @pytest.mark.parametrize("name", ARCHS)
