@@ -21,7 +21,7 @@ package).  Phases, each of which fails the run on any error:
 4. the full-width U-Net (configs CONFIG) on the card against the port on
    the CPU, same threefry weights, one forward of B=4;
 5. the main path: ``ServeRuntime`` on CUDA with the CONFIG U-Net, T=1000,
-   3 clients at cuts 125/250/500, 6 requests x batch 4, max_wave 4, depth
+   3 clients at cuts 125/250/500, 3 requests x batch 4, max_wave 4, depth
    policy, cache on, 2 passes, then one per-request Alg.-2 sample
    (``make_per_request_sampler``); kernel launch counters are zeroed just
    before and read just after, and must equal the scheduled steps, every
@@ -80,14 +80,14 @@ package).  Phases, each of which fails the run on any error:
 11. the DiT path: server and three client Zamba2-1.2B DiTs at full width
    (configs/zamba2_1p2b.py, bf16, 38 Mamba2 layers, the shared
    attention+MLP block every 6) on 32x32x3 images in 4x4 patches (64
-   tokens), threefry-initialised on the card.  An Alg.-1 loss through
-   the DiT with grad enabled, and a ``TrainRuntime`` round with the DiT as
-   its denoiser, must raise the kernels' refusal (no backward on CUDA
-   yet).  The flash and SSD kernels
+   tokens), threefry-initialised on the card.  One Alg.-1 loss through
+   the server DiT and its backward: finite gradients on every parameter,
+   and as many flash and SSD backward launches as forward ones (6 and
+   38).  The flash and SSD kernels
    are held against their plain versions on the inputs the first forward
    feeds them and timed there; then, with every launch counter zeroed just
-   before, one per-request Alg.-2 sample (T=1000, cut 250, batch 4) and
-   one ``ServeRuntime`` pass (T=120, cuts 15/30/60, three requests of
+   before, one per-request Alg.-2 sample (T=500, cut 250, batch 4) and
+   one ``ServeRuntime`` pass (T=60, cuts 8/15/30, three requests of
    batch 4, max_wave 4, depth policy, cache on), counters read just
    after: 6 flash and 38 SSD launches per forward, every one on the wgmma
    variants.  Flash's and the SSD scan's rows of batch 1 must equal those
@@ -103,15 +103,19 @@ package).  Phases, each of which fails the run on any error:
    client DiTs with DBRX-132B blocks at full width (configs/dbrx_132b.py:
    d_model 6144, 48 query / 8 KV heads of 128, 16 experts of FFN width
    10,752, top-4, bf16) cut to 2 blocks (MOE_LAYERS), on the same 64
-   tokens, threefry-initialised on the card.  Flash attention at head dim
+   tokens, threefry-initialised on the card.  The grouped matmul has no
+   backward kernel: an Alg.-1 loss through the server DiT with grad
+   enabled, a ``TrainRuntime`` round with an MoE DiT (reduced widths) and
+   ``launch/train.py`` on DBRX-132B (reduced) must raise its refusal.
+   Flash attention at head dim
    128 and the three grouped-matmul launches of the first block are held
    against their plain versions on the inputs the first forward feeds
    them and timed there, beside ``torch.bmm`` and SDPA, with their card
    time from the profiler; the grouped matmul's output rows at C = 64 must
    equal the first 64 rows at C = 256, and flash's rows of batch 1 those
    of batch 4, bitwise.  Then, with every launch counter zeroed just
-   before, one per-request Alg.-2 sample (T=1000, cut 250) and one
-   ``ServeRuntime`` pass (T=120, cuts 15/30/60), counters read just after:
+   before, one per-request Alg.-2 sample (T=500, cut 250) and one
+   ``ServeRuntime`` pass (T=60, cuts 8/15/30), counters read just after:
    6 grouped-matmul and 2 flash launches per forward, all on the wgmma
    variants.  The pass's outputs must equal ``sample_plan_reference``
    bitwise;
@@ -132,7 +136,25 @@ package).  Phases, each of which fails the run on any error:
    within LM_BF16_RTOL; (g) prefill and decode wall (events), device
    time and idle share; then flash and the SSD scan at the DiT's shapes
    again, after the LM's tensor maps;
-15. a ``kernels`` JSON line, the card line again, and the result line.
+15. the LM training path (``phase_lm_train``): (a) the two backward
+   kernels (flash attention's, csrc/flash_attention_bwd.cu; the SSD
+   scan's, csrc/ssd_scan_bwd.cu) against their plain versions
+   (``flash_attention_bwd_ref``, ``ssd_chunked_bwd_ref``) at the
+   training step's shapes and in a sweep (FLASH_BWD_SWEEP,
+   SSD_BWD_SWEEP) within BWD_BF16_ROW / BWD_FP32_ROW of each row
+   (``row_gap``), planted faults at the step's shapes outside that limit,
+   the forward's output bitwise with and without its log-sum-exp, rows
+   bitwise across the batch and two launches bitwise; (b) their times
+   beside the plain
+   versions', SDPA's backward and the bound; (c) ``launch/train.py``'s
+   ``main`` on Zamba2-1.2B at the published widths and depth,
+   LM_TRAIN_STEPS steps of LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens, the
+   counters read after every step (6 + 6 flash, 38 + 38 SSD launches),
+   losses finite and falling; step wall, device time, events, idle share
+   and peak memory; (d) a repeated step bitwise; (e) a 7-layer model's
+   loss and gradients on the card against the CPU port within
+   LM_LOSS_RTOL / LM_GRAD_RTOL, another batch's gradients outside;
+16. a ``kernels`` JSON line, the card line again, and the result line.
 
 Exits nonzero, printing no result line, without a CUDA device or outside
 a checkout.
@@ -184,6 +206,7 @@ DRAW_INT_OPS = THREEFRY_INT_OPS + 5
 DRAW_FLOAT_OPS = 4 + 25 + 1 + 5
 IMG = (32, 32, 3)
 B = 4
+MAIN_REQUESTS = 3           # the U-Net serve path's requests a pass
 DIT_ARCH = "zamba2-1.2b"
 FLASH_SWEEP = [(2, 4, 2, 64, 32), (1, 4, 4, 100, 16), (2, 8, 2, 128, 64),
                (1, 2, 1, 48, 8)]          # test_flash_attention_sweep
@@ -200,13 +223,15 @@ SSD_SWEEP = [(2, 64, 4, 16, 8, 16), (1, 48, 2, 8, 4, 16),
 # elementwise (tests/test_torch_ssd_variants.py)
 SSD_WGMMA = [(2, 200, 4, 64, 64, 64), (1, 256, 3, 64, 128, 256),
              (2, 64, 5, 64, 64, 16), (1, 130, 3, 64, 128, 32)]
-# the DiT main path: one per-request sample at the paper's T, then one
-# serve pass at a cut T: the full-width forward is ~68 ms of host-bound
-# eager launches, so a T=1000 pass with its reference would take ~10 min
-# and the script must end well inside its 1200 s limit
-DIT_SAMPLE_T, DIT_SAMPLE_CUT = 1000, 250
-DIT_T = 120                     # the serve pass's T
-DIT_CUTS = [15, 30, 60]         # its three clients' cuts (T/8, T/4, T/2)
+# the DiT main path: one per-request sample and one serve pass at cut
+# T's: the full-width forward is 46-86 ms of host-bound eager launches
+# (H100 hosts differ by 2x), so a T=1000 pass with its reference would
+# take ~10 min; the sample was at T=1000 and the pass at T=120 until the
+# LM training phase joined the script (whole runs reached 1,083 s of the
+# 1,200 s limit on a slow host), now T=500 and T=60
+DIT_SAMPLE_T, DIT_SAMPLE_CUT = 500, 250
+DIT_T = 60                      # the serve pass's T
+DIT_CUTS = [8, 15, 30]          # its three clients' cuts (T/8, T/4, T/2)
 GMM_SWEEP = [(4, 32, 64, 48), (2, 100, 50, 70), (8, 16, 16, 16),
              (1, 7, 9, 11)]     # test_grouped_matmul_sweep (E, C, D, F)
 # the wgmma variant over two C-tiles, and with F not a multiple of 192
@@ -237,14 +262,24 @@ TRAIN_MOMENT_RTOL = 2e-3
 RT_ROUNDS, RT_P, RT_DROP, RT_FEDAVG, RT_EMA, RT_SEED = 4, 0.8, 0.1, 2, 0.99, 1
 RT_DP = dict(clip=1.0, noise_multiplier=0.8)
 TRAIN_METRIC_RTOL = 1e-4
+# the backward kernels replace no TPU kernel (the JAX package
+# differentiates plain XLA code): each names the Pallas kernel of the
+# function it differentiates
 REPLACES = {"ddpm_step": "src/repro/kernels/ddpm_step/kernel.py:43",
             "ddpm_step_batched": "src/repro/kernels/ddpm_step/kernel.py:85",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:76",
             "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:69",
-            "grouped_matmul": "src/repro/kernels/grouped_matmul/kernel.py:39"}
+            "grouped_matmul": "src/repro/kernels/grouped_matmul/kernel.py:39",
+            "flash_attention_bwd":
+                "src/repro/kernels/flash_attention/kernel.py:76",
+            "ssd_scan_bwd": "src/repro/kernels/ssd_scan/kernel.py:69"}
 SOURCES = {"ddpm_step": "ddpm_step.cu", "ddpm_step_batched": "ddpm_step.cu",
            "flash_attention": "flash_attention.cu",
-           "ssd_scan": "ssd_scan.cu", "grouped_matmul": "grouped_matmul.cu"}
+           "ssd_scan": "ssd_scan.cu", "grouped_matmul": "grouped_matmul.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu",
+           "ssd_scan_bwd": "ssd_scan_bwd.cu"}
+KERNELS = ("ddpm_step_batched", "ddpm_step", "flash_attention", "ssd_scan",
+           "grouped_matmul", "flash_attention_bwd", "ssd_scan_bwd")
 
 
 def log(*a):
@@ -316,17 +351,9 @@ def _rate(dtype) -> float:
 def flash_bound(q, k, causal: bool, window: int):
     """q, k, v read once, out written once; 4·dh flops per (query, key)
     pair that the masks keep."""
-    import torch
     Bq, H, S, dh = q.shape
-    i = torch.arange(S)[:, None]
-    j = torch.arange(S)[None, :]
-    keep = torch.ones(S, S, dtype=torch.bool)
-    if causal:
-        keep &= j <= i
-    if window > 0:
-        keep &= (i - j) < window
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    flops = 4 * Bq * H * dh * int(keep.sum())
+    flops = 4 * Bq * H * dh * keep_count(S, causal, window)
     return _bound(nbytes, flops, _rate(q.dtype))
 
 
@@ -342,6 +369,52 @@ def ssd_bound(x, Bm, chunk: int):
     nbytes = (2 * x.numel() + 2 * Bm.numel()) * it + (b * s * h + h) * 4 + \
         b * h * p * n * 4
     flops = b * h * tiles * ((n + p) * q * (q + 1) + 4 * q * p * n)
+    return _bound(nbytes, flops, _rate(x.dtype))
+
+
+def flash_bwd_bound(q, k, causal: bool, window: int):
+    """q, k, v, out, dout and the float32 lse read once, dq, dk, dv
+    written once; 10·dh flops per kept (query, key) pair: the five
+    products S = q kᵀ, dP = dO vᵀ, dV, dK and dQ."""
+    import torch
+    Bq, H, S, dh = q.shape
+    keep = keep_count(S, causal, window)
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + \
+        Bq * H * S * 4
+    flops = 10 * Bq * H * dh * keep
+    return _bound(nbytes, flops, _rate(q.dtype))
+
+
+def keep_count(S: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs that the masks keep at length S."""
+    import torch
+    i = torch.arange(S)[:, None]
+    j = torch.arange(S)[None, :]
+    keep = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        keep &= j <= i
+    if window > 0:
+        keep &= (i - j) < window
+    return int(keep.sum())
+
+
+def ssd_bwd_bound(x, Bm, chunk: int):
+    """x and dy read and dx written, B and C read and dB and dC written
+    (x's type), dt read and ddt written (float32), A read and dA
+    written; the products of the backward's algorithm done once: per
+    (batch, chunk) C·B over the q(q+1)/2 pairs on and below the diagonal
+    (shared by the heads), per head dy·dtx, d(dtx), dB and dC over those
+    pairs, and per step the two chunk sums, G B, Gᵀ dtx and hᵀ dy."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    q = min(chunk, s)
+    nc = -(-s // q)
+    pairs = q * (q + 1) // 2
+    it = x.element_size()
+    nbytes = (3 * x.numel() + 4 * Bm.numel()) * it + 2 * b * s * h * 4 + \
+        2 * h * 4
+    flops = b * nc * (pairs * 2 * n + h * (pairs * (4 * p + 4 * n) +
+                                           q * 10 * p * n))
     return _bound(nbytes, flops, _rate(x.dtype))
 
 
@@ -374,17 +447,18 @@ def kernels_line(records, launches, by_path=None):
     launches per variant (``launches`` keys ``<name>/<variant>``); flash
     attention its numbers at head dim 128 as well, flash and the SSD scan
     their numbers at the LM prefill's shapes (``lm_prefill``), the SSD
-    scan the simt variant's time at the path's shape, and the two DDPM
+    scan the simt variant's time at the path's shape, the two DDPM
     entries (whose main numbers are the keyed variants') the composed
-    step they replace and the given-noise variant's numbers."""
+    step they replace and the given-noise variant's numbers, and the two
+    backward kernels their shape and device events a launch."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     extra = ("card_ms", "simt_ms", "head_dim_128", "lm_prefill", "shapes",
              "op_ms", "composed_ms", "composed_card_ms", "composed_events",
-             "keyed_card_ms", "keyed_events", "given")
+             "keyed_card_ms", "keyed_events", "given", "shape", "chunk",
+             "card_events", "row_gap", "row_limit", "faults")
     line = []
-    for name in ("ddpm_step_batched", "ddpm_step", "flash_attention",
-                 "ssd_scan", "grouped_matmul"):
+    for name in KERNELS:
         entry = dict(name=name, route="cuda",
                      source=f"src/repro_torch/csrc/{SOURCES[name]}",
                      replaces=REPLACES[name], launches=launches[name],
@@ -847,7 +921,9 @@ def phase_main_path(fwd_ms: float):
     from repro_torch.obs import ObsConfig
     from repro_torch.serve import ServeConfig, ServeRuntime
 
-    T, cuts, n_req, passes = 1000, [125, 250, 500], 6, 2
+    # the paper's T and cuts; 3 requests of batch 4 a pass (6 until the LM
+    # training phase joined the script: see DIT_SAMPLE_T)
+    T, cuts, n_req, passes = 1000, [125, 250, 500], MAIN_REQUESTS, 2
     key = prng.PRNGKey(0, device="cuda")
     ks, *kc = prng.split(key, len(cuts) + 1)
     sp = init_unet(ks, CONFIG, "cuda")
@@ -1952,9 +2028,59 @@ def ssd_rows_bitwise(tag, skernel, cargs, chunk, y, fs) -> None:
         f"{x.shape[0]} bitwise (y and final state)")
 
 
-def refuse_dit_loss(apply_fn, sp, xty) -> None:
-    """An Alg.-1 loss through the full-width DiT with grad enabled must
-    raise a kernel's refusal (no backward on CUDA yet) and give no loss."""
+def no_bwd(*names) -> dict:
+    """Zero backward launches of the kernels ``names`` (flash_attention,
+    ssd_scan): the entries a forward-only path's launch counts hold."""
+    return {k: 0 for name in names
+            for k in (f"{name}_bwd", f"{name}_bwd/simt")}
+
+
+def dit_grad_check(tag, apply_fn, sp, xty, per_fwd, kmods) -> dict:
+    """One Alg.-1 loss (``mse_eps_loss``) and its backward through the
+    full-width DiT on the card, counters zeroed just before: every
+    parameter gets a finite gradient, nonzero somewhere, and the forward's
+    flash and SSD launches come with as many backward launches.  Returns
+    the launches."""
+    import torch
+    from repro_torch.core.protocol import mse_eps_loss
+    x, t, y = xty
+    eps = torch.randn(x.shape, generator=torch.Generator(
+        device="cuda").manual_seed(4), device="cuda")
+    names, params = zip(*sp.named_parameters())
+    for kmod in kmods:
+        kmod.reset_counts()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        loss = mse_eps_loss(apply_fn, sp, x, t, y, eps)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = lm_counts(*kmods)
+    want = dict(per_fwd)
+    for name in ("flash_attention", "ssd_scan"):
+        want[f"{name}_bwd"] = want[f"{name}_bwd/simt"] = per_fwd[name]
+    if got != want:
+        raise AssertionError(f"{tag}: launches of a loss and its backward "
+                             f"{got}, expected {want}")
+    bad = [n for n, g in zip(names, grads)
+           if g is None or not torch.isfinite(g).all()]
+    zero = [n for n, g in zip(names, grads) if g is not None and
+            not bool(g.abs().max() > 0)]
+    if bad or not torch.isfinite(loss) or len(zero) == len(names):
+        raise AssertionError(f"{tag}: gradients missing or not finite on "
+                             f"{bad[:5]} ({len(bad)} of {len(names)})")
+    gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads)).item()
+    log(f"{tag}/grad: mse_eps_loss {loss.item():.5f} and its backward "
+        f"through the full-width DiT in {wall:.3f} s (first call): finite "
+        f"gradients on all {len(names)} parameters ({len(zero)} all-zero), "
+        f"global norm {gnorm:.5g}; launches {got}")
+    return got
+
+
+def refuse_dit_loss(tag, apply_fn, sp, xty) -> None:
+    """An Alg.-1 loss through an MoE DiT with grad enabled must raise the
+    grouped matmul's refusal (it has no backward kernel) and give no
+    loss."""
     import torch
     from repro_torch.core.protocol import mse_eps_loss
     x, t, y = xty
@@ -1963,19 +2089,20 @@ def refuse_dit_loss(apply_fn, sp, xty) -> None:
         try:
             loss = mse_eps_loss(apply_fn, sp, x, t, y, torch.zeros_like(x))
         except RuntimeError as e:
-            if "no backward" not in str(e):
+            if "grouped_matmul" not in str(e) or \
+                    "no backward" not in str(e):
                 raise
-            log(f"dit/refusal: mse_eps_loss with grad enabled raised: {e}")
+            log(f"{tag}/refusal: mse_eps_loss with grad enabled raised: {e}")
     if loss is not None:
-        raise AssertionError("dit: a loss with grad enabled came back "
-                             "through kernels that have no backward")
+        raise AssertionError(f"{tag}: a loss with grad enabled came back "
+                             "through a kernel that has no backward")
 
 
-def refuse_dit_runtime(apply_fn, sp, n_classes: int) -> None:
-    """A ``TrainRuntime`` round whose denoiser is the full-width DiT must
-    raise the kernels' refusal on the card too (no fallback) and leave the
-    runtime where it was: server and client are ``sp`` itself, one client
-    with one batch of B images."""
+def refuse_dit_runtime(tag, apply_fn, sp, n_classes: int) -> None:
+    """A ``TrainRuntime`` round whose denoiser is an MoE DiT must raise
+    the grouped matmul's refusal on the card too (no fallback) and leave
+    the runtime where it was: server and client are ``sp`` itself, one
+    client with one batch of B images."""
     import torch
     from repro_torch.core import prng
     from repro_torch.train import ParticipationConfig, TrainConfig, \
@@ -1991,14 +2118,14 @@ def refuse_dit_runtime(apply_fn, sp, n_classes: int) -> None:
     try:
         rt.run_round()
     except RuntimeError as e:
-        if "no backward" not in str(e):
+        if "grouped_matmul" not in str(e) or "no backward" not in str(e):
             raise
-        log(f"dit/runtime_refusal: TrainRuntime.run_round raised: {e}")
+        log(f"{tag}/runtime_refusal: TrainRuntime.run_round raised: {e}")
     else:
-        raise AssertionError("dit: a training round ran through kernels "
-                             "that have no backward")
+        raise AssertionError(f"{tag}: a training round ran through a kernel "
+                             "that has no backward")
     if rt.round != 0 or int(rt.server_opt["step"]) != 0:
-        raise AssertionError("dit: the refused round moved the runtime")
+        raise AssertionError(f"{tag}: the refused round moved the runtime")
     del rt
     torch.cuda.empty_cache()
 
@@ -2028,7 +2155,8 @@ def phase_dit():
     n_attn = _grouping(arch)[1]
     per_fwd = {"flash_attention": n_attn, "flash_attention/wgmma": n_attn,
                "flash_attention/simt": 0, "ssd_scan": arch.n_layers,
-               "ssd_scan/wgmma": arch.n_layers, "ssd_scan/simt": 0}
+               "ssd_scan/wgmma": arch.n_layers, "ssd_scan/simt": 0,
+               **no_bwd("flash_attention", "ssd_scan")}
     key = prng.PRNGKey(0, device="cuda")
     sp, cp = init_dits("dit", arch, dcfg, key)
     xty = dit_inputs(dcfg.n_classes)
@@ -2041,8 +2169,7 @@ def phase_dit():
         torch.cuda.synchronize()
     if eps.shape != xty[0].shape or not torch.isfinite(eps).all():
         raise AssertionError(f"dit: bad forward {tuple(eps.shape)}")
-    refuse_dit_loss(apply_fn, sp, xty)
-    refuse_dit_runtime(apply_fn, sp, dcfg.n_classes)
+    dit_grad_check("dit", apply_fn, sp, xty, per_fwd, (fkernel, skernel))
 
     records = {}
     (q, k, v), kw, out = captured["flash_attention"][0]
@@ -2159,6 +2286,38 @@ def phase_grouped_matmul():
                                  f"{sorted(want)}")
 
 
+def refuse_moe_training(dcfg, key) -> None:
+    """The grouped matmul has no backward kernel: a ``TrainRuntime``
+    round with an MoE DiT and the LM training CLI on an MoE architecture
+    must raise its refusal on the card.  Both at the reduced DBRX-132B
+    widths (the runtime holds two float32 AdamW states; at full width,
+    four times a 13 GB model's bytes each)."""
+    import torch
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.core.dit import init_dit, make_dit_apply
+    from repro_torch.launch import train
+    small = dataclasses.replace(reduced(get_arch(MOE_ARCH)),
+                                dtype="bfloat16")
+    sp = init_dit(key, small, dcfg, "cuda")
+    refuse_dit_runtime("moe", make_dit_apply(small, dcfg), sp,
+                       dcfg.n_classes)
+    argv = ["--arch", MOE_ARCH, "--reduced", "--steps", "1", "--batch", "1",
+            "--seq", "32", "--device", "cuda"]
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            train.main(argv)
+    except RuntimeError as e:
+        if "grouped_matmul" not in str(e) or "no backward" not in str(e):
+            raise
+        log(f"moe/train_cli_refusal: launch/train.py {' '.join(argv)} "
+            f"raised: {e}")
+    else:
+        raise AssertionError("moe: the LM training CLI trained an MoE "
+                             "architecture through the grouped matmul")
+    del sp
+    torch.cuda.empty_cache()
+
+
 def phase_moe():
     """The MoE path: four DBRX-132B DiTs at full width, cut to MOE_LAYERS
     blocks.  Returns (kernel records at the MoE path's shapes, launches
@@ -2190,10 +2349,12 @@ def phase_moe():
     per_fwd = {"grouped_matmul": 3 * n, "grouped_matmul/wgmma": 3 * n,
                "grouped_matmul/wmma": 0, "grouped_matmul/simt": 0,
                "flash_attention": n, "flash_attention/wgmma": n,
-               "flash_attention/simt": 0}
+               "flash_attention/simt": 0, **no_bwd("flash_attention")}
     key = prng.PRNGKey(0, device="cuda")
+    refuse_moe_training(dcfg, key)
     sp, cp = init_dits("moe", arch, dcfg, key)
     xty = dit_inputs(dcfg.n_classes)
+    refuse_dit_loss("moe", apply_fn, sp, xty)
 
     with capture_calls({"flash_attention": (fops, "flash_attention"),
                         "grouped_matmul": (moe.gmm_ops, "grouped_matmul")},
@@ -2333,8 +2494,62 @@ LM_CPU_LAYERS = 7
 # ~6, where a bf16 ulp is 0.031).  A decode step from a zero state (the
 # prompt forgotten) must fall outside the limit.
 LM_BF16_RTOL = 0.1
+# the LM training path: Zamba2-1.2B at the published widths and depth,
+# bf16, LM_TRAIN_STEPS AdamW steps on lm_batch data of LM_TRAIN_BATCH x
+# LM_TRAIN_SEQ tokens (train_4k's 4,096 cut to 1,024); the backward
+# kernels at its shapes (FLASH_BWD_PATH, SSD_BWD_PATH) and in a sweep:
+# float32, the DBRX block's GQA (48 / 8 heads of 128) at S 64,
+# non-causal, a window below S, ragged S, the DiT's chunk 64, a state of
+# 128, a chunk below the 8-step tile, and d(final state) given or not
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 20, 4, 1024
+FLASH_BWD_PATH = ((4, 32, 32, 1024, 64), True, 8192)
+FLASH_BWD_SWEEP = [((2, 4, 2, 100, 32), True, 0, "float32"),
+                   ((1, 2, 1, 150, 16), True, 40, "float32"),
+                   ((4, 48, 8, 64, 128), False, 0, "bfloat16"),
+                   ((2, 4, 4, 333, 64), True, 0, "bfloat16"),
+                   ((1, 4, 2, 200, 64), False, 70, "bfloat16"),
+                   ((4, 32, 32, 64, 64), False, 0, "bfloat16")]
+SSD_BWD_PATH = (4, 1024, 64, 64, 64, 256)
+SSD_BWD_SWEEP = [((2, 100, 3, 16, 8, 32), "float32", True),
+                 ((1, 48, 2, 8, 4, 16), "float32", False),
+                 ((1, 37, 2, 16, 16, 4), "float32", True),
+                 ((4, 64, 64, 64, 64, 64), "bfloat16", False),
+                 ((2, 333, 4, 64, 64, 256), "bfloat16", True),
+                 ((1, 130, 3, 64, 128, 32), "bfloat16", False)]
+# backward kernel vs its plain version (flash_attention_bwd_ref,
+# ssd_chunked_bwd_ref: the same algorithm in float32 on the same inputs),
+# per gradient, ``row_gap``: the largest over rows (the last axis; a
+# vector's elements) of ‖kernel − plain‖ / ‖plain‖, a row's norm floored
+# at ROW_FLOOR of the median row's: a row that is zero in exact
+# arithmetic, as causal dq's first (O_0 = v_0, so dP − D cancels), reads
+# its float32 rounding against that (the plain version itself reads
+# 8.6e-5 against float64 there at a floor of 1%, 8.6e-6 at 10%).  A
+# causal gradient falls off with position (dv of the first key ~10, of a
+# mid-sequence key ~0.05), so each row is held to its own scale.  In bf16
+# both round each value once to bf16 from float32 sums that differ in
+# order only, so a value is at most one ulp (2^-7 of it) from the plain
+# one and a row at most 7.8e-3 of its norm: BWD_BF16_ROW.  In float32
+# only the order differs.  At the step's shapes the kernel's gradients
+# with a planted fault (rows past the first K/V tile or chunk scaled by
+# 1 + FAULT, a gradient taken from the next head) must read beyond the
+# limit.  The forward's lse against the plain log-sum-exp: LSE_ATOL.
+# (e): a 7-layer model (one shared group and a tail layer), batch 1, a
+# ragged S, on the card against the CPU port (both bf16): the loss within
+# LM_LOSS_RTOL of the CPU's; each gradient leaf within LM_GRAD_RTOL
+# (‖g_card − g_cpu‖ / ‖g_cpu‖: bf16 roundings in other places through 7
+# layers, cuBLAS against CPU GEMMs, the kernels against plain versions),
+# while the CPU gradients of another batch must put the median leaf
+# beyond it
+LM_GRAD_SEQ = 333
+LM_LOSS_RTOL = 1e-2
+LM_GRAD_RTOL = 0.1
+BWD_BF16_ROW = 1e-2
+BWD_FP32_ROW = 1e-4
+ROW_FLOOR = 0.1
+FAULT = 0.02
+LSE_ATOL = 1e-3
 PATHS = ("serve", "train", "train_runtime", "eval", "dit", "moe",
-         "lm_serve")
+         "lm_serve", "lm_train")
 
 
 def eval_scores(trained, data, key, n: int = EVAL_N) -> dict:
@@ -2579,7 +2794,8 @@ def phase_lm_serve():
     n_attn = _grouping(cfg)[1]
     per_prefill = {"flash_attention": n_attn, "flash_attention/wgmma": n_attn,
                    "flash_attention/simt": 0, "ssd_scan": cfg.n_layers,
-                   "ssd_scan/wgmma": cfg.n_layers, "ssd_scan/simt": 0}
+                   "ssd_scan/wgmma": cfg.n_layers, "ssd_scan/simt": 0,
+                   **no_bwd("flash_attention", "ssd_scan")}
     kmods = (fkernel, skernel)
 
     # (a) the CLI, twice
@@ -2812,6 +3028,451 @@ def phase_lm_serve():
     return records, launches
 
 
+def row_gap(a, b) -> float:
+    """The largest over rows (the last axis; a vector's elements) of
+    ‖a − b‖ / ‖b‖, each row's norm floored at ROW_FLOOR of the median
+    row's; float32, on a's device."""
+    a, b = a.float(), b.float().to(a.device)
+    if b.ndim == 1:
+        a, b = a[:, None], b[:, None]
+    a, b = a.reshape(-1, b.shape[-1]), b.reshape(-1, b.shape[-1])
+    nb = b.norm(dim=1)
+    den = nb.clamp(min=ROW_FLOOR * nb.median().item()).clamp(min=1e-30)
+    return ((a - b).norm(dim=1) / den).max().item()
+
+
+def fault_gaps(grads, refs, faults) -> dict:
+    """{what: row_gap of a gradient with a planted fault}, for faults
+    ``{what: (index, fn)}``: gradient ``index`` of the kernel, in float32,
+    through ``fn``.  Each must read beyond its limit, else the comparison
+    could not have failed; raises then."""
+    out = {}
+    for what, (i, fn) in faults.items():
+        out[what] = row_gap(fn(grads[i].float()), refs[i])
+    return out
+
+
+def check_faults(what: str, gaps: dict, tol: float) -> None:
+    held = [f for f, g in gaps.items() if not g > tol]
+    if held:
+        raise AssertionError(f"{what}: planted faults {held} read within "
+                             f"{tol}: the check cannot fail ({gaps})")
+
+
+def scaled_past(axis: int, start: int):
+    """fn: a copy with the rows from ``start`` on along ``axis`` scaled by
+    1 + FAULT."""
+    def fn(g):
+        g = g.clone()
+        g.narrow(axis, start, g.shape[axis] - start).mul_(1 + FAULT)
+        return g
+    return fn
+
+
+def flash_faults() -> dict:
+    """Planted faults of the flash backward's (dq, dk, dv), for
+    ``fault_gaps``: dk and dv past the first 64-key tile scaled, dq from
+    the next head."""
+    return {"dk past the first K/V tile": (1, scaled_past(2, 64)),
+            "dv past the first K/V tile": (2, scaled_past(2, 64)),
+            "dq from the next head": (0, lambda g: g.roll(1, dims=1))}
+
+
+def ssd_faults(chunk: int) -> dict:
+    """Planted faults of the SSD backward's (dx, ddt, dA, dB, dC), for
+    ``fault_gaps``: dx, dB and dC past the first chunk and dA past the
+    first head scaled, ddt from the next head."""
+    return {"dx past the first chunk": (0, scaled_past(1, chunk)),
+            "ddt from the next head": (1, lambda g: g.roll(1, dims=2)),
+            "dA past the first head": (2, scaled_past(0, 1)),
+            "dB past the first chunk": (3, scaled_past(1, chunk)),
+            "dC past the first chunk": (4, scaled_past(1, chunk))}
+
+
+def flash_bwd_case(rn, shape, causal, window, dtype, path=False):
+    """One flash case: the forward with and without its log-sum-exp
+    (the output's bits must not move; the lse within LSE_ATOL of the
+    plain one), then the backward kernel against
+    ``flash_attention_bwd_ref`` on the same inputs, each gradient within
+    BWD_FP32_ROW or BWD_BF16_ROW (``row_gap``); at the path's shape also
+    planted faults beyond it (dk and dv past the first K/V tile scaled,
+    dq from the next head), two launches bitwise equal and the rows of
+    batch 1 equal those of the full batch.  Returns (the row gaps, the
+    max abs error, the faults' gaps, the inputs)."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_lse, flash_attention_bwd_ref)
+    Bq, H, Hkv, S, dh = shape
+    q = rn(Bq, H, S, dh).to(dtype)
+    k, v = rn(Bq, Hkv, S, dh).to(dtype), rn(Bq, Hkv, S, dh).to(dtype)
+    dout = rn(Bq, H, S, dh).to(dtype)
+    lse = torch.empty((Bq, H, S), dtype=torch.float32, device="cuda")
+    out = fkernel.launch(q, k, v, causal, window, lse=lse)
+    what = f"flash bwd {shape} causal {causal} window {window} {dtype}"
+    if not torch.equal(out, fkernel.launch(q, k, v, causal, window)):
+        raise AssertionError(f"{what}: the forward's output moved with the "
+                             "lse output")
+    lse_err = (lse - attention_lse(q, k, causal, window)).abs().max().item()
+    if not lse_err <= LSE_ATOL:
+        raise AssertionError(f"{what}: lse max abs {lse_err:.3g}")
+    grads = fkernel.launch_backward(q, k, v, out, dout, lse, causal, window)
+    refs = flash_attention_bwd_ref(q, k, v, out, dout, lse, causal, window)
+    tol = BWD_FP32_ROW if dtype == torch.float32 else BWD_BF16_ROW
+    gaps = [row_gap(g, r) for g, r in zip(grads, refs)]
+    abs_err = max((g.float() - r.float()).abs().max().item()
+                  for g, r in zip(grads, refs))
+    if not max(gaps) <= tol:
+        raise AssertionError(f"{what}: dq/dk/dv row gaps {gaps} > {tol}")
+    faults = {}
+    if path:
+        faults = fault_gaps(grads, refs, flash_faults())
+        check_faults(what, faults, tol)
+        old = lm_gap(scaled_past(2, 64)(grads[2].float()), refs[2])
+        again = fkernel.launch_backward(q, k, v, out, dout, lse, causal,
+                                        window)
+        one = fkernel.launch_backward(q[:1], k[:1], v[:1], out[:1],
+                                      dout[:1], lse[:1].contiguous(),
+                                      causal, window)
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"{what}: two launches differ")
+        if not all(torch.equal(a[:1], b) for a, b in zip(grads, one)):
+            raise AssertionError(f"{what}: rows of batch 1 != those of "
+                                 f"batch {Bq}")
+    log(f"lm_train/flash_bwd {shape} causal {causal} window {window} "
+        f"{str(dtype)[6:]}: lse max abs {lse_err:.3g}, out bitwise with "
+        f"and without it; dq/dk/dv row gaps "
+        f"{', '.join(f'{e:.3g}' for e in gaps)} (limit {tol}), max abs "
+        f"{abs_err:.3g}" +
+        (f"; planted faults (x{1 + FAULT}) "
+         f"{', '.join(f'{f}: {g:.3g}' for f, g in faults.items())}, all "
+         f"beyond it (dv's fault by max |k − r| / max(1, max |r|): "
+         f"{old:.3g}); two launches and batch rows bitwise" if path else ""))
+    return gaps, abs_err, faults, (q, k, v, out, dout, lse)
+
+
+def ssd_bwd_case(rn, shape, dtype, dfinal: bool, path=False):
+    """One SSD case: the backward kernel against ``ssd_chunked_bwd_ref``
+    on the same inputs (dy, and a d(final state) or none), each gradient
+    within BWD_FP32_ROW or BWD_BF16_ROW (``row_gap``); at the path's
+    shape also planted faults beyond it (dx, dB and dC past the first
+    chunk and dA past the first head scaled, ddt from the next head), two
+    launches bitwise equal and the rows of batch 1 (dx, ddt, dB, dC; dA
+    sums over the batch) equal those of the full batch.  Returns (the row
+    gaps, the max abs error, the faults' gaps, the inputs)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan import kernel as skernel
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd_ref
+    b, s, h, p, n, chunk = shape
+    x = rn(b, s, h, p).to(dtype)
+    dt = F.softplus(rn(b, s, h) - 1)
+    A = -torch.exp(rn(h))
+    Bm, Cm = rn(b, s, n).to(dtype), rn(b, s, n).to(dtype)
+    dy = rn(b, s, h, p).to(dtype)
+    dfs = rn(b, h, p, n) if dfinal else None
+    args = (x, dt, A, Bm, Cm, chunk, dy, dfs)
+    grads = skernel.launch_backward(*args)
+    refs = ssd_chunked_bwd_ref(*args)
+    tol = BWD_FP32_ROW if dtype == torch.float32 else BWD_BF16_ROW
+    gaps = [row_gap(g, r) for g, r in zip(grads, refs)]
+    abs_err = max((g.float() - r.float()).abs().max().item()
+                  for g, r in zip(grads, refs))
+    what = (f"ssd bwd {shape} {dtype} d(final) "
+            f"{'random' if dfinal else 'none'}")
+    if not max(gaps) <= tol:
+        raise AssertionError(f"{what}: dx/ddt/dA/dB/dC row gaps {gaps} > "
+                             f"{tol}")
+    faults = {}
+    if path:
+        faults = fault_gaps(grads, refs, ssd_faults(chunk))
+        check_faults(what, faults, tol)
+        old = lm_gap(scaled_past(1, chunk)(grads[0].float()), refs[0])
+        again = skernel.launch_backward(*args)
+        one = skernel.launch_backward(
+            x[:1], dt[:1], A, Bm[:1], Cm[:1], chunk, dy[:1],
+            None if dfs is None else dfs[:1])
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"{what}: two launches differ")
+        if not all(torch.equal(grads[i][:1], one[i]) for i in (0, 1, 3, 4)):
+            raise AssertionError(f"{what}: rows of batch 1 != those of "
+                                 f"batch {b}")
+    log(f"lm_train/ssd_bwd {shape} {str(dtype)[6:]} d(final) "
+        f"{'random' if dfinal else 'none'} (tile "
+        f"{skernel.bwd_tile(chunk, p, n)}): dx/ddt/dA/dB/dC row gaps "
+        f"{', '.join(f'{e:.3g}' for e in gaps)} (limit {tol}), max abs "
+        f"{abs_err:.3g}" +
+        (f"; planted faults (x{1 + FAULT}) "
+         f"{', '.join(f'{f}: {g:.3g}' for f, g in faults.items())}, all "
+         f"beyond it (dx's fault by max |k − r| / max(1, max |r|): "
+         f"{old:.3g}); two launches and batch rows bitwise" if path else ""))
+    return gaps, abs_err, faults, args
+
+
+def bwd_kernel_checks() -> dict:
+    """(a) and (b) of the LM training phase: both backward kernels
+    against their plain versions on the card at the path's shapes and in
+    a sweep, and their times at the path's shapes beside the plain
+    versions', SDPA's backward and the bound.  Returns the kernel records
+    of ``flash_attention_bwd`` and ``ssd_scan_bwd``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_ref
+    from repro_torch.kernels.ssd_scan import kernel as skernel
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd_ref
+
+    g = torch.Generator(device="cuda").manual_seed(20)
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    bf16 = torch.bfloat16
+    sweep = [max(flash_bwd_case(rn, shape, c, w, getattr(torch, dt))[0])
+             for shape, c, w, dt in FLASH_BWD_SWEEP]
+    shape, causal, window = FLASH_BWD_PATH
+    gaps, err, faults, fargs = flash_bwd_case(rn, shape, causal, window,
+                                              bf16, path=True)
+    log(f"lm_train/flash_bwd: {len(sweep)} sweep cases worst row gap "
+        f"{max(sweep):.3g}, the path's {max(gaps):.3g}; the least planted "
+        f"fault {min(faults.values()):.3g}")
+    ms = time_ms(lambda: fkernel.launch_backward(*fargs, causal, window),
+                 iters=20, warmup=2)
+    plain = time_ms(lambda: flash_attention_bwd_ref(*fargs, causal, window),
+                    iters=3, warmup=1)
+    q, k, v, _, dout, _ = fargs
+    with torch.enable_grad():
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        lib = time_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), dout,
+                                                  retain_graph=True),
+                      iters=20, warmup=2)
+    bnd, by = flash_bwd_bound(q, k, causal, window)
+    records = {"flash_attention_bwd": dict(
+        shape=list(q.shape), max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=bnd, bound_by=by, library_ms=lib, row_gap=max(gaps),
+        row_limit=BWD_BF16_ROW, faults=faults)}
+    del fargs, q, k, v, dout, o, qg, kg, vg
+
+    sweep = [max(ssd_bwd_case(rn, shape, getattr(torch, dt), fin)[0])
+             for shape, dt, fin in SSD_BWD_SWEEP]
+    gaps, err, faults, sargs = ssd_bwd_case(rn, SSD_BWD_PATH, bf16, False,
+                                            path=True)
+    log(f"lm_train/ssd_bwd: {len(sweep)} sweep cases worst row gap "
+        f"{max(sweep):.3g}, the path's {max(gaps):.3g}; the least planted "
+        f"fault {min(faults.values()):.3g}")
+    ms = time_ms(lambda: skernel.launch_backward(*sargs), iters=20, warmup=2)
+    plain = time_ms(lambda: ssd_chunked_bwd_ref(*sargs), iters=3, warmup=1)
+    bnd, by = ssd_bwd_bound(sargs[0], sargs[3], sargs[5])
+    records["ssd_scan_bwd"] = dict(
+        shape=list(sargs[0].shape), chunk=sargs[5], max_abs_err=err, ms=ms,
+        plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None,
+        row_gap=max(gaps), row_limit=BWD_BF16_ROW, faults=faults)
+    for name, r in records.items():
+        log(f"kernel/{name} at the LM training step's {r['shape']}: kernel "
+            f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms library "
+            f"{fmt_ms(r['library_ms'])} bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}): {100 * r['bound_ms'] / r['ms']:.1f}% of "
+            "the bound's rate")
+    return records
+
+
+def grad_gaps(a: dict, b: dict) -> dict:
+    """{name: ‖a − b‖ / ‖b‖} per gradient leaf, in float32 on a's
+    device."""
+    out = {}
+    for n, g in b.items():
+        g = g.float().to(next(iter(a.values())).device)
+        out[n] = ((a[n].float() - g).norm() /
+                  g.norm().clamp(min=1e-30)).item()
+    return out
+
+
+def phase_lm_train():
+    """The LM training path at full width: Zamba2-1.2B (38 Mamba2 layers,
+    d_model 2048, 64 SSD heads of 64, state 64, the shared attention+MLP
+    block every 6 layers, vocab 32,000, bf16, threefry seed 0).  (a) and
+    (b) ``bwd_kernel_checks``; (c) ``launch/train.py``'s ``main`` for
+    LM_TRAIN_STEPS steps of LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens, the
+    counters zeroed just before and read after every step: 6 flash and 6
+    flash backward, 38 SSD and 38 SSD backward launches a step; finite
+    losses, the first-10 mean above the last-10 mean; step wall (events),
+    device time, events and idle share, and peak memory; (d) one step
+    repeated from the same parameters, AdamW state and batch: bitwise
+    equal; (e) a model cut to LM_CPU_LAYERS layers, batch 1, S =
+    LM_GRAD_SEQ (ragged), on the card against the CPU port with the same
+    weights: the loss within LM_LOSS_RTOL and every gradient leaf within
+    LM_GRAD_RTOL (‖g_card − g_cpu‖ / ‖g_cpu‖), while another batch's CPU
+    gradients must fall outside it.  Returns (the backward kernels'
+    records, launches of (c))."""
+    import copy
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import prng
+    from repro_torch.device import deterministic_cuda
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.ssd_scan import kernel as skernel
+    from repro_torch.launch import shapes, train
+    from repro_torch.models import api
+    from repro_torch.models.hybrid import _grouping
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state, named
+    from repro_torch.optim.schedules import cosine
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    deterministic_cuda()
+    card = card_line()
+    records = bwd_kernel_checks()                # (a), (b)
+    cfg = get_arch(LM_ARCH)
+    n_attn, L = _grouping(cfg)[1], cfg.n_layers
+    per_step = {"flash_attention": n_attn, "flash_attention/wgmma": n_attn,
+                "flash_attention/simt": 0, "flash_attention_bwd": n_attn,
+                "flash_attention_bwd/simt": n_attn, "ssd_scan": L,
+                "ssd_scan/wgmma": L, "ssd_scan/simt": 0, "ssd_scan_bwd": L,
+                "ssd_scan_bwd/simt": L}
+    kmods = (fkernel, skernel)
+
+    # (c) the CLI's main, counters read after every step
+    launches = dict.fromkeys(per_step, 0)
+    walls = []
+
+    def on_step(i, params, opt, metrics):
+        torch.cuda.synchronize()
+        got = lm_counts(*kmods)
+        check_lm_launches(f"lm_train step {i}", got, per_step, 1)
+        for k, v in got.items():
+            launches[k] += v
+        for kmod in kmods:
+            kmod.reset_counts()
+        now = time.perf_counter()
+        walls.append(now - clock[0])
+        clock[0] = now
+
+    argv = ["--arch", LM_ARCH, "--steps", str(LM_TRAIN_STEPS), "--batch",
+            str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ), "--device",
+            "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    for kmod in kmods:                           # --- main path starts
+        kmod.reset_counts()
+    clock = [time.perf_counter()]
+    t0 = clock[0]
+    losses = train.main(argv, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0              # --- main path ends
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    log(f"lm_train/cli: {' '.join(argv)}: {wall:.2f} s (init included); "
+        f"losses {[round(x, 4) for x in losses]}; first-10 mean "
+        f"{first:.4f}, last-10 mean {last:.4f}; step wall (host clock, "
+        f"synchronised) first {walls[0]:.3f} s (init included), median of "
+        f"the rest {sorted(walls[1:])[len(walls[1:]) // 2]:.4f} s; peak "
+        f"memory {peak:.2f} GB; launches {launches}")
+    if len(losses) != LM_TRAIN_STEPS or not all(
+            math.isfinite(x) for x in losses) or not first > last:
+        raise AssertionError(f"lm_train: losses not finite or not falling: "
+                             f"{losses}")
+
+    # one step on its own: events, the profile, then (d) the bitwise repeat
+    key = prng.PRNGKey(0, device="cuda")
+    params = api.init_params(key, cfg, "cuda")
+    opt = init_opt_state(params)
+    step = shapes.make_train_step(cfg, AdamWConfig(
+        lr=3e-4, schedule=cosine(LM_TRAIN_STEPS, warmup=1)))
+    batch = train.build_batch(prng.fold_in(key, 0), cfg, LM_TRAIN_BATCH,
+                              LM_TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: step(params, opt, batch), iters=3, warmup=1)
+    step_peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = device_ms("lm_train/step", lambda: step(params, opt, batch), n=2,
+                     top=10, shares=["flash_wgmma_kernel", "flash_bwd",
+                                     "ssd_wgmma_kernel", "ssd_bwd"],
+                     per="step")
+    for name, kname, n in (("flash_attention_bwd", "flash_bwd", n_attn),
+                           ("ssd_scan_bwd", "ssd_bwd", L)):
+        records[name]["card_ms"] = None if prof[kname] is None else \
+            prof[kname] / n
+        records[name]["card_events"] = prof[f"{kname}/events"]
+    idle = "not measured" if prof["_ms"] is None else \
+        f"{100 * (1 - prof['_ms'] / step_ms):.1f}%"
+    log(f"lm_train/step: B={LM_TRAIN_BATCH} S={LM_TRAIN_SEQ} wall "
+        f"{step_ms:.3f} ms (events), device {fmt_ms(prof['_ms'])} over "
+        f"{prof['_events']} events, idle {idle}; peak memory "
+        f"{step_peak:.2f} GB; card ms a launch: flash bwd "
+        f"{fmt_ms(records['flash_attention_bwd']['card_ms'])}, ssd bwd "
+        f"{fmt_ms(records['ssd_scan_bwd']['card_ms'])}; card {card}")
+
+    def snapshot():
+        return ({n: p.detach().clone() for n, p in named(params).items()},
+                {w: {n: t.clone() for n, t in opt[w].items()}
+                 for w in ("m", "v")}, opt["step"].clone())
+
+    def restore(snap):
+        with torch.no_grad():
+            for n, p in named(params).items():
+                p.copy_(snap[0][n])
+        for w in ("m", "v"):
+            for n, t in opt[w].items():
+                t.copy_(snap[1][w][n])
+        opt["step"] = snap[2].clone()
+
+    before = snapshot()
+    _, _, m = step(params, opt, batch)
+    la, ga, after = m["loss"].item(), m["grad_norm"].item(), snapshot()
+    restore(before)
+    _, _, m = step(params, opt, batch)
+    lb, gb = m["loss"].item(), m["grad_norm"].item()
+    same = la == lb and ga == gb and int(opt["step"]) == int(after[2]) and \
+        all(torch.equal(p, after[0][n]) for n, p in named(params).items()) \
+        and all(torch.equal(t, after[1][w][n]) for w in ("m", "v")
+                for n, t in opt[w].items())
+    if not same:
+        raise AssertionError(f"lm_train: a repeated step differs (loss "
+                             f"{la} vs {lb}, grad norm {ga} vs {gb})")
+    log(f"lm_train/repeat: one step from the same parameters, AdamW state "
+        f"and batch, twice: loss {la!r}, grad norm {ga!r}, parameters and "
+        "both moments bitwise equal")
+    del params, opt, before, after, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the card against the CPU port: LM_CPU_LAYERS layers, batch 1
+    small = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS)
+    m_card = api.init_params(prng.PRNGKey(0), small, "cuda")
+    m_cpu = copy.deepcopy(m_card).to("cpu")
+    b1 = train.build_batch(prng.fold_in(key, 1), small, 1, LM_GRAD_SEQ)
+    b2 = train.build_batch(prng.fold_in(key, 2), small, 1, LM_GRAD_SEQ)
+    t0 = time.perf_counter()
+    l_card, g_card = shapes.loss_and_grads(m_card, b1, small)
+    on_cpu = lambda b: {k: v.cpu() for k, v in b.items()}
+    l_cpu, g_cpu = shapes.loss_and_grads(m_cpu, on_cpu(b1), small)
+    _, g_other = shapes.loss_and_grads(m_cpu, on_cpu(b2), small)
+    cpu_s = time.perf_counter() - t0
+    loss_gap = abs(l_card.item() - l_cpu.item()) / abs(l_cpu.item())
+    gaps = grad_gaps(g_card, g_cpu)
+    control = grad_gaps(g_card, g_other)
+    worst = max(gaps, key=gaps.get)
+    median = lambda d: sorted(d.values())[len(d) // 2]
+    log(f"lm_train/card_vs_cpu ({LM_CPU_LAYERS} layers, B=1, "
+        f"S={LM_GRAD_SEQ}, {cpu_s:.1f} s): loss card {l_card.item():.6f} "
+        f"cpu {l_cpu.item():.6f} (rel {loss_gap:.3g}, limit "
+        f"{LM_LOSS_RTOL}); gradient leaves ‖card − cpu‖ / ‖cpu‖: median "
+        f"{median(gaps):.4g}, worst {gaps[worst]:.4g} ({worst}), limit "
+        f"{LM_GRAD_RTOL}; control (another batch's cpu gradients): median "
+        f"{median(control):.4g}, least {min(control.values()):.4g}")
+    if not (loss_gap <= LM_LOSS_RTOL and gaps[worst] <= LM_GRAD_RTOL):
+        raise AssertionError(f"lm_train: card vs cpu beyond the limits: "
+                             f"loss {loss_gap:.3g}, {worst} "
+                             f"{gaps[worst]:.3g}")
+    if not median(control) > LM_GRAD_RTOL:
+        raise AssertionError("lm_train: the gradient check passed another "
+                             "batch's gradients")
+    del m_card, m_cpu, g_card, g_cpu, g_other
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"lm_train/phase_s: {time.perf_counter() - t_phase:.1f}; card {card}")
+    return records, launches
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").is_file():
@@ -2823,8 +3484,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    # inference throughout: the kernels refuse inputs that need a gradient;
-    # the training step and the refusal check enable grad where they need it
+    # inference throughout: the raw kernel launches refuse inputs that need
+    # a gradient; the training paths, the DiT's gradient check and the
+    # refusal checks enable grad where they need it
     torch.set_grad_enabled(False)
     t_start = time.perf_counter()
     card = card_line()
@@ -2845,6 +3507,7 @@ def main() -> int:
     phase_grouped_matmul()
     moe_records, moe_launches = phase_moe()
     lm_records, lm_launches = phase_lm_serve()
+    train_records, lm_train_launches = phase_lm_train()
     records["ddpm_step"]["card_ms"] = ddpm_card_ms
     records["ddpm_step_batched"]["card_ms"] = batched_card_ms
     records.update(dit_records)
@@ -2853,11 +3516,12 @@ def main() -> int:
     records.update(moe_records)
     for name, rec in lm_records.items():
         records[name]["lm_prefill"] = rec
-    # launches of the seven main paths (each counted from zero just
+    records.update(train_records)
+    # launches of the eight main paths (each counted from zero just
     # before it)
     by_path = dict(zip(PATHS, (launches, train_launches, runtime_launches,
                                eval_launches, dit_launches, moe_launches,
-                               lm_launches)))
+                               lm_launches, lm_train_launches)))
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in set().union(*by_path.values())}
     log(f"total_s: {time.perf_counter() - t_start:.1f}")

@@ -2,8 +2,9 @@
 
 The port's copy of the JAX package's ``configs/base.py`` (which imports
 ``jax.numpy`` and so cannot be shared): the same ``ArchConfig`` schema and
-field defaults, ``get_arch`` with the same dashed aliases, and ``reduced``
-with the same CPU-test overrides.  ``torch_dtype`` takes the place of
+field defaults, ``get_arch`` with the same dashed aliases, ``reduced``
+with the same CPU-test overrides, and the input shapes (``ShapeConfig``,
+``SHAPES``, ``get_shape``).  ``torch_dtype`` takes the place of
 ``jnp_dtype``.  Every ``configs/<id>.py`` of the JAX package has a copy
 here exporting the same ``CONFIG``.
 """
@@ -80,6 +81,33 @@ class ArchConfig:
     @property
     def ssm_n_heads(self) -> int:
         return self.ssm_d_inner // self.ssm_head_dim
+
+    @property
+    def supports_long_decode(self) -> bool:
+        """True if a 500k-token decode is sub-quadratic / bounded-memory."""
+        if self.family in ("ssm", "hybrid"):
+            return True     # the hybrid's shared attention has a window
+        return self.sliding_window > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
 
 
 ARCH_IDS = (

@@ -224,6 +224,27 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
     return (out - 2 ** 31).to(torch.int32)
 
 
+def choice(key: torch.Tensor, n: int, shape: Sequence[int] = (),
+           p=None) -> torch.Tensor:
+    """``jax.random.choice(key, n, shape, p=p)`` with replacement over
+    arange(n).  Without ``p``, ``randint(key, shape, 0, n)`` bit for bit.
+    With ``p`` (n float32 weights), JAX's algorithm: cdf = cumsum(p), r =
+    cdf[-1]·(1 − uniform(key, shape)), the first index whose cdf value
+    is not below r (``searchsorted``, left side).  The uniforms equal
+    JAX's bit for bit; a torch-computed ``p`` or cumsum may differ from
+    XLA's by an ulp, which moves an r lying that close to a bin's edge
+    into the neighbouring bin.  Returns int32."""
+    if p is None:
+        return randint(key, shape, 0, n)
+    p = torch.as_tensor(p, dtype=torch.float32).to(key.device)
+    if p.shape != (n,):
+        raise ValueError(f"choice: p has shape {tuple(p.shape)}, expected "
+                         f"({n},)")
+    cdf = torch.cumsum(p, dim=0)
+    r = cdf[-1] * (1 - uniform(key, shape))
+    return torch.searchsorted(cdf, r).to(torch.int32)
+
+
 def bernoulli(key: torch.Tensor, p, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)`` for float32 ``p`` (a float
     or a tensor broadcasting against ``shape``): uniform(key, shape) < p,

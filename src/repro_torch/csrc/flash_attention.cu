@@ -8,7 +8,12 @@
 // key/value head h / G by index arithmetic, with no repeated K/V in memory.
 // scale = 1/sqrt(dh).  Masked logits are -1e30 (not -inf), so a tile that
 // is masked whole gives no NaN; the output is acc / max(l, 1e-30); the
-// softmax statistics m and l and the accumulator are float32.
+// softmax statistics m and l and the accumulator are float32.  Where the
+// caller passes a log-sum-exp buffer (B, H, S) float32 (training: the
+// backward, csrc/flash_attention_bwd.cu, recomputes the probabilities from
+// it), each row also writes lse = m + log(max(l, 1e-30)) in the scaled
+// logits' units; a null pointer (serving) writes nothing, and the output's
+// bits are the same either way.
 //
 // Replaces the Pallas TPU kernel of the JAX package,
 // src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas.
@@ -86,7 +91,8 @@ __host__ __device__ constexpr size_t smem_floats(int dh) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int H,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int H,
                        int Hkv, int S, int dh, int causal, int window,
                        float scale) {
   extern __shared__ float smem[];
@@ -187,6 +193,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row < S) {
     const float denom = fmaxf(l, 1e-30f);
+    if (lse != nullptr && lane == 0)
+      lse[(int64_t)(b * H + h) * S + row] = m + logf(denom);
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) {
       const int d = lane + kLanes * i;
@@ -197,8 +205,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int H, int Hkv, int S, int dh, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   float* lse, int B, int H, int Hkv, int S, int dh,
+                   int causal, int window, float scale, cudaStream_t stream) {
   static bool configured = false;        // one attribute set per type
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -211,8 +219,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((unsigned)((S + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
   flash_attention_kernel<T><<<grid, kThreads, smem_floats(dh) * sizeof(float),
                               stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, H, Hkv, S, dh, causal,
-      window, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, H, Hkv, S, dh,
+      causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -293,8 +301,9 @@ __global__ void __launch_bounds__(kThreads)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
-                   __nv_bfloat16* __restrict__ out, int H, int Hkv, int S,
-                   int causal, int window, float scale) {
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                   int H, int Hkv, int S, int causal, int window,
+                   float scale) {
   using namespace hopper;
   using G = Geo<DH>;
   extern __shared__ unsigned char smem_raw[];
@@ -424,6 +433,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int row = row0 + 8 * r;
     if (row >= S) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && lane % 4 == 0)  // m, l: one value a lane quad
+      lse[(int64_t)qz * S + row] = m[r] + logf(denom);
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j)
       *reinterpret_cast<uint32_t*>(ob + (int64_t)row * DH + 8 * j + cq) =
@@ -433,8 +444,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
 template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int H, int Hkv, int S, int causal, int window,
-                   float scale, const long long* q_geometry,
+                   float* lse, int B, int H, int Hkv, int S, int causal,
+                   int window, float scale, const long long* q_geometry,
                    const long long* kv_geometry, cudaStream_t stream) {
   static bool configured = false;        // one attribute set per head dim
   if (!configured) {
@@ -452,8 +463,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((unsigned)((S + kRows - 1) / kRows), (unsigned)H,
                   (unsigned)B);
   flash_wgmma_kernel<DH><<<grid, kThreads, Geo<DH>::kSmem, stream>>>(
-      q_map, k_map, v_map, (__nv_bfloat16*)out, H, Hkv, S, causal, window,
-      scale);
+      q_map, k_map, v_map, (__nv_bfloat16*)out, lse, H, Hkv, S, causal,
+      window, scale);
   return cudaGetLastError();
 }
 
@@ -463,33 +474,38 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // variant: 0 = simt (float32), 1 = simt (bfloat16), 2 = wgmma (bfloat16,
 // dh 16, 32, 64 or 128).  q is (B, H, S, dh), k and v are (B, Hkv, S, dh),
 // all contiguous; H % Hkv == 0, 1 <= dh <= 128, B and H <= 65535 (checked
-// by the Python wrapper).  For wgmma, q_map and kv_map are the tensor
-// maps' geometry (hopper.cuh ``encode_map``), computed by kernel.py.
-// Returns the cudaError_t of the launch (0 on success).
+// by the Python wrapper).  lse is null or a (B, H, S) float32 buffer for
+// the log-sum-exp of every row.  For wgmma, q_map and kv_map are the
+// tensor maps' geometry (hopper.cuh ``encode_map``), computed by
+// kernel.py.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int H,
-                                      int Hkv, int S, int dh, int causal,
-                                      int window, float scale, int variant,
-                                      const long long* q_map,
+                                      const void* v, void* out, void* lse_ptr,
+                                      int B, int H, int Hkv, int S, int dh,
+                                      int causal, int window, float scale,
+                                      int variant, const long long* q_map,
                                       const long long* kv_map, void* stream) {
   if (dh < 1 || dh > kMaxD || Hkv < 1 || H % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  float* lse = (float*)lse_ptr;
   if (variant == 0)
-    return (int)launch<float>(q, k, v, out, B, H, Hkv, S, dh, causal, window,
-                              scale, s);
+    return (int)launch<float>(q, k, v, out, lse, B, H, Hkv, S, dh, causal,
+                              window, scale, s);
   if (variant == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, out, B, H, Hkv, S, dh, causal,
-                                      window, scale, s);
+    return (int)launch<__nv_bfloat16>(q, k, v, out, lse, B, H, Hkv, S, dh,
+                                      causal, window, scale, s);
   if (variant == 2 && q_map != nullptr && kv_map != nullptr) {
     switch (dh) {
-      case 16: return (int)wg::launch<16>(q, k, v, out, B, H, Hkv, S, causal,
-                                          window, scale, q_map, kv_map, s);
-      case 32: return (int)wg::launch<32>(q, k, v, out, B, H, Hkv, S, causal,
-                                          window, scale, q_map, kv_map, s);
-      case 64: return (int)wg::launch<64>(q, k, v, out, B, H, Hkv, S, causal,
-                                          window, scale, q_map, kv_map, s);
-      case 128: return (int)wg::launch<128>(q, k, v, out, B, H, Hkv, S,
+      case 16: return (int)wg::launch<16>(q, k, v, out, lse, B, H, Hkv, S,
+                                          causal, window, scale, q_map,
+                                          kv_map, s);
+      case 32: return (int)wg::launch<32>(q, k, v, out, lse, B, H, Hkv, S,
+                                          causal, window, scale, q_map,
+                                          kv_map, s);
+      case 64: return (int)wg::launch<64>(q, k, v, out, lse, B, H, Hkv, S,
+                                          causal, window, scale, q_map,
+                                          kv_map, s);
+      case 128: return (int)wg::launch<128>(q, k, v, out, lse, B, H, Hkv, S,
                                             causal, window, scale, q_map,
                                             kv_map, s);
     }

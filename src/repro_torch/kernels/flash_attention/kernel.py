@@ -1,22 +1,29 @@
 """Loader and launch of the CUDA flash-attention kernels
-(csrc/flash_attention.cu), built with nvcc on first use (kernels/build.py).
+(csrc/flash_attention.cu) and of their backward
+(csrc/flash_attention_bwd.cu), built with nvcc on first use
+(kernels/build.py).
 
 ``choose_variant`` picks the kernel from dtype, shape and alignment
 alone: ``wgmma`` (bf16 through TMA and wgmma) at head dims 16, 32, 64 and
 128, ``simt`` (float32 products on the CUDA cores, the first design)
 otherwise.  ``tma_maps`` computes the wgmma variant's tensor maps.
 
+``launch`` optionally writes each row's log-sum-exp for the backward;
+``launch_backward`` runs the backward's three passes (one variant,
+``simt``: float32 products on the CUDA cores).
+
 ``COUNTS["flash_attention"]`` and the variant's
 ``COUNTS["flash_attention/<variant>"]`` are bumped only where a kernel is
-launched, so a run can show that its path went through the kernel, and
-through which one.
+launched, ``COUNTS["flash_attention_bwd"]`` and
+``COUNTS["flash_attention_bwd/simt"]`` where the backward is, so a run
+can show that its path went through the kernels, and through which ones.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -24,18 +31,27 @@ from repro_torch.kernels import build, raw_stream, refuse_grad
 from repro_torch.kernels.tma import BF16_BYTES, TmaMap, as_ctypes
 
 SOURCE = "flash_attention.cu"
+BWD_SOURCE = "flash_attention_bwd.cu"
 VARIANTS = ("wgmma", "simt")
+BWD_VARIANTS = ("simt",)
 COUNTS: Dict[str, int] = {"flash_attention": 0,
-                          **{f"flash_attention/{v}": 0 for v in VARIANTS}}
+                          **{f"flash_attention/{v}": 0 for v in VARIANTS},
+                          "flash_attention_bwd": 0,
+                          **{f"flash_attention_bwd/{v}": 0
+                             for v in BWD_VARIANTS}}
 MAX_HEAD_DIM = 128          # the simt kernel's register accumulator
 WGMMA_HEAD_DIMS = (16, 32, 64, 128)
 TILE = 64                   # query rows a block, keys a K/V tile
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _WGMMA_CODE = 2
-# q, k, v, out, B, H, Hkv, S, dh, causal, window, scale, variant,
+# q, k, v, out, lse, B, H, Hkv, S, dh, causal, window, scale, variant,
 # q map, k/v map, stream
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + \
     [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 3
+# q, k, v, out, dout, lse, delta, dq, dk, dv, B, H, Hkv, S, dh, causal,
+# window, scale, dtype, stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + \
+    [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def reset_counts() -> None:
@@ -68,42 +84,74 @@ def tma_maps(B: int, H: int, Hkv: int, S: int,
             TmaMap((dh, S, B * Hkv), strides, box, w * BF16_BYTES))
 
 
-def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool, window: int) -> torch.Tensor:
-    """Run a kernel on contiguous CUDA tensors q (B, H, S, dh) and k/v
-    (B, Hkv, S, dh) of one dtype (float32 or bfloat16), H % Hkv == 0,
-    dh <= 128.  Returns a new (B, H, S, dh) tensor of q's dtype.
-    Refuses inputs that need a gradient (no backward yet)."""
-    refuse_grad("flash_attention", q, k, v)
-    dev = q.device
+def _check_qkv(what: str, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, window: int) -> None:
+    """Shape, type and contiguity of q (B, H, S, dh) and k/v (B, Hkv, S,
+    dh); the device is checked by the caller, last."""
     for name, a in (("q", q), ("k", k), ("v", v)):
-        if a.device != dev or dev.type != "cuda":
-            raise ValueError(f"flash_attention kernel: {name} on {a.device}, "
-                             f"expected the CUDA device of q ({dev})")
         if not a.is_contiguous():
-            raise ValueError(f"flash_attention kernel: {name} is not "
-                             "contiguous")
+            raise ValueError(f"{what}: {name} is not contiguous")
         if a.dtype != q.dtype or a.ndim != 4:
-            raise ValueError(f"flash_attention kernel: {name} is "
-                             f"{tuple(a.shape)} {a.dtype}, q is "
-                             f"{tuple(q.shape)} {q.dtype}")
+            raise ValueError(f"{what}: {name} is {tuple(a.shape)} "
+                             f"{a.dtype}, q is {tuple(q.shape)} {q.dtype}")
     if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
+        raise TypeError(f"{what} takes float32 or bfloat16, got {q.dtype}")
     B, H, S, dh = q.shape
     Hkv = k.shape[1]
     if k.shape != (B, Hkv, S, dh) or v.shape != k.shape or Hkv == 0 or \
             H % Hkv:
-        raise ValueError(f"flash_attention kernel: q {tuple(q.shape)} does "
-                         f"not fit k {tuple(k.shape)} / v {tuple(v.shape)}")
+        raise ValueError(f"{what}: q {tuple(q.shape)} does not fit k "
+                         f"{tuple(k.shape)} / v {tuple(v.shape)}")
     if not 1 <= dh <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention kernel: head dim {dh} not in "
-                         f"[1, {MAX_HEAD_DIM}]")
+        raise ValueError(f"{what}: head dim {dh} not in [1, "
+                         f"{MAX_HEAD_DIM}]")
     if B > 65535 or H > 65535:
-        raise ValueError(f"flash_attention kernel: grid (., {H}, {B}) over "
-                         "65535")
+        raise ValueError(f"{what}: grid (., {H}, {B}) over 65535")
     if window < 0:
-        raise ValueError(f"flash_attention kernel: window {window} < 0")
+        raise ValueError(f"{what}: window {window} < 0")
+
+
+def _check_device(what: str, tensors: Dict[str, torch.Tensor]
+                  ) -> torch.device:
+    """The CUDA device of ``tensors["q"]``, which every tensor must share;
+    checked after the shapes and types, so those checks run on the CPU."""
+    dev = tensors["q"].device
+    for name, a in tensors.items():
+        if a.device != dev or dev.type != "cuda":
+            raise ValueError(f"{what}: {name} on {a.device}, expected the "
+                             f"CUDA device of q ({dev})")
+    return dev
+
+
+def _check_lse(what: str, lse: torch.Tensor, q: torch.Tensor) -> None:
+    if lse.dtype != torch.float32 or tuple(lse.shape) != q.shape[:3] or \
+            not lse.is_contiguous():
+        raise ValueError(f"{what}: lse {tuple(lse.shape)} {lse.dtype} is "
+                         f"not a contiguous {tuple(q.shape[:3])} float32 "
+                         "buffer")
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool, window: int,
+           lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run a kernel on contiguous CUDA tensors q (B, H, S, dh) and k/v
+    (B, Hkv, S, dh) of one dtype (float32 or bfloat16), H % Hkv == 0,
+    dh <= 128.  Returns a new (B, H, S, dh) tensor of q's dtype.  With
+    ``lse``, a contiguous (B, H, S) float32 buffer, the kernel also
+    writes each row's log-sum-exp there (ops.FlashAttentionFn's forward);
+    the output's bits are the same with or without it.  Refuses inputs
+    that need a gradient: the raw launch has no backward (the autograd
+    route is ops.flash_attention)."""
+    what = "flash_attention kernel"
+    refuse_grad("flash_attention", q, k, v)
+    _check_qkv(what, q, k, v, window)
+    tensors = {"q": q, "k": k, "v": v}
+    if lse is not None:
+        _check_lse(what, lse, q)
+        tensors["lse"] = lse
+    dev = _check_device(what, tensors)
+    B, H, S, dh = q.shape
+    Hkv = k.shape[1]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -115,11 +163,52 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         code, maps = _DTYPE_CODES[q.dtype], (None, None)
     rc = build.bind(SOURCE, "flash_attention_launch", _ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, H, Hkv, S, dh, int(causal), int(window), 1.0 / math.sqrt(dh),
-        code, *maps, raw_stream(dev.index))
+        None if lse is None else lse.data_ptr(), B, H, Hkv, S, dh,
+        int(causal), int(window), 1.0 / math.sqrt(dh), code, *maps,
+        raw_stream(dev.index))
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel ({variant}) launch "
                            f"failed: cudaError {rc}")
     COUNTS["flash_attention"] += 1
     COUNTS[f"flash_attention/{variant}"] += 1
     return out
+
+
+def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                    causal: bool, window: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel (csrc/flash_attention_bwd.cu) on contiguous
+    CUDA tensors: q, k, v as for ``launch``, ``out`` the forward's output
+    and ``dout`` its gradient (q's shape and dtype), ``lse`` the
+    forward's (B, H, S) float32 log-sum-exp.  Returns (dq, dk, dv) in the
+    inputs' dtype.  Shapes, types and contiguity are checked first, the
+    device last."""
+    what = "flash_attention backward kernel"
+    _check_qkv(what, q, k, v, window)
+    for name, a in (("out", out), ("dout", dout)):
+        if a.shape != q.shape or a.dtype != q.dtype or not a.is_contiguous():
+            raise ValueError(f"{what}: {name} is {tuple(a.shape)} {a.dtype}"
+                             f", expected a contiguous {tuple(q.shape)} "
+                             f"{q.dtype}")
+    _check_lse(what, lse, q)
+    dev = _check_device(what, dict(q=q, k=k, v=v, out=out, dout=dout,
+                                   lse=lse))
+    B, H, S, dh = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    rc = build.bind(BWD_SOURCE, "flash_attention_bwd_launch", _BWD_ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, H, k.shape[1], S, dh, int(causal),
+        int(window), 1.0 / math.sqrt(dh), _DTYPE_CODES[q.dtype],
+        raw_stream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: "
+                           f"cudaError {rc}")
+    COUNTS["flash_attention_bwd"] += 1
+    COUNTS["flash_attention_bwd/simt"] += 1
+    return dq, dk, dv

@@ -1,10 +1,14 @@
 """Public attention op for full-sequence attention.
 
 Routing follows the tensors' device and nothing else: CPU tensors take
-the plain version (ref.py); CUDA tensors take the hand-written kernel
-(kernel.py, csrc/flash_attention.cu) or raise.  Same contract as the JAX
-package's ``kernels/flash_attention/ops.flash_attention``: ``window``
-applies whether or not ``causal`` is set.
+the plain version (ref.py), differentiable by autograd; CUDA tensors take
+the hand-written kernels (kernel.py, csrc/flash_attention.cu) or raise.
+On CUDA, where autograd needs a gradient of q, k or v,
+``FlashAttentionFn`` runs the forward kernel with its log-sum-exp output
+and, in the backward, the backward kernel (csrc/flash_attention_bwd.cu);
+otherwise (serving, under ``no_grad``) the forward kernel alone.  Same
+contract as the JAX package's ``kernels/flash_attention/ops.
+flash_attention``: ``window`` applies whether or not ``causal`` is set.
 """
 from __future__ import annotations
 
@@ -12,6 +16,26 @@ import torch
 
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention on the card with a kernel for each direction."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        B, H, S, _ = q.shape
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        out = kernel.launch(q, k, v, causal, window, lse=lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = kernel.launch_backward(q, k, v, out, dout.contiguous(),
+                                            lse, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -23,5 +47,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")
-    return kernel.launch(q.contiguous(), k.contiguous(), v.contiguous(),
-                         causal, window)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal, window)
+    return kernel.launch(q, k, v, causal, window)

@@ -1,5 +1,6 @@
-"""Loader and launch of the CUDA SSD-scan kernels (csrc/ssd_scan.cu), built
-with nvcc on first use (kernels/build.py).
+"""Loader and launch of the CUDA SSD-scan kernels (csrc/ssd_scan.cu) and of
+their backward (csrc/ssd_scan_bwd.cu), built with nvcc on first use
+(kernels/build.py).
 
 ``choose_variant`` picks the kernel from dtype, shape and alignment alone:
 ``wgmma`` (bf16 through TMA and wgmma, two heads a block) at head dim 64
@@ -7,9 +8,14 @@ and states of 64 or 128, ``simt`` (float32 products on the CUDA cores,
 the first design) otherwise.  ``tma_maps`` computes the wgmma variant's
 tensor maps.
 
+``launch_backward`` runs the backward's passes (one variant, ``simt``:
+float32 products on the CUDA cores, in tiles of ``bwd_tile`` steps, which
+the CUDA side picks from its own shared-memory layout).
+
 ``COUNTS["ssd_scan"]`` and the variant's ``COUNTS["ssd_scan/<variant>"]``
-are bumped only where a kernel is launched, so a run can show that its
-path went through the kernel, and through which one.
+are bumped only where a kernel is launched, ``COUNTS["ssd_scan_bwd"]`` and
+``COUNTS["ssd_scan_bwd/simt"]`` where the backward is, so a run can show
+that its path went through the kernels, and through which ones.
 """
 from __future__ import annotations
 
@@ -23,9 +29,13 @@ from repro_torch.kernels import build, raw_stream, refuse_grad
 from repro_torch.kernels.tma import BF16_BYTES, TmaMap, as_ctypes
 
 SOURCE = "ssd_scan.cu"
+BWD_SOURCE = "ssd_scan_bwd.cu"
 VARIANTS = ("wgmma", "simt")
+BWD_VARIANTS = ("simt",)
 COUNTS: Dict[str, int] = {"ssd_scan": 0,
-                          **{f"ssd_scan/{v}": 0 for v in VARIANTS}}
+                          **{f"ssd_scan/{v}": 0 for v in VARIANTS},
+                          "ssd_scan_bwd": 0,
+                          **{f"ssd_scan_bwd/{v}": 0 for v in BWD_VARIANTS}}
 MAX_TILE = 64               # steps per tile inside the kernels
 SMEM_BYTES = 232448         # shared memory one block can hold (227 KB)
 # the wgmma variant (csrc/ssd_scan.cu, namespace wg): 64-step tiles of a
@@ -43,6 +53,11 @@ _WGMMA_CODE = 2
 # final-state map, stream
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
     [ctypes.c_void_p] * 4
+# x, dt, A, B, C, dy, dfs, dx, ddt, dA, dB, dC, six scratch buffers, b, S,
+# h, p, n, chunk, dtype, stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + \
+    [ctypes.c_void_p]
+BWD_MAX_DIM = 128           # head dim and state of the backward
 
 
 def reset_counts() -> None:
@@ -67,6 +82,55 @@ def wgmma_smem_bytes(n: int) -> int:
     stage = 2 * bc + HEADS_PER_BLOCK * box
     return 1024 + 2 * stage + HEADS_PER_BLOCK * (bc + box) + \
         HEADS_PER_BLOCK * 2 * TILE * 4 + 2 * 8
+
+
+def bwd_tile(q: int, p: int, n: int) -> int:
+    """The backward's tile on the current CUDA device at chunk q, head dim
+    p and state n (csrc/ssd_scan_bwd.cu ``pick_tile``: the largest of 64,
+    32, 16 and 8 steps, at most max(q, 8), whose shared memory fits a
+    block); 0 when none fits.  Builds the kernel's library."""
+    return build.bind(BWD_SOURCE, "ssd_scan_bwd_tile", [ctypes.c_int] * 3)(
+        q, p, n)
+
+
+def _check_inputs(what: str, x: torch.Tensor, dt: torch.Tensor,
+                  A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                  chunk: int, **more: torch.Tensor) -> None:
+    """Shape, type and contiguity of x (b, s, h, p), dt (b, s, h), A (h,)
+    and B/C (b, s, n), and the contiguity of ``more``; the device is
+    checked by the caller, last."""
+    for name, a in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C),
+                    *more.items()):
+        if not a.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what} takes float32 or bfloat16, got {x.dtype}")
+    if x.ndim != 4 or B.ndim != 3:
+        raise ValueError(f"{what}: x {tuple(x.shape)}, B {tuple(B.shape)}")
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if dt.shape != (b, s, h) or A.shape != (h,) or B.shape != (b, s, n) or \
+            C.shape != B.shape or dt.dtype != torch.float32 or \
+            A.dtype != torch.float32 or B.dtype != x.dtype or \
+            C.dtype != x.dtype:
+        raise ValueError(
+            f"{what}: x {tuple(x.shape)} {x.dtype}, dt {tuple(dt.shape)} "
+            f"{dt.dtype}, A {tuple(A.shape)} {A.dtype}, B {tuple(B.shape)} "
+            f"{B.dtype}, C {tuple(C.shape)} {C.dtype}")
+    if chunk < 1:
+        raise ValueError(f"{what}: chunk {chunk} < 1")
+
+
+def _check_device(what: str, tensors: Dict[str, torch.Tensor]
+                  ) -> torch.device:
+    """The CUDA device of ``tensors["x"]``, which every tensor must share;
+    checked after the shapes and types, so those checks run on the CPU."""
+    dev = tensors["x"].device
+    for name, a in tensors.items():
+        if a.device != dev or dev.type != "cuda":
+            raise ValueError(f"{what}: {name} on {a.device}, expected the "
+                             f"CUDA device of x ({dev})")
+    return dev
 
 
 def choose_variant(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor) -> str:
@@ -110,43 +174,27 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     only where it is the choice.  The simt kernel walks chunks of
     ``chunk`` steps in tiles of at most 64, the wgmma kernel 64-step tiles.
     Returns (y (b, s, h, p) of x's dtype, final state (b, h, p, n)
-    float32).  Refuses inputs that need a gradient (no backward yet)."""
+    float32).  Refuses inputs that need a gradient: the raw launch has no
+    backward (the autograd route is ops.ssd_scan)."""
+    what = "ssd_scan kernel"
     refuse_grad("ssd_scan", x, dt, A, B, C)
-    dev = x.device
-    for name, a in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
-        if a.device != dev or dev.type != "cuda":
-            raise ValueError(f"ssd_scan kernel: {name} on {a.device}, "
-                             f"expected the CUDA device of x ({dev})")
-        if not a.is_contiguous():
-            raise ValueError(f"ssd_scan kernel: {name} is not contiguous")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"ssd_scan kernel takes float32 or bfloat16, got "
-                        f"{x.dtype}")
+    _check_inputs(what, x, dt, A, B, C, chunk)
     b, s, h, p = x.shape
     n = B.shape[-1]
-    if dt.shape != (b, s, h) or A.shape != (h,) or B.shape != (b, s, n) or \
-            C.shape != B.shape or dt.dtype != torch.float32 or \
-            A.dtype != torch.float32 or B.dtype != x.dtype or \
-            C.dtype != x.dtype:
-        raise ValueError(
-            f"ssd_scan kernel: x {tuple(x.shape)} {x.dtype}, dt "
-            f"{tuple(dt.shape)} {dt.dtype}, A {tuple(A.shape)} {A.dtype}, "
-            f"B {tuple(B.shape)} {B.dtype}, C {tuple(C.shape)} {C.dtype}")
-    if chunk < 1:
-        raise ValueError(f"ssd_scan kernel: chunk {chunk} < 1")
     chosen = choose_variant(x, B, C)
     variant = chosen if variant is None else variant
     if variant not in (chosen, "simt"):
-        raise ValueError(f"ssd_scan kernel: variant {variant!r} does not "
+        raise ValueError(f"{what}: variant {variant!r} does not "
                          f"take these inputs (choice: {chosen!r})")
     tq = min(chunk, MAX_TILE)
     if variant == "simt" and smem_bytes(tq, p, n) > SMEM_BYTES:
-        raise ValueError(f"ssd_scan kernel: head dim {p} and state {n} need "
+        raise ValueError(f"{what}: head dim {p} and state {n} need "
                          f"{smem_bytes(tq, p, n)} bytes of shared memory, "
                          f"over {SMEM_BYTES}")
     if b > _MAX_GRID_Y or (variant == "simt" and h > _MAX_GRID_Y):
-        raise ValueError(f"ssd_scan kernel: grid (., {b}) or {h} heads "
+        raise ValueError(f"{what}: grid (., {b}) or {h} heads "
                          f"over {_MAX_GRID_Y}")
+    dev = _check_device(what, {"x": x, "dt": dt, "A": A, "B": B, "C": C})
     y = torch.empty_like(x)
     fs = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
     if y.numel() == 0:
@@ -166,3 +214,62 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     COUNTS["ssd_scan"] += 1
     COUNTS[f"ssd_scan/{variant}"] += 1
     return y, fs
+
+
+def launch_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor, chunk: int,
+                    dy: torch.Tensor, dfinal: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernel (csrc/ssd_scan_bwd.cu) of ``launch(x, dt, A,
+    B, C, chunk)`` on contiguous CUDA tensors of ``launch``'s types, for
+    ``dy`` (x's shape and dtype) and ``dfinal`` (None: zero, or a (b, h,
+    p, n) float32 gradient of the final state).  Returns (dx, ddt, dA, dB,
+    dC): dx, dB and dC in x's dtype, ddt and dA float32.  p and n at most
+    BWD_MAX_DIM.  Shapes, types and contiguity are checked first, the
+    device last."""
+    what = "ssd_scan backward kernel"
+    more = {"dy": dy} if dfinal is None else {"dy": dy, "dfinal": dfinal}
+    _check_inputs(what, x, dt, A, B, C, chunk, **more)
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if dy.shape != x.shape or dy.dtype != x.dtype or (
+            dfinal is not None and (dfinal.shape != (b, h, p, n) or
+                                    dfinal.dtype != torch.float32)):
+        raise ValueError(
+            f"{what}: x {tuple(x.shape)} {x.dtype}, dy {tuple(dy.shape)} "
+            f"{dy.dtype}, dfinal "
+            f"{None if dfinal is None else tuple(dfinal.shape)} "
+            f"{None if dfinal is None else dfinal.dtype}")
+    if not (1 <= p <= BWD_MAX_DIM and 1 <= n <= BWD_MAX_DIM):
+        raise ValueError(f"{what}: head dim {p} or state {n} not in [1, "
+                         f"{BWD_MAX_DIM}]")
+    if b > _MAX_GRID_Y or h > _MAX_GRID_Y:
+        raise ValueError(f"{what}: grid (., {h}, {b}) over {_MAX_GRID_Y}")
+    dev = _check_device(what, {"x": x, "dt": dt, "A": A, "B": B, "C": C,
+                               **more})
+    dx, dB, dC = (torch.empty_like(t) for t in (x, B, C))
+    ddt = torch.empty_like(dt)
+    dA = torch.empty_like(A)
+    if x.numel() == 0 or B.numel() == 0:
+        return dx.zero_(), ddt.zero_(), dA.zero_(), dB.zero_(), dC.zero_()
+    nc = -(-s // chunk)
+    f32 = dict(dtype=torch.float32, device=dev)
+    st_s = torch.empty((b, nc, h, p, n), **f32)
+    st_u = torch.empty_like(st_s)
+    lend, dap = (torch.empty((b, nc, h), **f32) for _ in range(2))
+    dbp, dcp = (torch.empty((b, s, h, n), **f32) for _ in range(2))
+    rc = build.bind(BWD_SOURCE, "ssd_scan_bwd_launch", _BWD_ARGTYPES)(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+        C.data_ptr(), dy.data_ptr(),
+        None if dfinal is None else dfinal.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        st_s.data_ptr(), st_u.data_ptr(), lend.data_ptr(), dbp.data_ptr(),
+        dcp.data_ptr(), dap.data_ptr(), b, s, h, p, n, chunk,
+        _DTYPE_CODES[x.dtype], raw_stream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc} (chunk "
+                           f"{chunk}, head dim {p}, state {n}: tile "
+                           f"{bwd_tile(chunk, p, n)}, 0 where none fits)")
+    COUNTS["ssd_scan_bwd"] += 1
+    COUNTS["ssd_scan_bwd/simt"] += 1
+    return dx, ddt, dA, dB, dC

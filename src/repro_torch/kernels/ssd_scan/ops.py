@@ -1,9 +1,13 @@
 """Public SSD scan op (Mamba2 chunked scan from a zero state).
 
 Routing follows the tensors' device and nothing else: CPU tensors take
-the plain version (ref.py, the port of ``models/ssm.ssd_chunked``); CUDA
-tensors take the hand-written kernel (kernel.py, csrc/ssd_scan.cu) or
-raise.
+the plain version (ref.py, the port of ``models/ssm.ssd_chunked``),
+differentiable by autograd; CUDA tensors take the hand-written kernels
+(kernel.py, csrc/ssd_scan.cu) or raise.  On CUDA, where autograd needs a
+gradient of any input, ``SsdScanFn`` (after the casts, which autograd
+differentiates) runs the forward kernel and, in the backward, the
+backward kernel (csrc/ssd_scan_bwd.cu); otherwise (serving, under
+``no_grad``) the forward kernel alone.
 """
 from __future__ import annotations
 
@@ -11,6 +15,29 @@ import torch
 
 from repro_torch.kernels.ssd_scan import kernel
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+
+class SsdScanFn(torch.autograd.Function):
+    """The SSD scan on the card with a kernel for each direction.  The
+    final state's gradient may be absent (training does not use the
+    state): the backward kernel takes it as zero."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk: int):
+        ctx.set_materialize_grads(False)
+        y, final = kernel.launch(x, dt, A, B, C, chunk)
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A, B, C = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        grads = kernel.launch_backward(
+            x, dt, A, B, C, ctx.chunk, dy,
+            None if dfinal is None else dfinal.contiguous())
+        return (*grads, None)
 
 
 def ssd_scan(x, dt, A, B, C, chunk: int):
@@ -21,6 +48,8 @@ def ssd_scan(x, dt, A, B, C, chunk: int):
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")
     f32 = torch.float32
-    return kernel.launch(x.contiguous(), dt.to(f32).contiguous(),
-                         A.to(f32).contiguous(), B.to(x.dtype).contiguous(),
-                         C.to(x.dtype).contiguous(), chunk)
+    args = (x.contiguous(), dt.to(f32).contiguous(), A.to(f32).contiguous(),
+            B.to(x.dtype).contiguous(), C.to(x.dtype).contiguous())
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return SsdScanFn.apply(*args, chunk)
+    return kernel.launch(*args, chunk)

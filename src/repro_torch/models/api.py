@@ -1,19 +1,22 @@
-"""Family-dispatched model API for serving.
+"""Family-dispatched model API.
 
 The port of the JAX package's ``models/api.py``:
 
   init_params(key, cfg, device)                 -> the model's module
+  loss_fn(params, batch, cfg)                   -> scalar loss (train_4k)
   prefill_fn(params, batch, cfg, cache_len)     -> (logits, state)
   init_decode_state(cfg, batch, seq, dtype, device) -> state
   decode_fn(params, token, state, pos, cfg)     -> (logits, state)
 
 for the dense, moe, vlm, ssm and hybrid families.  The audio family
 (whisper's encoder-decoder, ``models/encdec.py``) is not ported yet
-(ROADMAP.md queue 1 item 10) and raises ``NotImplementedError``;
-``loss_fn`` comes with LM training.  No ``Runtime``: one device, MoE as
-JAX's one-device ``moe_dense``.  The decode state is per-layer lists
-(models/transformer.py, models/hybrid.py) where JAX stacks a leading
-layer axis.
+(ROADMAP.md queue 1 item 10) and raises ``NotImplementedError``.  No
+``Runtime``: one device, MoE as JAX's one-device ``moe_dense``.  The
+decode state is per-layer lists (models/transformer.py, models/hybrid.py)
+where JAX stacks a leading layer axis.  On the card, ``loss_fn`` under
+grad runs attention and the SSD scan through their kernels' autograd
+routes (a backward kernel each); the MoE family's grouped matmul has no
+backward kernel yet and refuses.
 """
 from __future__ import annotations
 
@@ -42,6 +45,17 @@ def init_params(key: torch.Tensor, cfg: ArchConfig, device=None):
     if cfg.family in SSM_FAMILIES:
         return hybrid.init_hybrid_params(key, cfg)
     return transformer.init_lm_params(key, cfg)
+
+
+def loss_fn(params, batch: Dict, cfg: ArchConfig):
+    """The training loss of ``batch`` ({tokens, labels}, and
+    vision_embeds for the vlm family), a 0-dim float32 tensor."""
+    _no_audio(cfg)
+    if cfg.family in SSM_FAMILIES:
+        return hybrid.hybrid_loss(params, batch, cfg)
+    if cfg.family == "vlm":
+        return vlm.vlm_loss(params, batch, cfg)
+    return transformer.lm_loss(params, batch, cfg)
 
 
 def prefill_fn(params, batch: Dict, cfg: ArchConfig, cache_len=None):

@@ -6,7 +6,7 @@ one KV cache per application).
 The port of the JAX package's ``models/hybrid.py``: ``_grouping``,
 ``_split_groups``, ``init_hybrid_params``, ``hybrid_forward`` (with
 ``collect_state``), ``init_hybrid_state``, ``hybrid_prefill`` and
-``hybrid_decode_step``; ``hybrid_loss`` comes with LM training.
+``hybrid_decode_step``, and ``hybrid_loss`` for training.
 ``shared_attn_every = 0`` gives the pure-SSM stack.  The prefill runs
 each Mamba2 layer's scan through the SSD kernel and each shared block's
 attention through the flash kernel on the card; decode is plain torch.
@@ -31,7 +31,8 @@ from repro_torch.models.layers import (dense, embedding, fill_dense,
 from repro_torch.models.ssm import (Mamba, fill_mamba, mamba_decode,
                                     mamba_forward, mamba_init_state)
 from repro_torch.models.transformer import (Block, block_apply, block_decode,
-                                            fill_block, logits_of, ring_cache,
+                                            cross_entropy, fill_block,
+                                            logits_of, ring_cache,
                                             stacked_init)
 
 
@@ -115,6 +116,12 @@ def hybrid_forward(params: HybridLM, tokens, cfg: ArchConfig,
         return x, None, None
     return x, {"head": head_states, "tail": tail_states}, \
         (shared_kvs if G > 0 else None)
+
+
+def hybrid_loss(params: HybridLM, batch, cfg: ArchConfig):
+    """The next-token loss of batch {tokens, labels}."""
+    hidden, _, _ = hybrid_forward(params, batch["tokens"], cfg)
+    return cross_entropy(logits_of(params, hidden), batch["labels"])
 
 
 def init_hybrid_state(cfg: ArchConfig, batch: int, seq_len: int, dtype=None,

@@ -18,7 +18,9 @@ kernel on the card) and keeps each layer's K/V; the cache is a list of
 per-layer ``{"k", "v"}`` buffers (B, Hkv, C, dh), where JAX stacks them
 on a leading layer axis.
 Decode is plain torch, one token against the cache, as in JAX.
-``cross_entropy`` and ``lm_loss`` come with LM training.
+Training: ``cross_entropy`` and ``lm_loss`` (the full-sequence blocks
+with grad; on the card attention goes through the flash kernels' autograd
+route, kernels/flash_attention/ops.py).
 """
 from __future__ import annotations
 
@@ -180,6 +182,30 @@ def lm_forward(params: LM, tokens, cfg: ArchConfig, embeds_prefix=None,
 
 def logits_of(params, hidden):
     return params.unembed(hidden)
+
+
+def cross_entropy(logits, labels, mask=None):
+    """logits (B, S, V), labels (B, S) integer; mask True = count (None:
+    labels >= 0).  The mean of logsumexp(logits) − logits[label] over the
+    counted positions, in float32, divided by max(count, 1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    # a negative (ignored) label reads column 0; its term is masked out
+    idx = labels.clamp(min=0).long()[..., None]
+    ll = torch.gather(logits, -1, idx)[..., 0]
+    nll = lse - ll
+    mask = (labels >= 0) if mask is None else mask
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def lm_loss(params: LM, batch, cfg: ArchConfig):
+    """batch: {tokens (B, S), labels (B, S)}, labels already shifted by
+    the data pipeline.  The next-token loss plus ``router_aux_coef`` times
+    the MoE router's auxiliary loss."""
+    hidden, aux, _ = lm_forward(params, batch["tokens"], cfg)
+    loss = cross_entropy(logits_of(params, hidden), batch["labels"])
+    return loss + cfg.router_aux_coef * aux
 
 
 def _to_ring(k, cache_len: int, seq: int):

@@ -1,15 +1,26 @@
 """VLM wrapper (internvl2-76b): vision-tower stub + LM backbone.
 
-The port of the JAX package's ``models/vlm.py`` for serving: the caller
-supplies precomputed patch embeddings (B, n_vision_tokens, d_model) — the
-vision tower is the reference's one allowed stub — which the dense stack
-of models/transformer.py takes as a prefix.  ``vlm_loss`` comes with LM
-training.
+The port of the JAX package's ``models/vlm.py``: the caller supplies
+precomputed patch embeddings (B, n_vision_tokens, d_model) — the vision
+tower is the reference's one allowed stub — which the dense stack of
+models/transformer.py takes as a prefix.  The loss drops the P vision
+positions before the logits, so labels cover the text alone.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.transformer import lm_prefill
+from repro_torch.models.transformer import (cross_entropy, lm_forward,
+                                            lm_prefill, logits_of)
+
+
+def vlm_loss(params, batch, cfg: ArchConfig):
+    """batch: tokens (B, S_text), vision_embeds (B, P, D), labels (B,
+    S_text)."""
+    hidden, aux, _ = lm_forward(params, batch["tokens"], cfg,
+                                embeds_prefix=batch["vision_embeds"])
+    P = batch["vision_embeds"].shape[1]
+    logits = logits_of(params, hidden[:, P:, :])
+    return cross_entropy(logits, batch["labels"]) + cfg.router_aux_coef * aux
 
 
 def vlm_prefill(params, batch, cfg: ArchConfig, cache_len=None):

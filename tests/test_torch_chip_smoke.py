@@ -8,18 +8,23 @@ torch's own profiler table); summing every row counted those kernels
 twice.  The grouped matmul's bound counts its bytes (tokens read once,
 one set when broadcast to every expert) and its flops, the keyed DDPM
 step's its bytes and its draw's operations; the ``kernels`` line lists
-all five kernels with every key the contract names, and the kernels with
-variants their launches per variant; a main path's DDPM-step launches
+all seven kernels (the five ports and the two backward kernels) with
+every key the contract names, and the kernels with variants their
+launches per variant; a main path's DDPM-step launches
 must all be keyed.  The training
 phase's checks (state copies, bitwise and toleranced comparisons of
 params, moments and step counters, the per-step recorder) run on a tiny
-round on the CPU.
+round on the CPU.  The backward kernels' row check (``row_gap``): a
+sound bf16 kernel (another summation order, one rounding) reads within
+BWD_BF16_ROW, each planted fault beyond it, and rows that are zero in
+exact arithmetic read against the floor.
 """
 import dataclasses
 import importlib.util
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 from torch.autograd import DeviceType
@@ -84,12 +89,19 @@ def test_kernels_line_lists_every_kernel_with_every_key():
     """Every kernel carries the contract's keys; the three kernels with
     variants also carry their launches per variant and their card time,
     flash its numbers at head dim 128, the SSD scan its simt variant's
-    time and the grouped matmul its three shapes."""
+    time and the grouped matmul its three shapes; the two backward
+    kernels their shape, card time and events a launch, their largest
+    row gap, its limit and the planted faults' gaps."""
     cs = _chip_smoke()
     names = ["ddpm_step_batched", "ddpm_step", "flash_attention",
-             "ssd_scan", "grouped_matmul"]
+             "ssd_scan", "grouped_matmul", "flash_attention_bwd",
+             "ssd_scan_bwd"]
     records = {n: dict(max_abs_err=0.0, ms=1.0, plain_ms=2.0, bound_ms=0.5,
                        bound_by="bytes") for n in names}
+    for n in ("flash_attention_bwd", "ssd_scan_bwd"):
+        records[n].update(shape=[4, 8], card_ms=0.9, card_events=3.0,
+                          library_ms=None, row_gap=0.003, row_limit=0.01,
+                          faults={"dv past the first K/V tile": 0.02})
     records["grouped_matmul"].update(library_ms=0.8, card_ms=0.79,
                                      shapes=[dict(name="gate", ms=0.8)])
     records["flash_attention"].update(
@@ -108,7 +120,8 @@ def test_kernels_line_lists_every_kernel_with_every_key():
                      "grouped_matmul/simt": 0, "ssd_scan/wgmma": 4,
                      "ssd_scan/simt": 0, "ddpm_step/keyed": 2,
                      "ddpm_step/given": 0, "ddpm_step_batched/rowwise": 1,
-                     "ddpm_step_batched/given": 0})
+                     "ddpm_step_batched/given": 0,
+                     "flash_attention_bwd/simt": 6, "ssd_scan_bwd/simt": 7})
     line = cs.kernels_line(records, launches)
     assert [k["name"] for k in line["kernels"]] == names
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -119,7 +132,13 @@ def test_kernels_line_lists_every_kernel_with_every_key():
              "grouped_matmul": {"launches_by_variant", "card_ms", "shapes"},
              "ddpm_step": {"card_ms", "launches_by_variant"} | set(keyed),
              "ddpm_step_batched": {"card_ms", "launches_by_variant"} |
-             set(keyed)}
+             set(keyed),
+             "flash_attention_bwd": {"launches_by_variant", "card_ms",
+                                     "card_events", "shape", "row_gap",
+                                     "row_limit", "faults"},
+             "ssd_scan_bwd": {"launches_by_variant", "card_ms",
+                              "card_events", "shape", "row_gap",
+                              "row_limit", "faults"}}
     for k in line["kernels"]:
         assert set(k) == keys | extra.get(k["name"], set())
         assert k["route"] == "cuda"
@@ -129,7 +148,14 @@ def test_kernels_line_lists_every_kernel_with_every_key():
         assert src[int(line_no) - 1].startswith("def ")
         assert k["launches"] == launches[k["name"]]
     flash, ssd, gmm = line["kernels"][2], line["kernels"][3], \
-        line["kernels"][-1]
+        line["kernels"][4]
+    fbwd, sbwd = line["kernels"][5:]
+    assert fbwd["source"] == "src/repro_torch/csrc/flash_attention_bwd.cu"
+    assert fbwd["replaces"] == flash["replaces"]
+    assert sbwd["replaces"] == ssd["replaces"]
+    assert fbwd["launches_by_variant"] == {"simt": 6}
+    assert sbwd["card_events"] == 3.0
+    assert fbwd["faults"] == {"dv past the first K/V tile": 0.02}
     assert ssd["launches_by_variant"] == {"wgmma": 4, "simt": 0}
     assert ssd["card_ms"] == 0.0054 and ssd["simt_ms"] == 0.082
     assert ssd["library_ms"] is None
@@ -335,8 +361,7 @@ def test_runtime_phase_checks_on_the_cpu():
 
 def test_kernels_line_counts_launches_per_path():
     cs = _chip_smoke()
-    names = ["ddpm_step_batched", "ddpm_step", "flash_attention",
-             "ssd_scan", "grouped_matmul"]
+    names = list(cs.KERNELS)
     records = {n: dict(max_abs_err=0.0, ms=1.0, plain_ms=2.0, bound_ms=0.5,
                        bound_by="bytes", library_ms=None) for n in names}
     by_path = {"serve": {"ddpm_step": 1000, "ddpm_step_batched": 3875},
@@ -350,7 +375,7 @@ def test_kernels_line_counts_launches_per_path():
     assert ddpm["launches"] == 4000
     assert ddpm["launches_by_path"] == {"serve": 1000, "train": 1000,
                                         "train_runtime": 1000, "dit": 1000}
-    assert line["kernels"][-1]["launches_by_path"] == dict.fromkeys(
+    assert line["kernels"][4]["launches_by_path"] == dict.fromkeys(
         by_path, 0)
 
 
@@ -376,20 +401,19 @@ def test_main_runs_every_phase_in_order():
                      "phase_flash_ssd", "phase_unet", "phase_main_path",
                      "phase_contracts", "phase_train", "phase_train_runtime",
                      "phase_eval", "phase_dit", "phase_grouped_matmul",
-                     "phase_moe", "phase_lm_serve"]
+                     "phase_moe", "phase_lm_serve", "phase_lm_train"]
     assert cs.PATHS == ("serve", "train", "train_runtime", "eval", "dit",
-                        "moe", "lm_serve")
+                        "moe", "lm_serve", "lm_train")
     for name in calls:
         assert callable(getattr(cs, name))
 
 
 def test_kernels_line_carries_the_new_paths_and_lm_shapes():
-    """``launches_by_path`` has an entry for every path of PATHS (eval
-    and lm_serve included); flash and the SSD scan carry their numbers at
-    the LM prefill's shapes."""
+    """``launches_by_path`` has an entry for every path of PATHS (eval,
+    lm_serve and lm_train included); flash and the SSD scan carry their
+    numbers at the LM prefill's shapes."""
     cs = _chip_smoke()
-    names = ["ddpm_step_batched", "ddpm_step", "flash_attention",
-             "ssd_scan", "grouped_matmul"]
+    names = list(cs.KERNELS)
     records = {n: dict(max_abs_err=0.0, ms=1.0, plain_ms=2.0, bound_ms=0.5,
                        bound_by="bytes", library_ms=None) for n in names}
     lm = {"flash_attention": dict(shape=[4, 32, 512, 64], ms=0.03,
@@ -402,7 +426,9 @@ def test_kernels_line_carries_the_new_paths_and_lm_shapes():
            "train_runtime": {"ddpm_step": 1000},
            "eval": {"ddpm_step": 1250}, "dit": {"flash_attention": 6},
            "moe": {"grouped_matmul": 6}, "lm_serve": {"flash_attention": 6,
-                                                      "ssd_scan": 38}}
+                                                      "ssd_scan": 38},
+           "lm_train": {"flash_attention": 120, "flash_attention_bwd": 120,
+                        "ssd_scan": 760, "ssd_scan_bwd": 760}}
     by_path = dict(zip(cs.PATHS, (per[p] for p in cs.PATHS)))
     launches = {n: sum(p.get(n, 0) for p in by_path.values())
                 for n in names}
@@ -412,6 +438,9 @@ def test_kernels_line_carries_the_new_paths_and_lm_shapes():
     assert line[1]["launches_by_path"]["eval"] == 1250
     assert line[2]["launches_by_path"]["lm_serve"] == 6
     assert line[3]["launches_by_path"]["lm_serve"] == 38
+    assert line[5]["launches_by_path"]["lm_train"] == 120
+    assert line[6]["launches_by_path"]["lm_train"] == 760
+    assert line[6]["launches_by_path"]["lm_serve"] == 0
     assert line[2]["lm_prefill"] == lm["flash_attention"]
     assert line[3]["lm_prefill"] == lm["ssd_scan"]
     assert "lm_prefill" not in line[0]
@@ -492,3 +521,155 @@ def test_eval_path_on_the_cpu():
         out["inversion"]
     for t in cs.EVAL_TS:
         assert torch.equal(again["f1"][t], out["f1"][t])
+
+
+def test_backward_bounds_and_the_lm_train_helpers():
+    """The backward kernels' bounds at the LM training step's shapes:
+    flash's binds on its five products over the kept pairs, the SSD
+    scan's on its bytes; ``no_bwd`` and ``grad_gaps``."""
+    cs = _chip_smoke()
+    q = torch.empty(4, 32, 1024, 64, dtype=torch.bfloat16, device="meta")
+    keep = 1024 * 1025 // 2
+    assert cs.keep_count(1024, True, 8192) == keep
+    assert cs.keep_count(10, False, 3) == sum(
+        1 for i in range(10) for j in range(10) if i - j < 3)
+    assert cs.keep_count(10, True, 3) == sum(
+        1 for i in range(10) for j in range(10) if 0 <= i - j < 3)
+    ms, by = cs.flash_bwd_bound(q, q, True, 8192)
+    assert by == "operations"
+    assert ms == 10 * 4 * 32 * 64 * keep / cs.BF16_FLOPS_PER_S * 1e3
+    assert (8 * q.numel() * 2 + 4 * 32 * 1024 * 4) / cs.HBM_BYTES_PER_S * \
+        1e3 < ms
+    x = torch.empty(4, 1024, 64, 64, dtype=torch.bfloat16, device="meta")
+    Bm = torch.empty(4, 1024, 64, dtype=torch.bfloat16, device="meta")
+    ms, by = cs.ssd_bwd_bound(x, Bm, 256)
+    nbytes = (3 * x.numel() + 4 * Bm.numel()) * 2 + 2 * 4 * 1024 * 64 * 4 + \
+        2 * 64 * 4
+    assert by == "bytes" and ms == nbytes / cs.HBM_BYTES_PER_S * 1e3
+    assert cs.no_bwd("flash_attention") == {"flash_attention_bwd": 0,
+                                            "flash_attention_bwd/simt": 0}
+    gaps = cs.grad_gaps({"a": torch.ones(4), "b": torch.zeros(2)},
+                        {"a": 2 * torch.ones(4), "b": torch.ones(2)})
+    assert gaps == {"a": 0.5, "b": 1.0}
+    assert (cs.LM_TRAIN_STEPS, cs.LM_TRAIN_BATCH, cs.LM_TRAIN_SEQ) == \
+        (20, 4, 1024)
+    assert cs.FLASH_BWD_PATH == ((4, 32, 32, 1024, 64), True, 8192)
+    assert cs.SSD_BWD_PATH == (4, 1024, 64, 64, 64, 256)
+
+
+def _bf16_pair(g32: torch.Tensor, seed: int):
+    """(kernel, plain) for a float32 gradient: the plain version rounds it
+    to bf16 once; a sound kernel sums in another order (a relative 1e-6
+    each) and rounds once too."""
+    rng = np.random.default_rng(seed)
+    noise = torch.from_numpy(rng.standard_normal(g32.shape).astype(
+        np.float32))
+    return (g32 * (1 + 1e-6 * noise)).bfloat16(), g32.bfloat16()
+
+
+def _flash_grads():
+    """(kernel, plain) gradients of a causal bf16 attention at S 256,
+    where the first keys' gradients dwarf the later ones'."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_lse, attention_ref, flash_attention_bwd_ref)
+    rng = np.random.default_rng(0)
+    r = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).bfloat16().float()
+    q, k, v, dout = r(1, 2, 256, 16), r(1, 2, 256, 16), r(1, 2, 256, 16), \
+        r(1, 2, 256, 16)
+    out = attention_ref(q.bfloat16(), k.bfloat16(), v.bfloat16()).float()
+    g32 = flash_attention_bwd_ref(q, k, v, out, dout,
+                                  attention_lse(q, k), True, 0)
+    pairs = [_bf16_pair(g, i) for i, g in enumerate(g32)]
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+def _ssd_grads(chunk=32, h=4):
+    """(kernel, plain) gradients of a bf16 SSD scan over 4 chunks; dx, dB
+    and dC round to bf16, ddt and dA stay float32."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd_ref
+    rng = np.random.default_rng(1)
+    r = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32))
+    bf = lambda t: t.bfloat16().float()
+    x, B, C, dy = bf(r(1, 4 * chunk, h, 16)), bf(r(1, 4 * chunk, 8)), \
+        bf(r(1, 4 * chunk, 8)), bf(r(1, 4 * chunk, h, 16))
+    dt = torch.nn.functional.softplus(r(1, 4 * chunk, h) - 1)
+    A = -torch.exp(r(h))
+    g32 = ssd_chunked_bwd_ref(x, dt, A, B, C, chunk, dy)
+    kern, plain = [], []
+    for i, g in enumerate(g32):
+        if i in (1, 2):
+            kern.append(g * (1 + 1e-6 * torch.from_numpy(
+                rng.standard_normal(g.shape).astype(np.float32))))
+            plain.append(g)
+        else:
+            a, b = _bf16_pair(g, 10 + i)
+            kern.append(a)
+            plain.append(b)
+    return kern, plain
+
+
+@pytest.mark.parametrize("case", ["flash", "ssd"])
+def test_row_gap_holds_a_sound_bf16_kernel_within_its_limit(case):
+    """A kernel that sums in another order and rounds once reads below
+    BWD_BF16_ROW in every gradient: a value is at most one bf16 ulp (2^-7
+    of it) from the plain one."""
+    cs = _chip_smoke()
+    kern, plain = _flash_grads() if case == "flash" else _ssd_grads()
+    gaps = [cs.row_gap(a, b) for a, b in zip(kern, plain)]
+    assert max(gaps) <= 2 ** -7 < cs.BWD_BF16_ROW
+    assert max(gaps) > 0            # the rounding shows
+
+
+@pytest.mark.parametrize("case,fault", [
+    ("flash", f) for f in ("dk past the first K/V tile",
+                           "dv past the first K/V tile",
+                           "dq from the next head")] + [
+    ("ssd", f) for f in ("dx past the first chunk", "ddt from the next head",
+                         "dA past the first head", "dB past the first chunk",
+                         "dC past the first chunk")])
+def test_each_planted_fault_reads_beyond_the_row_limit(case, fault):
+    """chip_smoke's planted faults fail the row check; flash's scaled
+    faults read by each gradient's range (max |k − r| / max(1, max |r|),
+    the check this one replaced, at the same limit) pass it: the first
+    keys' gradients set that scale."""
+    cs = _chip_smoke()
+    if case == "flash":
+        kern, plain = _flash_grads()
+        faults = cs.flash_faults()
+    else:
+        kern, plain = _ssd_grads()
+        faults = cs.ssd_faults(32)
+    gaps = cs.fault_gaps(kern, plain, {fault: faults[fault]})
+    assert gaps[fault] > cs.BWD_BF16_ROW
+    cs.check_faults(fault, gaps, cs.BWD_BF16_ROW)
+    i, fn = faults[fault]
+    if "past" in fault and case == "flash":
+        assert cs.lm_gap(fn(kern[i].float()), plain[i]) < cs.BWD_BF16_ROW
+
+
+def test_row_gap_floors_rows_that_are_zero_in_exact_arithmetic():
+    """Causal dq's first row is zero but for rounding: it reads against
+    ROW_FLOOR of the median row's norm, not against its own."""
+    cs = _chip_smoke()
+    b = torch.ones(8, 4)
+    b[0] = 0.0
+    a = b.clone()
+    a[0] = 1e-7
+    assert cs.row_gap(a, b) == pytest.approx(2e-7 / (cs.ROW_FLOOR * 2),
+                                             rel=1e-4)
+    assert cs.row_gap(b, b) == 0.0
+    assert cs.row_gap(torch.tensor([1.0, 2.04]), torch.tensor([1.0, 2.0])) \
+        == pytest.approx(0.02, rel=1e-5)     # a vector: each element a row
+
+
+def test_check_faults_raises_where_a_fault_reads_within_the_limit():
+    cs = _chip_smoke()
+    cs.check_faults("x", {"a": 0.5, "b": 0.02}, 1e-2)
+    with pytest.raises(AssertionError, match="cannot fail"):
+        cs.check_faults("x", {"a": 0.5, "b": 0.005}, 1e-2)
+    g = torch.ones(2, 5, 3)
+    assert torch.equal(cs.scaled_past(1, 2)(g)[:, :2], g[:, :2])
+    assert torch.equal(cs.scaled_past(1, 2)(g)[:, 2:],
+                       torch.full((2, 3, 3), 1 + cs.FAULT))

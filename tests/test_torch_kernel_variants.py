@@ -306,7 +306,12 @@ def test_ssd_wgmma_shared_memory_fits_a_block():
                                        (fkernel, "flash_attention"),
                                        (skernel, "ssd_scan")])
 def test_every_variant_has_its_own_counter(kmod, name):
-    assert set(kmod.COUNTS) == {name} | {f"{name}/{v}" for v in kmod.VARIANTS}
+    # flash and the SSD scan also count their backward kernel's launches
+    bwd = {f"{name}_bwd"} | {f"{name}_bwd/{v}" for v in
+                             getattr(kmod, "BWD_VARIANTS", ())}
+    assert set(kmod.COUNTS) == {name} | {f"{name}/{v}" for v in
+                                         kmod.VARIANTS} | \
+        (bwd if hasattr(kmod, "BWD_VARIANTS") else set())
     assert kmod.VARIANTS[0] == "wgmma"
     saved = dict(kmod.COUNTS)
     try:
