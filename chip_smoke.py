@@ -83,7 +83,7 @@ package).  Phases, each of which fails the run on any error:
    tokens), threefry-initialised on the card.  One Alg.-1 loss through
    the server DiT and its backward: finite gradients on every parameter,
    and as many flash and SSD backward launches as forward ones (6 and
-   38).  The flash and SSD kernels
+   38), every one on the wgmma variants.  The flash and SSD kernels
    are held against their plain versions on the inputs the first forward
    feeds them and timed there; then, with every launch counter zeroed just
    before, one per-request Alg.-2 sample (T=500, cut 250, batch 4) and
@@ -141,15 +141,18 @@ package).  Phases, each of which fails the run on any error:
    scan's, csrc/ssd_scan_bwd.cu) against their plain versions
    (``flash_attention_bwd_ref``, ``ssd_chunked_bwd_ref``) at the
    training step's shapes and in a sweep (FLASH_BWD_SWEEP,
-   SSD_BWD_SWEEP) within BWD_BF16_ROW / BWD_FP32_ROW of each row
-   (``row_gap``), planted faults at the step's shapes outside that limit,
-   the forward's output bitwise with and without its log-sum-exp, rows
-   bitwise across the batch and two launches bitwise; (b) their times
-   beside the plain
-   versions', SDPA's backward and the bound; (c) ``launch/train.py``'s
+   SSD_BWD_SWEEP, which must launch both variants, wgmma and simt)
+   within BWD_BF16_ROW / BWD_FP32_ROW of each row (``row_gap``); at the
+   step's shapes the wgmma variant (the wrappers' choice there) and simt
+   on the same inputs (``variant="simt"``), each with planted faults
+   outside that limit, rows bitwise across the batch and two launches
+   bitwise; the forward's output bitwise with and without its
+   log-sum-exp; (b) both variants' times beside the plain versions',
+   SDPA's backward and the bound; (c) ``launch/train.py``'s
    ``main`` on Zamba2-1.2B at the published widths and depth,
    LM_TRAIN_STEPS steps of LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens, the
-   counters read after every step (6 + 6 flash, 38 + 38 SSD launches),
+   counters read after every step (6 + 6 flash, 38 + 38 SSD launches,
+   every backward launch wgmma),
    losses finite and falling; step wall, device time, events, idle share
    and peak memory; (d) a repeated step bitwise; (e) a 7-layer model's
    loss and gradients on the card against the CPU port within
@@ -456,7 +459,8 @@ def kernels_line(records, launches, by_path=None):
     extra = ("card_ms", "simt_ms", "head_dim_128", "lm_prefill", "shapes",
              "op_ms", "composed_ms", "composed_card_ms", "composed_events",
              "keyed_card_ms", "keyed_events", "given", "shape", "chunk",
-             "card_events", "row_gap", "row_limit", "faults")
+             "card_events", "row_gap", "row_limit", "faults",
+             "simt_row_gap", "simt_faults")
     line = []
     for name in KERNELS:
         entry = dict(name=name, route="cuda",
@@ -2032,7 +2036,7 @@ def no_bwd(*names) -> dict:
     """Zero backward launches of the kernels ``names`` (flash_attention,
     ssd_scan): the entries a forward-only path's launch counts hold."""
     return {k: 0 for name in names
-            for k in (f"{name}_bwd", f"{name}_bwd/simt")}
+            for k in (f"{name}_bwd", f"{name}_bwd/wgmma", f"{name}_bwd/simt")}
 
 
 def dit_grad_check(tag, apply_fn, sp, xty, per_fwd, kmods) -> dict:
@@ -2058,7 +2062,8 @@ def dit_grad_check(tag, apply_fn, sp, xty, per_fwd, kmods) -> dict:
     got = lm_counts(*kmods)
     want = dict(per_fwd)
     for name in ("flash_attention", "ssd_scan"):
-        want[f"{name}_bwd"] = want[f"{name}_bwd/simt"] = per_fwd[name]
+        want[f"{name}_bwd"] = want[f"{name}_bwd/wgmma"] = per_fwd[name]
+        want[f"{name}_bwd/simt"] = 0
     if got != want:
         raise AssertionError(f"{tag}: launches of a loss and its backward "
                              f"{got}, expected {want}")
@@ -2526,10 +2531,19 @@ SSD_BWD_SWEEP = [((2, 100, 3, 16, 8, 32), "float32", True),
 # 8.6e-5 against float64 there at a floor of 1%, 8.6e-6 at 10%).  A
 # causal gradient falls off with position (dv of the first key ~10, of a
 # mid-sequence key ~0.05), so each row is held to its own scale.  In bf16
-# both round each value once to bf16 from float32 sums that differ in
-# order only, so a value is at most one ulp (2^-7 of it) from the plain
-# one and a row at most 7.8e-3 of its norm: BWD_BF16_ROW.  In float32
-# only the order differs.  At the step's shapes the kernel's gradients
+# the simt variants round each value once to bf16 from float32 sums that
+# differ in order only, so a value is at most one ulp (2^-7 of it) from
+# the plain one and a row at most 7.8e-3 of its norm: BWD_BF16_ROW.  The
+# wgmma variants (the choice in bf16 at the model's head dims) take the
+# stored bf16 inputs to the tensor cores as they are and every float32
+# intermediate (P, dS; W∘CB, W∘DD, the states, the scaled x and dy of the
+# chunk sums) as a bf16 hi part plus a bf16 lo part, 16 of its 24 bits:
+# each product term is then within 2^-17 of the plain one, far below that
+# ulp, and the row stays under the limit (the CPU rounding model,
+# tests/test_torch_bwd_variants.py: ≤ 2.7e-3 at the sweep's shapes; one
+# bf16 part would read up to 9.0e-3, dB at the DiT's shape, and move dA
+# a hundredfold).  In float32 only the order differs.  At the step's
+# shapes the kernel's gradients
 # with a planted fault (rows past the first K/V tile or chunk scaled by
 # 1 + FAULT, a gradient taken from the next head) must read beyond the
 # limit.  The forward's lse against the plain log-sum-exp: LSE_ATOL.
@@ -3089,34 +3103,81 @@ def ssd_faults(chunk: int) -> dict:
             "dC past the first chunk": (4, scaled_past(1, chunk))}
 
 
-def flash_bwd_case(rn, shape, causal, window, dtype, path=False):
+def launched_variant(kmod, name: str, before: dict) -> str:
+    """The one variant of ``name`` whose counter moved since ``before``
+    (a copy of ``kmod.COUNTS``), by exactly one launch; raises
+    otherwise."""
+    moved = {v: kmod.COUNTS[f"{name}/{v}"] - before[f"{name}/{v}"]
+             for v in kmod.BWD_VARIANTS}
+    ran = [v for v, n in moved.items() if n]
+    if len(ran) != 1 or moved[ran[0]] != 1:
+        raise AssertionError(f"{name}: one launch moved the counters by "
+                             f"{moved}")
+    return ran[0]
+
+
+def bwd_path_checks(what, grads, refs, faults_of, tol, launch, launch_one,
+                    one_rows):
+    """At the path's shape: planted faults beyond ``tol``, a second launch
+    bitwise equal to the first, and the rows of batch 1 (gradients
+    ``one_rows``) equal to those of the full batch.  Returns the faults'
+    gaps."""
+    import torch
+    faults = fault_gaps(grads, refs, faults_of)
+    check_faults(what, faults, tol)
+    again = launch()
+    one = launch_one()
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError(f"{what}: two launches differ")
+    if not all(torch.equal(grads[i][:1], one[i]) for i in one_rows):
+        raise AssertionError(f"{what}: rows of batch 1 != those of the "
+                             "full batch")
+    return faults
+
+
+def flash_bwd_case(rn, shape, causal, window, dtype, path=False,
+                   variant=None, inputs=None):
     """One flash case: the forward with and without its log-sum-exp
     (the output's bits must not move; the lse within LSE_ATOL of the
-    plain one), then the backward kernel against
-    ``flash_attention_bwd_ref`` on the same inputs, each gradient within
-    BWD_FP32_ROW or BWD_BF16_ROW (``row_gap``); at the path's shape also
-    planted faults beyond it (dk and dv past the first K/V tile scaled,
-    dq from the next head), two launches bitwise equal and the rows of
-    batch 1 equal those of the full batch.  Returns (the row gaps, the
-    max abs error, the faults' gaps, the inputs)."""
+    plain one), then the backward kernel (``variant``, default the
+    wrapper's choice) against ``flash_attention_bwd_ref`` on the same
+    inputs, each gradient within BWD_FP32_ROW or BWD_BF16_ROW
+    (``row_gap``); at the path's shape also planted faults beyond it (dk
+    and dv past the first K/V tile scaled, dq from the next head), two
+    launches bitwise equal and the rows of batch 1 equal those of the
+    full batch.  ``inputs`` (a case's returned inputs) skips the draw and
+    the forward.  Returns (the row gaps, the max abs error, the faults'
+    gaps, the inputs, the variant launched)."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.flash_attention.ref import (
         attention_lse, flash_attention_bwd_ref)
     Bq, H, Hkv, S, dh = shape
-    q = rn(Bq, H, S, dh).to(dtype)
-    k, v = rn(Bq, Hkv, S, dh).to(dtype), rn(Bq, Hkv, S, dh).to(dtype)
-    dout = rn(Bq, H, S, dh).to(dtype)
-    lse = torch.empty((Bq, H, S), dtype=torch.float32, device="cuda")
-    out = fkernel.launch(q, k, v, causal, window, lse=lse)
-    what = f"flash bwd {shape} causal {causal} window {window} {dtype}"
-    if not torch.equal(out, fkernel.launch(q, k, v, causal, window)):
-        raise AssertionError(f"{what}: the forward's output moved with the "
-                             "lse output")
-    lse_err = (lse - attention_lse(q, k, causal, window)).abs().max().item()
-    if not lse_err <= LSE_ATOL:
-        raise AssertionError(f"{what}: lse max abs {lse_err:.3g}")
-    grads = fkernel.launch_backward(q, k, v, out, dout, lse, causal, window)
+    what = (f"flash bwd {shape} causal {causal} window {window} {dtype} "
+            f"({variant or 'chosen'})")
+    lse_note = ""
+    if inputs is None:
+        q = rn(Bq, H, S, dh).to(dtype)
+        k, v = rn(Bq, Hkv, S, dh).to(dtype), rn(Bq, Hkv, S, dh).to(dtype)
+        dout = rn(Bq, H, S, dh).to(dtype)
+        lse = torch.empty((Bq, H, S), dtype=torch.float32, device="cuda")
+        out = fkernel.launch(q, k, v, causal, window, lse=lse)
+        if not torch.equal(out, fkernel.launch(q, k, v, causal, window)):
+            raise AssertionError(f"{what}: the forward's output moved with "
+                                 "the lse output")
+        lse_err = (lse - attention_lse(q, k, causal, window)).abs().max() \
+            .item()
+        if not lse_err <= LSE_ATOL:
+            raise AssertionError(f"{what}: lse max abs {lse_err:.3g}")
+        lse_note = (f"lse max abs {lse_err:.3g}, out bitwise with and "
+                    "without it; ")
+        inputs = (q, k, v, out, dout, lse)
+    q, k, v, out, dout, lse = inputs
+    before = dict(fkernel.COUNTS)
+    launch = lambda: fkernel.launch_backward(q, k, v, out, dout, lse,
+                                             causal, window, variant=variant)
+    grads = launch()
+    ran = launched_variant(fkernel, "flash_attention_bwd", before)
     refs = flash_attention_bwd_ref(q, k, v, out, dout, lse, causal, window)
     tol = BWD_FP32_ROW if dtype == torch.float32 else BWD_BF16_ROW
     gaps = [row_gap(g, r) for g, r in zip(grads, refs)]
@@ -3124,97 +3185,98 @@ def flash_bwd_case(rn, shape, causal, window, dtype, path=False):
                   for g, r in zip(grads, refs))
     if not max(gaps) <= tol:
         raise AssertionError(f"{what}: dq/dk/dv row gaps {gaps} > {tol}")
-    faults = {}
+    faults, old = {}, None
     if path:
-        faults = fault_gaps(grads, refs, flash_faults())
-        check_faults(what, faults, tol)
+        faults = bwd_path_checks(
+            what, grads, refs, flash_faults(), tol, launch,
+            lambda: fkernel.launch_backward(
+                q[:1], k[:1], v[:1], out[:1], dout[:1],
+                lse[:1].contiguous(), causal, window, variant=variant),
+            (0, 1, 2))
         old = lm_gap(scaled_past(2, 64)(grads[2].float()), refs[2])
-        again = fkernel.launch_backward(q, k, v, out, dout, lse, causal,
-                                        window)
-        one = fkernel.launch_backward(q[:1], k[:1], v[:1], out[:1],
-                                      dout[:1], lse[:1].contiguous(),
-                                      causal, window)
-        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-            raise AssertionError(f"{what}: two launches differ")
-        if not all(torch.equal(a[:1], b) for a, b in zip(grads, one)):
-            raise AssertionError(f"{what}: rows of batch 1 != those of "
-                                 f"batch {Bq}")
     log(f"lm_train/flash_bwd {shape} causal {causal} window {window} "
-        f"{str(dtype)[6:]}: lse max abs {lse_err:.3g}, out bitwise with "
-        f"and without it; dq/dk/dv row gaps "
+        f"{str(dtype)[6:]} {ran}: {lse_note}dq/dk/dv row gaps "
         f"{', '.join(f'{e:.3g}' for e in gaps)} (limit {tol}), max abs "
         f"{abs_err:.3g}" +
         (f"; planted faults (x{1 + FAULT}) "
          f"{', '.join(f'{f}: {g:.3g}' for f, g in faults.items())}, all "
          f"beyond it (dv's fault by max |k − r| / max(1, max |r|): "
          f"{old:.3g}); two launches and batch rows bitwise" if path else ""))
-    return gaps, abs_err, faults, (q, k, v, out, dout, lse)
+    return gaps, abs_err, faults, inputs, ran
 
 
-def ssd_bwd_case(rn, shape, dtype, dfinal: bool, path=False):
-    """One SSD case: the backward kernel against ``ssd_chunked_bwd_ref``
-    on the same inputs (dy, and a d(final state) or none), each gradient
-    within BWD_FP32_ROW or BWD_BF16_ROW (``row_gap``); at the path's
-    shape also planted faults beyond it (dx, dB and dC past the first
-    chunk and dA past the first head scaled, ddt from the next head), two
-    launches bitwise equal and the rows of batch 1 (dx, ddt, dB, dC; dA
-    sums over the batch) equal those of the full batch.  Returns (the row
-    gaps, the max abs error, the faults' gaps, the inputs)."""
+def ssd_bwd_case(rn, shape, dtype, dfinal: bool, path=False, variant=None,
+                 inputs=None):
+    """One SSD case: the backward kernel (``variant``, default the
+    wrapper's choice) against ``ssd_chunked_bwd_ref`` on the same inputs
+    (dy, and a d(final state) or none), each gradient within BWD_FP32_ROW
+    or BWD_BF16_ROW (``row_gap``); at the path's shape also planted
+    faults beyond it (dx, dB and dC past the first chunk and dA past the
+    first head scaled, ddt from the next head), two launches bitwise
+    equal and the rows of batch 1 (dx, ddt, dB, dC; dA sums over the
+    batch) equal those of the full batch.  ``inputs`` (a case's returned
+    inputs) skips the draw.  Returns (the row gaps, the max abs error,
+    the faults' gaps, the inputs, the variant launched)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ssd_scan import kernel as skernel
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd_ref
     b, s, h, p, n, chunk = shape
-    x = rn(b, s, h, p).to(dtype)
-    dt = F.softplus(rn(b, s, h) - 1)
-    A = -torch.exp(rn(h))
-    Bm, Cm = rn(b, s, n).to(dtype), rn(b, s, n).to(dtype)
-    dy = rn(b, s, h, p).to(dtype)
-    dfs = rn(b, h, p, n) if dfinal else None
-    args = (x, dt, A, Bm, Cm, chunk, dy, dfs)
-    grads = skernel.launch_backward(*args)
-    refs = ssd_chunked_bwd_ref(*args)
+    if inputs is None:
+        x = rn(b, s, h, p).to(dtype)
+        dt = F.softplus(rn(b, s, h) - 1)
+        A = -torch.exp(rn(h))
+        Bm, Cm = rn(b, s, n).to(dtype), rn(b, s, n).to(dtype)
+        dy = rn(b, s, h, p).to(dtype)
+        dfs = rn(b, h, p, n) if dfinal else None
+        inputs = (x, dt, A, Bm, Cm, chunk, dy, dfs)
+    x, dt, A, Bm, Cm, chunk, dy, dfs = inputs
+    before = dict(skernel.COUNTS)
+    launch = lambda: skernel.launch_backward(*inputs, variant=variant)
+    grads = launch()
+    ran = launched_variant(skernel, "ssd_scan_bwd", before)
+    refs = ssd_chunked_bwd_ref(*inputs)
     tol = BWD_FP32_ROW if dtype == torch.float32 else BWD_BF16_ROW
     gaps = [row_gap(g, r) for g, r in zip(grads, refs)]
     abs_err = max((g.float() - r.float()).abs().max().item()
                   for g, r in zip(grads, refs))
     what = (f"ssd bwd {shape} {dtype} d(final) "
-            f"{'random' if dfinal else 'none'}")
+            f"{'random' if dfinal else 'none'} ({ran})")
     if not max(gaps) <= tol:
         raise AssertionError(f"{what}: dx/ddt/dA/dB/dC row gaps {gaps} > "
                              f"{tol}")
-    faults = {}
+    faults, old = {}, None
     if path:
-        faults = fault_gaps(grads, refs, ssd_faults(chunk))
-        check_faults(what, faults, tol)
+        faults = bwd_path_checks(
+            what, grads, refs, ssd_faults(chunk), tol, launch,
+            lambda: skernel.launch_backward(
+                x[:1], dt[:1], A, Bm[:1], Cm[:1], chunk, dy[:1],
+                None if dfs is None else dfs[:1], variant=variant),
+            (0, 1, 3, 4))
         old = lm_gap(scaled_past(1, chunk)(grads[0].float()), refs[0])
-        again = skernel.launch_backward(*args)
-        one = skernel.launch_backward(
-            x[:1], dt[:1], A, Bm[:1], Cm[:1], chunk, dy[:1],
-            None if dfs is None else dfs[:1])
-        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-            raise AssertionError(f"{what}: two launches differ")
-        if not all(torch.equal(grads[i][:1], one[i]) for i in (0, 1, 3, 4)):
-            raise AssertionError(f"{what}: rows of batch 1 != those of "
-                                 f"batch {b}")
+    tile = "" if ran == "wgmma" else \
+        f" (tile {skernel.bwd_tile(chunk, p, n)})"
     log(f"lm_train/ssd_bwd {shape} {str(dtype)[6:]} d(final) "
-        f"{'random' if dfinal else 'none'} (tile "
-        f"{skernel.bwd_tile(chunk, p, n)}): dx/ddt/dA/dB/dC row gaps "
-        f"{', '.join(f'{e:.3g}' for e in gaps)} (limit {tol}), max abs "
-        f"{abs_err:.3g}" +
+        f"{'random' if dfinal else 'none'} {ran}{tile}: dx/ddt/dA/dB/dC row "
+        f"gaps {', '.join(f'{e:.3g}' for e in gaps)} (limit {tol}), max "
+        f"abs {abs_err:.3g}" +
         (f"; planted faults (x{1 + FAULT}) "
          f"{', '.join(f'{f}: {g:.3g}' for f, g in faults.items())}, all "
          f"beyond it (dx's fault by max |k − r| / max(1, max |r|): "
          f"{old:.3g}); two launches and batch rows bitwise" if path else ""))
-    return gaps, abs_err, faults, args
+    return gaps, abs_err, faults, inputs, ran
 
 
 def bwd_kernel_checks() -> dict:
     """(a) and (b) of the LM training phase: both backward kernels
-    against their plain versions on the card at the path's shapes and in
-    a sweep, and their times at the path's shapes beside the plain
-    versions', SDPA's backward and the bound.  Returns the kernel records
-    of ``flash_attention_bwd`` and ``ssd_scan_bwd``."""
+    against their plain versions on the card in a sweep (which must
+    launch both variants, wgmma and simt) and at the path's shapes (the
+    wgmma variant, the wrappers' choice there, and simt on the same
+    inputs through ``variant="simt"``, each with its planted faults,
+    repeat and batch-row checks), and their times at the path's shapes
+    (both variants) beside the plain versions', SDPA's backward and the
+    bound.  Returns the kernel records of ``flash_attention_bwd`` and
+    ``ssd_scan_bwd``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fkernel
@@ -3226,52 +3288,75 @@ def bwd_kernel_checks() -> dict:
     g = torch.Generator(device="cuda").manual_seed(20)
     rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
     bf16 = torch.bfloat16
-    sweep = [max(flash_bwd_case(rn, shape, c, w, getattr(torch, dt))[0])
-             for shape, c, w, dt in FLASH_BWD_SWEEP]
+    records, path_inputs = {}, {}
+    for name, kmod, case, sweep_cases, path_args in (
+            ("flash_attention_bwd", fkernel, flash_bwd_case,
+             [(shape, c, w, getattr(torch, dt))
+              for shape, c, w, dt in FLASH_BWD_SWEEP],
+             FLASH_BWD_PATH + (bf16,)),
+            ("ssd_scan_bwd", skernel, ssd_bwd_case,
+             [(shape, getattr(torch, dt), fin)
+              for shape, dt, fin in SSD_BWD_SWEEP],
+             (SSD_BWD_PATH, bf16, False))):
+        sweep = [case(rn, *c) for c in sweep_cases]
+        ran = sorted({r[4] for r in sweep})
+        if ran != sorted(kmod.BWD_VARIANTS):
+            raise AssertionError(f"{name}: the sweep launched {ran}, not "
+                                 f"every variant {kmod.BWD_VARIANTS}")
+        gaps, err, faults, args, var = case(rn, *path_args, path=True)
+        if var != "wgmma":
+            raise AssertionError(f"{name}: the path's shape took {var}")
+        sgaps, _, sfaults, _, _ = case(rn, *path_args, path=True,
+                                       variant="simt", inputs=args)
+        log(f"lm_train/{name}: {len(sweep)} sweep cases ("
+            f"{', '.join(r[4] for r in sweep)}) worst row gap "
+            f"{max(max(r[0]) for r in sweep):.3g}; the path's {max(gaps):.3g}"
+            f" (simt {max(sgaps):.3g}); the least planted fault "
+            f"{min(faults.values()):.3g} (simt "
+            f"{min(sfaults.values()):.3g})")
+        records[name] = dict(max_abs_err=err, row_gap=max(gaps),
+                             row_limit=BWD_BF16_ROW, faults=faults,
+                             simt_row_gap=max(sgaps), simt_faults=sfaults)
+        path_inputs[name] = args
+
     shape, causal, window = FLASH_BWD_PATH
-    gaps, err, faults, fargs = flash_bwd_case(rn, shape, causal, window,
-                                              bf16, path=True)
-    log(f"lm_train/flash_bwd: {len(sweep)} sweep cases worst row gap "
-        f"{max(sweep):.3g}, the path's {max(gaps):.3g}; the least planted "
-        f"fault {min(faults.values()):.3g}")
-    ms = time_ms(lambda: fkernel.launch_backward(*fargs, causal, window),
-                 iters=20, warmup=2)
-    plain = time_ms(lambda: flash_attention_bwd_ref(*fargs, causal, window),
-                    iters=3, warmup=1)
-    q, k, v, _, dout, _ = fargs
+    q, k, v, out, dout, lse = fargs = path_inputs.pop("flash_attention_bwd")
+    r = records["flash_attention_bwd"]
+    r["shape"] = list(q.shape)
+    r["ms"] = time_ms(lambda: fkernel.launch_backward(*fargs, causal,
+                                                      window),
+                      iters=20, warmup=2)
+    r["simt_ms"] = time_ms(lambda: fkernel.launch_backward(
+        *fargs, causal, window, variant="simt"), iters=20, warmup=2)
+    r["plain_ms"] = time_ms(lambda: flash_attention_bwd_ref(
+        *fargs, causal, window), iters=3, warmup=1)
     with torch.enable_grad():
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-        lib = time_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), dout,
-                                                  retain_graph=True),
-                      iters=20, warmup=2)
-    bnd, by = flash_bwd_bound(q, k, causal, window)
-    records = {"flash_attention_bwd": dict(
-        shape=list(q.shape), max_abs_err=err, ms=ms, plain_ms=plain,
-        bound_ms=bnd, bound_by=by, library_ms=lib, row_gap=max(gaps),
-        row_limit=BWD_BF16_ROW, faults=faults)}
-    del fargs, q, k, v, dout, o, qg, kg, vg
+        r["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            o, (qg, kg, vg), dout, retain_graph=True), iters=20, warmup=2)
+    r["bound_ms"], r["bound_by"] = flash_bwd_bound(q, k, causal, window)
+    del fargs, q, k, v, out, dout, lse, o, qg, kg, vg
 
-    sweep = [max(ssd_bwd_case(rn, shape, getattr(torch, dt), fin)[0])
-             for shape, dt, fin in SSD_BWD_SWEEP]
-    gaps, err, faults, sargs = ssd_bwd_case(rn, SSD_BWD_PATH, bf16, False,
-                                            path=True)
-    log(f"lm_train/ssd_bwd: {len(sweep)} sweep cases worst row gap "
-        f"{max(sweep):.3g}, the path's {max(gaps):.3g}; the least planted "
-        f"fault {min(faults.values()):.3g}")
-    ms = time_ms(lambda: skernel.launch_backward(*sargs), iters=20, warmup=2)
-    plain = time_ms(lambda: ssd_chunked_bwd_ref(*sargs), iters=3, warmup=1)
-    bnd, by = ssd_bwd_bound(sargs[0], sargs[3], sargs[5])
-    records["ssd_scan_bwd"] = dict(
-        shape=list(sargs[0].shape), chunk=sargs[5], max_abs_err=err, ms=ms,
-        plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None,
-        row_gap=max(gaps), row_limit=BWD_BF16_ROW, faults=faults)
+    sargs = path_inputs.pop("ssd_scan_bwd")
+    r = records["ssd_scan_bwd"]
+    r.update(shape=list(sargs[0].shape), chunk=sargs[5], library_ms=None)
+    r["ms"] = time_ms(lambda: skernel.launch_backward(*sargs), iters=20,
+                      warmup=2)
+    r["simt_ms"] = time_ms(lambda: skernel.launch_backward(
+        *sargs, variant="simt"), iters=20, warmup=2)
+    r["plain_ms"] = time_ms(lambda: ssd_chunked_bwd_ref(*sargs), iters=3,
+                            warmup=1)
+    r["bound_ms"], r["bound_by"] = ssd_bwd_bound(sargs[0], sargs[3],
+                                                 sargs[5])
     for name, r in records.items():
-        log(f"kernel/{name} at the LM training step's {r['shape']}: kernel "
-            f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms library "
-            f"{fmt_ms(r['library_ms'])} bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}): {100 * r['bound_ms'] / r['ms']:.1f}% of "
-            "the bound's rate")
+        log(f"kernel/{name} at the LM training step's {r['shape']}: wgmma "
+            f"{r['ms']:.4f} ms, simt {r['simt_ms']:.4f} ms "
+            f"({r['simt_ms'] / r['ms']:.1f}x), plain {r['plain_ms']:.4f} "
+            f"ms, library {fmt_ms(r['library_ms'])}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}): "
+            f"{100 * r['bound_ms'] / r['ms']:.2f}% of the bound's rate "
+            f"(simt {100 * r['bound_ms'] / r['simt_ms']:.2f}%)")
     return records
 
 
@@ -3326,9 +3411,10 @@ def phase_lm_train():
     n_attn, L = _grouping(cfg)[1], cfg.n_layers
     per_step = {"flash_attention": n_attn, "flash_attention/wgmma": n_attn,
                 "flash_attention/simt": 0, "flash_attention_bwd": n_attn,
-                "flash_attention_bwd/simt": n_attn, "ssd_scan": L,
+                "flash_attention_bwd/wgmma": n_attn,
+                "flash_attention_bwd/simt": 0, "ssd_scan": L,
                 "ssd_scan/wgmma": L, "ssd_scan/simt": 0, "ssd_scan_bwd": L,
-                "ssd_scan_bwd/simt": L}
+                "ssd_scan_bwd/wgmma": L, "ssd_scan_bwd/simt": 0}
     kmods = (fkernel, skernel)
 
     # (c) the CLI's main, counters read after every step

@@ -237,31 +237,9 @@ struct Geo {
   static constexpr int kBoxBytes = kRows * kRowBytes;   // one TMA box
   static constexpr int kBoxes = DH * 2 / kRowBytes;     // boxes a tile
   static constexpr int kTileBytes = kRows * DH * 2;
-  static constexpr uint32_t kLayout = hopper::layout_of(kRowBytes);
   // q, two stages of k, two of v, and three mbarriers
   static constexpr size_t kSmem = 1024 + 5 * (size_t)kTileBytes + 3 * 8;
 };
-
-// K-major tile (q or k: rows of dh): the 16 columns of depth step t
-template <int DH>
-__device__ __forceinline__ uint64_t kmajor_desc(const unsigned char* tile,
-                                                int t) {
-  using G = Geo<DH>;
-  const int byte = t * 32;
-  return hopper::make_desc(
-      tile + (byte / G::kRowBytes) * G::kBoxBytes + byte % G::kRowBytes, 0,
-      8 * G::kRowBytes, G::kLayout);
-}
-
-// MN-major tile (v: dh contiguous): the 16 keys of step t; the next
-// min(dh, 64) columns one box further on
-template <int DH>
-__device__ __forceinline__ uint64_t mnmajor_desc(const unsigned char* tile,
-                                                 int t) {
-  using G = Geo<DH>;
-  return hopper::make_desc(tile + t * 16 * G::kRowBytes, G::kBoxBytes,
-                           8 * G::kRowBytes, G::kLayout);
-}
 
 template <int DH>
 __device__ __forceinline__ void pv_k16(float (&o)[DH / 2],
@@ -355,8 +333,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int t = 0; t < DH / 16; ++t)
-      wgmma_m64n64k16_ss_t0(s, kmajor_desc<DH>(qs, t),
-                            kmajor_desc<DH>(kt_s, t));
+      wgmma_m64n64k16_ss_t0(s, kmajor_desc<G::kRowBytes>(qs, t),
+                            kmajor_desc<G::kRowBytes>(kt_s, t));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -417,7 +395,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int t = 0; t < 4; ++t)
-      pv_k16<DH>(o, a[t], mnmajor_desc<DH>(vt_s, t));
+      pv_k16<DH>(o, a[t], mnmajor_desc<G::kRowBytes>(vt_s, t));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);

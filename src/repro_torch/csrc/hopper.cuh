@@ -131,6 +131,42 @@ __device__ __forceinline__ uint64_t make_desc(const void* smem,
          ((uint64_t)layout << 62);
 }
 
+// A bf16 tile as the kernels' TMA maps load it: boxes of 64 rows whose
+// rows are RowBytes (32, 64 or 128) wide, a wider tile being that many
+// boxes one after the other.  kmajor_desc names the tile read K-major
+// (each row holds values along the depth): the 16 columns of depth step
+// k.  mnmajor_desc names it read MN-major (the rows are the depth): the
+// 16 rows of step k, the next RowBytes / 2 columns one box further on.
+template <int RowBytes>
+__device__ __forceinline__ uint64_t kmajor_desc(const unsigned char* tile,
+                                                int k) {
+  const int byte = k * 32;
+  return make_desc(tile + (byte / RowBytes) * (64 * RowBytes) +
+                       byte % RowBytes,
+                   0, 8 * RowBytes, layout_of(RowBytes));
+}
+template <int RowBytes>
+__device__ __forceinline__ uint64_t mnmajor_desc(const unsigned char* tile,
+                                                 int k) {
+  return make_desc(tile + k * 16 * RowBytes, 64 * RowBytes, 8 * RowBytes,
+                   layout_of(RowBytes));
+}
+
+// byte offset of the 2-byte value at (row, col) of such a tile with
+// 128-byte rows (64 values a box row); a float32 box holds (row, col / 2)
+// there
+__device__ __forceinline__ int swz(int row, int col) {
+  return (col >> 6) * (64 * 128) + row * 128 +
+         ((((col & 63) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
+}
+
+// 2^x (ex2.approx, flushing subnormal results to zero)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -307,6 +343,74 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_t1(float (&d)[64], const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D(64 x 64, f32) += A(64 x 16, smem desc) * B(16 x 64, smem desc), A
+// MN-major when TA = 1 (else K-major), B MN-major when TB = 1
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// D(64 x 128, f32) += A(64 x 16, smem desc) * B(16 x 128, smem desc), the
+// transposes as above
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// a float32 pair as two bf16 pairs: hi = bf16(v), lo = bf16(v - hi), so
+// hi + lo carries 16 of the value's 24 significant bits
+__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(v0 - __low2float(h), v1 - __high2float(h));
+}
+
+// the m64n64 accumulator tile d as wgmma A fragments of its four k16
+// column blocks (columns 16t..16t+15 are the accumulator's blocks 2t and
+// 2t + 1), split into bf16 hi and lo parts
+__device__ __forceinline__ void split_frags(const float (&d)[32],
+                                            uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      split_bf16(d[8 * t + 2 * u], d[8 * t + 2 * u + 1], hi[t][u], lo[t][u]);
+}
+
 
 // ---- host: TMA tensor maps ------------------------------------------------
 
@@ -363,6 +467,14 @@ inline bool encode_map(CUtensorMap* map, const void* base,
   const EncodeTiledFn fn = encode_tiled();
   const int rank = (int)geometry[0];
   if (fn == nullptr || rank < 2 || rank > 3) return false;
+  // The encode is a driver call and needs a current context, which the
+  // runtime makes current in a thread only at its first call there that
+  // needs one: a thread whose first CUDA work is this launch (autograd's
+  // backward thread, when a kernel's backward is its first node) has
+  // none.  Setting the current device (CUDA 12) makes it current.
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return false;
   cuuint64_t dims[3], strides[2];
   cuuint32_t box[3], ones[3] = {1, 1, 1};
   for (int i = 0; i < 3; ++i) {

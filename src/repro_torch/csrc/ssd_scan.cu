@@ -225,7 +225,6 @@ constexpr int kHeads = 2;                // heads a block, one warpgroup each
 constexpr int kThreads = 128 * kHeads;
 constexpr int kRowBytes = 128;           // 64 bf16 values: the swizzle width
 constexpr int kBox = kT * kRowBytes;     // one TMA box, 64 rows (8 KB)
-constexpr uint32_t kLayout = hopper::layout_of(kRowBytes);
 
 template <int N>
 struct Geo {
@@ -243,36 +242,6 @@ struct Geo {
   static_assert(kSmem <= kMaxSmem, "ssd wgmma tiles exceed shared memory");
   static_assert(kHeads * kFinal <= 2 * kStage, "final states exceed the ring");
 };
-
-// K-major tile (rows of n values: C, B as S's B operand, the state): the
-// 16 columns of depth step k
-__device__ __forceinline__ uint64_t kmajor_desc(const unsigned char* tile,
-                                                int k) {
-  const int byte = k * 32;
-  return hopper::make_desc(tile + (byte / kRowBytes) * kBox + byte % kRowBytes,
-                           0, 8 * kRowBytes, kLayout);
-}
-
-// MN-major tile (steps as rows, x or B read along their columns): the 16
-// steps of depth step k; the next 64 columns one box further on
-__device__ __forceinline__ uint64_t mnmajor_desc(const unsigned char* tile,
-                                                 int k) {
-  return hopper::make_desc(tile + k * 16 * kRowBytes, kBox, 8 * kRowBytes,
-                           kLayout);
-}
-
-// byte offset of the 2-byte value at (row, col) of a swizzled box whose
-// rows hold 64 of them; a float32 box holds (row, col / 2) there
-__device__ __forceinline__ int swz(int row, int col) {
-  return row * kRowBytes + (((col >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
-}
-
-// 2^x (ex2.approx, flushing subnormal results to zero)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <int N>
 __device__ __forceinline__ void state_k16(float (&d)[N / 2],
@@ -400,7 +369,8 @@ ssd_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < N / 16; ++k)
-        wgmma_m64n64k16_ss_t0(sc, kmajor_desc(cs, k), kmajor_desc(bs, k));
+        wgmma_m64n64k16_ss_t0(sc, kmajor_desc<kRowBytes>(cs, k),
+                              kmajor_desc<kRowBytes>(bs, k));
       wgmma_commit();
       named_barrier(1 + wg, 128);        // L, dt and the state are written
 
@@ -481,13 +451,14 @@ ssd_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        wgmma_m64n64k16_rs_t1(yo, pa[k], mnmajor_desc(xs, k));
+        wgmma_m64n64k16_rs_t1(yo, pa[k], mnmajor_desc<kRowBytes>(xs, k));
 #pragma unroll
       for (int k = 0; k < N / 16; ++k)
-        wgmma_m64n64k16_ss_t0(yi, kmajor_desc(cs, k), kmajor_desc(st_s, k));
+        wgmma_m64n64k16_ss_t0(yi, kmajor_desc<kRowBytes>(cs, k),
+                              kmajor_desc<kRowBytes>(st_s, k));
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        state_k16<N>(state, xa[k], mnmajor_desc(bs, k));
+        state_k16<N>(state, xa[k], mnmajor_desc<kRowBytes>(bs, k));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(yo);

@@ -9,14 +9,17 @@ alone: ``wgmma`` (bf16 through TMA and wgmma) at head dims 16, 32, 64 and
 otherwise.  ``tma_maps`` computes the wgmma variant's tensor maps.
 
 ``launch`` optionally writes each row's log-sum-exp for the backward;
-``launch_backward`` runs the backward's three passes (one variant,
-``simt``: float32 products on the CUDA cores).
+``launch_backward`` runs the backward's three passes in the variant that
+``choose_variant_backward`` picks the same way: ``wgmma`` (bf16 through
+TMA and wgmma, the forward's head dims and tensor maps) or ``simt``
+(float32 products on the CUDA cores, the first design).
 
 ``COUNTS["flash_attention"]`` and the variant's
 ``COUNTS["flash_attention/<variant>"]`` are bumped only where a kernel is
 launched, ``COUNTS["flash_attention_bwd"]`` and
-``COUNTS["flash_attention_bwd/simt"]`` where the backward is, so a run
-can show that its path went through the kernels, and through which ones.
+``COUNTS["flash_attention_bwd/<variant>"]`` where the backward is, so a
+run can show that its path went through the kernels, and through which
+ones.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from repro_torch.kernels.tma import BF16_BYTES, TmaMap, as_ctypes
 SOURCE = "flash_attention.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
 VARIANTS = ("wgmma", "simt")
-BWD_VARIANTS = ("simt",)
+BWD_VARIANTS = ("wgmma", "simt")
 COUNTS: Dict[str, int] = {"flash_attention": 0,
                           **{f"flash_attention/{v}": 0 for v in VARIANTS},
                           "flash_attention_bwd": 0,
@@ -49,9 +52,9 @@ _WGMMA_CODE = 2
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + \
     [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 3
 # q, k, v, out, dout, lse, delta, dq, dk, dv, B, H, Hkv, S, dh, causal,
-# window, scale, dtype, stream
+# window, scale, variant, q map, k/v map, stream
 _BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + \
-    [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 3
 
 
 def reset_counts() -> None:
@@ -69,6 +72,25 @@ def choose_variant(q: torch.Tensor, k: torch.Tensor,
             and v.data_ptr() % 16 == 0):
         return "wgmma"
     return "simt"
+
+
+def choose_variant_backward(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, dout: torch.Tensor) -> str:
+    """The backward kernel for contiguous q / dout (B, H, S, dh) and k/v
+    (B, Hkv, S, dh), from dtype, head dim and alignment alone: wgmma
+    where the forward takes it (bf16, a head dim in WGMMA_HEAD_DIMS) and
+    dout's pointer is 16-byte aligned too (TMA loads it with q's map)."""
+    if choose_variant(q, k, v) == "wgmma" and dout.data_ptr() % 16 == 0:
+        return "wgmma"
+    return "simt"
+
+
+def bwd_smem_bytes(dh: int) -> int:
+    """Shared memory of each wgmma backward block (csrc
+    flash_attention_bwd.cu ``wg::Geo``): 1024 bytes of alignment slack,
+    the two tiles the block holds, a ring of two stages of two tiles (64
+    rows of dh bf16 each), three mbarriers."""
+    return 1024 + 6 * TILE * dh * BF16_BYTES + 3 * 8
 
 
 @functools.lru_cache(maxsize=64)
@@ -176,13 +198,16 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
-                    causal: bool, window: int
+                    causal: bool, window: int, variant: Optional[str] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernel (csrc/flash_attention_bwd.cu) on contiguous
     CUDA tensors: q, k, v as for ``launch``, ``out`` the forward's output
     and ``dout`` its gradient (q's shape and dtype), ``lse`` the
-    forward's (B, H, S) float32 log-sum-exp.  Returns (dq, dk, dv) in the
-    inputs' dtype.  Shapes, types and contiguity are checked first, the
+    forward's (B, H, S) float32 log-sum-exp.  ``variant`` defaults to
+    ``choose_variant_backward``'s; ``simt`` may be asked for at any input
+    (to time and check the first design beside the second), wgmma only
+    where it is the choice.  Returns (dq, dk, dv) in the inputs' dtype.
+    Shapes, types, contiguity and the variant are checked first, the
     device last."""
     what = "flash_attention backward kernel"
     _check_qkv(what, q, k, v, window)
@@ -192,6 +217,11 @@ def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f", expected a contiguous {tuple(q.shape)} "
                              f"{q.dtype}")
     _check_lse(what, lse, q)
+    chosen = choose_variant_backward(q, k, v, dout)
+    variant = chosen if variant is None else variant
+    if variant not in (chosen, "simt"):
+        raise ValueError(f"{what}: variant {variant!r} does not take these "
+                         f"inputs (choice: {chosen!r})")
     dev = _check_device(what, dict(q=q, k=k, v=v, out=out, dout=dout,
                                    lse=lse))
     B, H, S, dh = q.shape
@@ -200,15 +230,20 @@ def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    if variant == "wgmma":
+        code = _WGMMA_CODE
+        maps = [as_ctypes(m) for m in tma_maps(B, H, k.shape[1], S, dh)]
+    else:
+        code, maps = _DTYPE_CODES[q.dtype], (None, None)
     rc = build.bind(BWD_SOURCE, "flash_attention_bwd_launch", _BWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, H, k.shape[1], S, dh, int(causal),
-        int(window), 1.0 / math.sqrt(dh), _DTYPE_CODES[q.dtype],
+        int(window), 1.0 / math.sqrt(dh), code, *maps,
         raw_stream(dev.index))
     if rc != 0:
-        raise RuntimeError(f"flash_attention backward kernel launch failed: "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"flash_attention backward kernel ({variant}) "
+                           f"launch failed: cudaError {rc}")
     COUNTS["flash_attention_bwd"] += 1
-    COUNTS["flash_attention_bwd/simt"] += 1
+    COUNTS[f"flash_attention_bwd/{variant}"] += 1
     return dq, dk, dv

@@ -8,14 +8,17 @@ and states of 64 or 128, ``simt`` (float32 products on the CUDA cores,
 the first design) otherwise.  ``tma_maps`` computes the wgmma variant's
 tensor maps.
 
-``launch_backward`` runs the backward's passes (one variant, ``simt``:
-float32 products on the CUDA cores, in tiles of ``bwd_tile`` steps, which
-the CUDA side picks from its own shared-memory layout).
+``launch_backward`` runs the backward's passes in the variant that
+``choose_variant_backward`` picks the same way: ``wgmma`` (bf16 through
+TMA and wgmma at the forward's head dim and states, chunks up to
+``BWD_WGMMA_MAX_CHUNK``) or ``simt`` (float32 products on the CUDA cores,
+the first design, in tiles of ``bwd_tile`` steps, which the CUDA side
+picks from its own shared-memory layout).
 
 ``COUNTS["ssd_scan"]`` and the variant's ``COUNTS["ssd_scan/<variant>"]``
 are bumped only where a kernel is launched, ``COUNTS["ssd_scan_bwd"]`` and
-``COUNTS["ssd_scan_bwd/simt"]`` where the backward is, so a run can show
-that its path went through the kernels, and through which ones.
+``COUNTS["ssd_scan_bwd/<variant>"]`` where the backward is, so a run can
+show that its path went through the kernels, and through which ones.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from repro_torch.kernels.tma import BF16_BYTES, TmaMap, as_ctypes
 SOURCE = "ssd_scan.cu"
 BWD_SOURCE = "ssd_scan_bwd.cu"
 VARIANTS = ("wgmma", "simt")
-BWD_VARIANTS = ("simt",)
+BWD_VARIANTS = ("wgmma", "simt")
 COUNTS: Dict[str, int] = {"ssd_scan": 0,
                           **{f"ssd_scan/{v}": 0 for v in VARIANTS},
                           "ssd_scan_bwd": 0,
@@ -54,10 +57,13 @@ _WGMMA_CODE = 2
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
     [ctypes.c_void_p] * 4
 # x, dt, A, B, C, dy, dfs, dx, ddt, dA, dB, dC, six scratch buffers, b, S,
-# h, p, n, chunk, dtype, stream
+# h, p, n, chunk, variant, x/dy map, B/C map, stream
 _BWD_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + \
-    [ctypes.c_void_p]
+    [ctypes.c_void_p] * 3
 BWD_MAX_DIM = 128           # head dim and state of the backward
+# the backward's wgmma variant (csrc/ssd_scan_bwd.cu, namespace wg) keeps
+# L, dt and four per-step sums of a chunk in shared memory
+BWD_WGMMA_MAX_CHUNK = 1024
 
 
 def reset_counts() -> None:
@@ -82,6 +88,36 @@ def wgmma_smem_bytes(n: int) -> int:
     stage = 2 * bc + HEADS_PER_BLOCK * box
     return 1024 + 2 * stage + HEADS_PER_BLOCK * (bc + box) + \
         HEADS_PER_BLOCK * 2 * TILE * 4 + 2 * 8
+
+
+def bwd_wgmma_smem_bytes(n: int, chunk: int) -> Tuple[int, int]:
+    """Shared memory of the wgmma backward's two blocks at state n and
+    chunk q (csrc ``wg::Geo`` smem1, smem3): 1024 bytes of alignment slack
+    each; pass 1 two ring stages of x, dy, B and C, L and dt; pass 3 the s
+    tile (x, B), two stages of (C, dy), G and h as bf16 hi and lo parts,
+    (W o DD)^T as hi and lo, L, dt, two halves of dL, x.d(dtx) and Q (q
+    floats each), four warps' 64 column sums and 8 floats; three
+    mbarriers each."""
+    box = TILE * SWIZZLE
+    bc = n // 64 * box
+    states = 1024 + 2 * (2 * box + 2 * bc) + 2 * chunk * 4 + 3 * 8
+    fixed = (box + bc) + 2 * (bc + box) + 4 * bc + 2 * box
+    chunk_ = 1024 + fixed + (6 * chunk + 4 * 64 + 8) * 4 + 3 * 8
+    return states, chunk_
+
+
+def choose_variant_backward(x: torch.Tensor, B: torch.Tensor,
+                            C: torch.Tensor, dy: torch.Tensor,
+                            chunk: int) -> str:
+    """The backward kernel for contiguous x / dy (b, s, h, p) and B/C (b,
+    s, n), from dtype, shape and alignment alone: wgmma where the forward
+    takes it (bf16, p = 64, n in WGMMA_STATES, 16-byte aligned x, B and
+    C), dy's pointer aligned too (TMA loads it with x's map) and the chunk
+    at most BWD_WGMMA_MAX_CHUNK."""
+    if (choose_variant(x, B, C) == "wgmma" and dy.data_ptr() % 16 == 0
+            and chunk <= BWD_WGMMA_MAX_CHUNK):
+        return "wgmma"
+    return "simt"
 
 
 def bwd_tile(q: int, p: int, n: int) -> int:
@@ -218,14 +254,18 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 def launch_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                     B: torch.Tensor, C: torch.Tensor, chunk: int,
-                    dy: torch.Tensor, dfinal: Optional[torch.Tensor] = None
+                    dy: torch.Tensor, dfinal: Optional[torch.Tensor] = None,
+                    variant: Optional[str] = None
                     ) -> Tuple[torch.Tensor, ...]:
     """The backward kernel (csrc/ssd_scan_bwd.cu) of ``launch(x, dt, A,
     B, C, chunk)`` on contiguous CUDA tensors of ``launch``'s types, for
     ``dy`` (x's shape and dtype) and ``dfinal`` (None: zero, or a (b, h,
-    p, n) float32 gradient of the final state).  Returns (dx, ddt, dA, dB,
-    dC): dx, dB and dC in x's dtype, ddt and dA float32.  p and n at most
-    BWD_MAX_DIM.  Shapes, types and contiguity are checked first, the
+    p, n) float32 gradient of the final state).  ``variant`` defaults to
+    ``choose_variant_backward``'s; ``simt`` may be asked for at any input
+    (to time and check the first design beside the second), wgmma only
+    where it is the choice.  Returns (dx, ddt, dA, dB, dC): dx, dB and dC
+    in x's dtype, ddt and dA float32.  p and n at most BWD_MAX_DIM.
+    Shapes, types, contiguity and the variant are checked first, the
     device last."""
     what = "ssd_scan backward kernel"
     more = {"dy": dy} if dfinal is None else {"dy": dy, "dfinal": dfinal}
@@ -245,6 +285,11 @@ def launch_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"{BWD_MAX_DIM}]")
     if b > _MAX_GRID_Y or h > _MAX_GRID_Y:
         raise ValueError(f"{what}: grid (., {h}, {b}) over {_MAX_GRID_Y}")
+    chosen = choose_variant_backward(x, B, C, dy, chunk)
+    variant = chosen if variant is None else variant
+    if variant not in (chosen, "simt"):
+        raise ValueError(f"{what}: variant {variant!r} does not take these "
+                         f"inputs (choice: {chosen!r})")
     dev = _check_device(what, {"x": x, "dt": dt, "A": A, "B": B, "C": C,
                                **more})
     dx, dB, dC = (torch.empty_like(t) for t in (x, B, C))
@@ -258,18 +303,25 @@ def launch_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     st_u = torch.empty_like(st_s)
     lend, dap = (torch.empty((b, nc, h), **f32) for _ in range(2))
     dbp, dcp = (torch.empty((b, s, h, n), **f32) for _ in range(2))
+    if variant == "wgmma":
+        code = _WGMMA_CODE
+        maps = [as_ctypes(m) for m in tma_maps(b, s, h, n)[:2]]
+    else:
+        code, maps = _DTYPE_CODES[x.dtype], (None, None)
     rc = build.bind(BWD_SOURCE, "ssd_scan_bwd_launch", _BWD_ARGTYPES)(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), dy.data_ptr(),
         None if dfinal is None else dfinal.data_ptr(), dx.data_ptr(),
         ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
         st_s.data_ptr(), st_u.data_ptr(), lend.data_ptr(), dbp.data_ptr(),
-        dcp.data_ptr(), dap.data_ptr(), b, s, h, p, n, chunk,
-        _DTYPE_CODES[x.dtype], raw_stream(dev.index))
+        dcp.data_ptr(), dap.data_ptr(), b, s, h, p, n, chunk, code, *maps,
+        raw_stream(dev.index))
     if rc != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {rc} (chunk "
-                           f"{chunk}, head dim {p}, state {n}: tile "
-                           f"{bwd_tile(chunk, p, n)}, 0 where none fits)")
+        tile = "" if variant == "wgmma" else \
+            f": tile {bwd_tile(chunk, p, n)}, 0 where none fits"
+        raise RuntimeError(f"{what} ({variant}) launch failed: cudaError "
+                           f"{rc} (chunk {chunk}, head dim {p}, state {n}"
+                           f"{tile})")
     COUNTS["ssd_scan_bwd"] += 1
-    COUNTS["ssd_scan_bwd/simt"] += 1
+    COUNTS[f"ssd_scan_bwd/{variant}"] += 1
     return dx, ddt, dA, dB, dC

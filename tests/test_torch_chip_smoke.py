@@ -547,6 +547,7 @@ def test_backward_bounds_and_the_lm_train_helpers():
         2 * 64 * 4
     assert by == "bytes" and ms == nbytes / cs.HBM_BYTES_PER_S * 1e3
     assert cs.no_bwd("flash_attention") == {"flash_attention_bwd": 0,
+                                            "flash_attention_bwd/wgmma": 0,
                                             "flash_attention_bwd/simt": 0}
     gaps = cs.grad_gaps({"a": torch.ones(4), "b": torch.zeros(2)},
                         {"a": 2 * torch.ones(4), "b": torch.ones(2)})
