@@ -157,7 +157,21 @@ package).  Phases, each of which fails the run on any error:
    and peak memory; (d) a repeated step bitwise; (e) a 7-layer model's
    loss and gradients on the card against the CPU port within
    LM_LOSS_RTOL / LM_GRAD_RTOL, another batch's gradients outside;
-16. a ``kernels`` JSON line, the card line again, and the result line.
+16. the encoder-decoder (``phase_whisper``): whisper-base at its
+   published widths and depth (6 + 6 layers, d_model 512, 8 heads of 64,
+   vocab 51,865, bf16): (a) the ``serve`` CLI twice (batch 4, 1,500
+   frames, 8 prompt tokens, 32 new), tokens bitwise, 6 non-causal + 6
+   causal flash launches (all wgmma) a prefill and none in decode; (b)
+   prefill and decode steps against ``decode_train`` at decoder prompts
+   of 8, 448 and 460 tokens within LM_BF16_RTOL, a zero cache outside;
+   (c) flash on the prefill's own encoder (non-causal, S 1,500) and
+   decoder inputs against the plain version, timed beside SDPA and the
+   bound; (d) the flash backward at the training step's encoder and
+   decoder shapes, both variants, with planted faults; (e) ``launch/
+   train.py``'s ``main`` for 20 steps of 8 x 1,500 frames and 448 tokens,
+   12 + 12 flash launches a step (backward all wgmma), the loss falling,
+   a repeated step bitwise; (f) 2 + 2 layers against the CPU port;
+17. a ``kernels`` JSON line, the card line again, and the result line.
 
 Exits nonzero, printing no result line, without a CUDA device or outside
 a checkout.
@@ -449,14 +463,17 @@ def kernels_line(records, launches, by_path=None):
     variants also carries its
     launches per variant (``launches`` keys ``<name>/<variant>``); flash
     attention its numbers at head dim 128 as well, flash and the SSD scan
-    their numbers at the LM prefill's shapes (``lm_prefill``), the SSD
+    their numbers at the LM prefill's shapes (``lm_prefill``), flash and
+    its backward at whisper's encoder (non-causal) and decoder shapes
+    (``whisper_encoder``, ``whisper_decoder``), the SSD
     scan the simt variant's time at the path's shape, the two DDPM
     entries (whose main numbers are the keyed variants') the composed
     step they replace and the given-noise variant's numbers, and the two
     backward kernels their shape and device events a launch."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    extra = ("card_ms", "simt_ms", "head_dim_128", "lm_prefill", "shapes",
+    extra = ("card_ms", "simt_ms", "head_dim_128", "lm_prefill",
+             "whisper_encoder", "whisper_decoder", "shapes",
              "op_ms", "composed_ms", "composed_card_ms", "composed_events",
              "keyed_card_ms", "keyed_events", "given", "shape", "chunk",
              "card_events", "row_gap", "row_limit", "faults",
@@ -2562,8 +2579,25 @@ BWD_FP32_ROW = 1e-4
 ROW_FLOOR = 0.1
 FAULT = 0.02
 LSE_ATOL = 1e-3
+# the encoder-decoder: whisper-base at its published widths and depth,
+# bf16, threefry seed 0.  Serving: batch WHISPER_BATCH, WHISPER_FRAMES
+# frames (its 30-second encoder context), the decoder prompt's 8 tokens,
+# WHISPER_NEW new; prefill + WHISPER_DECODE teacher-forced decode steps
+# against decode_train at each of WHISPER_PROMPTS decoder prompts (the
+# self cache of max_decoder_len 448 zero-padded, full, and cut to the
+# last 448 positions).  Training: WHISPER_TRAIN_BATCH x 1,500 frames
+# (train_4k's 4,096 cut to whisper's 1,500) and 448 tokens, the flash
+# backward at its encoder (non-causal) and decoder (causal) shapes;
+# 2 + 2 layers against the CPU port at WHISPER_GRAD_SEQ
+WHISPER_ARCH = "whisper-base"
+WHISPER_BATCH, WHISPER_FRAMES, WHISPER_NEW = 4, 1500, 32
+WHISPER_PROMPTS, WHISPER_DECODE = (8, 448, 460), 4
+WHISPER_TRAIN_STEPS, WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 20, 8, 1500
+WHISPER_FLASH_BWD = (((8, 8, 8, 1500, 64), False),
+                     ((8, 8, 8, 448, 64), True))
+WHISPER_CPU_LAYERS, WHISPER_GRAD_SEQ = 2, 333
 PATHS = ("serve", "train", "train_runtime", "eval", "dit", "moe",
-         "lm_serve", "lm_train")
+         "lm_serve", "lm_train", "whisper_serve", "whisper_train")
 
 
 def eval_scores(trained, data, key, n: int = EVAL_N) -> dict:
@@ -3136,7 +3170,7 @@ def bwd_path_checks(what, grads, refs, faults_of, tol, launch, launch_one,
 
 
 def flash_bwd_case(rn, shape, causal, window, dtype, path=False,
-                   variant=None, inputs=None):
+                   variant=None, inputs=None, tag="lm_train"):
     """One flash case: the forward with and without its log-sum-exp
     (the output's bits must not move; the lse within LSE_ATOL of the
     plain one), then the backward kernel (``variant``, default the
@@ -3146,8 +3180,8 @@ def flash_bwd_case(rn, shape, causal, window, dtype, path=False,
     and dv past the first K/V tile scaled, dq from the next head), two
     launches bitwise equal and the rows of batch 1 equal those of the
     full batch.  ``inputs`` (a case's returned inputs) skips the draw and
-    the forward.  Returns (the row gaps, the max abs error, the faults'
-    gaps, the inputs, the variant launched)."""
+    the forward; ``tag`` heads the log line.  Returns (the row gaps, the
+    max abs error, the faults' gaps, the inputs, the variant launched)."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.flash_attention.ref import (
@@ -3194,7 +3228,7 @@ def flash_bwd_case(rn, shape, causal, window, dtype, path=False,
                 lse[:1].contiguous(), causal, window, variant=variant),
             (0, 1, 2))
         old = lm_gap(scaled_past(2, 64)(grads[2].float()), refs[2])
-    log(f"lm_train/flash_bwd {shape} causal {causal} window {window} "
+    log(f"{tag}/flash_bwd {shape} causal {causal} window {window} "
         f"{str(dtype)[6:]} {ran}: {lse_note}dq/dk/dv row gaps "
         f"{', '.join(f'{e:.3g}' for e in gaps)} (limit {tol}), max abs "
         f"{abs_err:.3g}" +
@@ -3360,6 +3394,48 @@ def bwd_kernel_checks() -> dict:
     return records
 
 
+def repeat_step_bitwise(tag: str, step, params, opt, batch):
+    """One training step from the current parameters, AdamW state and
+    batch, then the same step again from a copy of them: the loss, the
+    grad norm, the parameters and both moments must be bitwise equal.
+    Leaves the state after one step; returns (loss, grad norm)."""
+    import torch
+    from repro_torch.optim.adamw import named
+
+    def snapshot():
+        return ({n: p.detach().clone() for n, p in named(params).items()},
+                {w: {n: t.clone() for n, t in opt[w].items()}
+                 for w in ("m", "v")}, opt["step"].clone())
+
+    def restore(snap):
+        with torch.no_grad():
+            for n, p in named(params).items():
+                p.copy_(snap[0][n])
+        for w in ("m", "v"):
+            for n, t in opt[w].items():
+                t.copy_(snap[1][w][n])
+        opt["step"] = snap[2].clone()
+
+    before = snapshot()
+    _, _, m = step(params, opt, batch)
+    la, ga, after = m["loss"].item(), m["grad_norm"].item(), snapshot()
+    restore(before)
+    del before
+    _, _, m = step(params, opt, batch)
+    lb, gb = m["loss"].item(), m["grad_norm"].item()
+    same = la == lb and ga == gb and int(opt["step"]) == int(after[2]) and \
+        all(torch.equal(p, after[0][n]) for n, p in named(params).items()) \
+        and all(torch.equal(t, after[1][w][n]) for w in ("m", "v")
+                for n, t in opt[w].items())
+    if not same:
+        raise AssertionError(f"{tag}: a repeated step differs (loss "
+                             f"{la} vs {lb}, grad norm {ga} vs {gb})")
+    log(f"{tag}/repeat: one step from the same parameters, AdamW state "
+        f"and batch, twice: loss {la!r}, grad norm {ga!r}, parameters and "
+        "both moments bitwise equal")
+    return la, ga
+
+
 def grad_gaps(a: dict, b: dict) -> dict:
     """{name: ‖a − b‖ / ‖b‖} per gradient leaf, in float32 on a's
     device."""
@@ -3398,7 +3474,7 @@ def phase_lm_train():
     from repro_torch.launch import shapes, train
     from repro_torch.models import api
     from repro_torch.models.hybrid import _grouping
-    from repro_torch.optim.adamw import AdamWConfig, init_opt_state, named
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
     from repro_torch.optim.schedules import cosine
 
     t_phase = time.perf_counter()
@@ -3487,37 +3563,8 @@ def phase_lm_train():
         f"{fmt_ms(records['flash_attention_bwd']['card_ms'])}, ssd bwd "
         f"{fmt_ms(records['ssd_scan_bwd']['card_ms'])}; card {card}")
 
-    def snapshot():
-        return ({n: p.detach().clone() for n, p in named(params).items()},
-                {w: {n: t.clone() for n, t in opt[w].items()}
-                 for w in ("m", "v")}, opt["step"].clone())
-
-    def restore(snap):
-        with torch.no_grad():
-            for n, p in named(params).items():
-                p.copy_(snap[0][n])
-        for w in ("m", "v"):
-            for n, t in opt[w].items():
-                t.copy_(snap[1][w][n])
-        opt["step"] = snap[2].clone()
-
-    before = snapshot()
-    _, _, m = step(params, opt, batch)
-    la, ga, after = m["loss"].item(), m["grad_norm"].item(), snapshot()
-    restore(before)
-    _, _, m = step(params, opt, batch)
-    lb, gb = m["loss"].item(), m["grad_norm"].item()
-    same = la == lb and ga == gb and int(opt["step"]) == int(after[2]) and \
-        all(torch.equal(p, after[0][n]) for n, p in named(params).items()) \
-        and all(torch.equal(t, after[1][w][n]) for w in ("m", "v")
-                for n, t in opt[w].items())
-    if not same:
-        raise AssertionError(f"lm_train: a repeated step differs (loss "
-                             f"{la} vs {lb}, grad norm {ga} vs {gb})")
-    log(f"lm_train/repeat: one step from the same parameters, AdamW state "
-        f"and batch, twice: loss {la!r}, grad norm {ga!r}, parameters and "
-        "both moments bitwise equal")
-    del params, opt, before, after, step
+    repeat_step_bitwise("lm_train", step, params, opt, batch)
+    del params, opt, step
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3559,6 +3606,418 @@ def phase_lm_train():
     return records, launches
 
 
+@contextlib.contextmanager
+def flash_tally(fkernel):
+    """While active, counts the flash forward and backward launches by
+    their causal flag in the yielded {"fwd": {causal: n}, "bwd": {...}}
+    (a tally beside the wrappers' own ``COUNTS``, which do not split by
+    mask)."""
+    tally = {"fwd": {True: 0, False: 0}, "bwd": {True: 0, False: 0}}
+    orig = fkernel.launch, fkernel.launch_backward
+
+    def fwd(q, k, v, causal, *a, **kw):
+        tally["fwd"][bool(causal)] += 1
+        return orig[0](q, k, v, causal, *a, **kw)
+
+    def bwd(q, k, v, out, dout, lse, causal, *a, **kw):
+        tally["bwd"][bool(causal)] += 1
+        return orig[1](q, k, v, out, dout, lse, causal, *a, **kw)
+
+    fkernel.launch, fkernel.launch_backward = fwd, bwd
+    try:
+        yield tally
+    finally:
+        fkernel.launch, fkernel.launch_backward = orig
+
+
+def check_tally(tag: str, tally: dict, fwd: int, bwd: int) -> None:
+    """``fwd`` non-causal and ``fwd`` causal forward launches, ``bwd`` of
+    each backward."""
+    want = {"fwd": {True: fwd, False: fwd}, "bwd": {True: bwd, False: bwd}}
+    if tally != want:
+        raise AssertionError(f"{tag}: flash launches by causal flag "
+                             f"{tally}, expected {want}")
+
+
+def phase_whisper():
+    """The encoder-decoder at full width: whisper-base (6 encoder and 6
+    decoder layers, d_model 512, 8 heads of 64, d_ff 2,048, vocab
+    51,865, max_decoder_len 448, bf16, threefry seed 0).  (a) the
+    ``serve`` CLI twice (batch 4, 1,500 frames, the decoder prompt's 8
+    tokens, 32 new, greedy), counters zeroed just before each: tokens
+    bitwise equal, 6 non-causal and 6 causal flash launches (all wgmma)
+    for the prefill and none in the 31 decode steps; (b) prefill and
+    WHISPER_DECODE teacher-forced decode steps against ``decode_train``
+    over the extended tokens, for S_dec in WHISPER_PROMPTS (8; 448 and
+    460, where the self cache holds the last 448 positions), every logit
+    gap within LM_BF16_RTOL, and a decode step from a zero cache outside
+    it; (c) flash on the first prefill's own encoder (non-causal, S
+    1,500: 23 K/V tiles and a 28-row tail) and decoder (causal, S 448)
+    inputs against the plain version, rows of batch 1 bitwise those of
+    batch 4, timed beside SDPA and the bound; (d) the flash backward at
+    the training step's encoder shape (8, 8, 1,500, 64) non-causal and
+    decoder shape (8, 8, 448, 64) causal, both variants, with planted
+    faults, two launches and batch rows bitwise, timed beside SDPA's
+    backward and the bound; (e) ``launch/train.py``'s ``main`` for
+    WHISPER_TRAIN_STEPS steps of WHISPER_TRAIN_BATCH x 1,500 frames and
+    448 tokens, the counters read after every step (12 + 12 flash
+    launches, 6 + 6 of each by causal flag, every backward wgmma), losses
+    finite and falling, the parameter count n_params() plus the 32,768
+    LayerNorm values, step wall, device time, events, idle share and
+    peak memory, a repeated step bitwise; (f) 2 + 2 layers on the card
+    against the CPU port (batch 1, WHISPER_GRAD_SEQ frames and tokens):
+    the loss within LM_LOSS_RTOL and every gradient leaf within
+    LM_GRAD_RTOL, another batch's gradients outside.  Returns (records at
+    the encoder's shape for flash and its backward, launches of (a)'s
+    first run, launches of (e))."""
+    import copy
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import prng
+    from repro_torch.device import deterministic_cuda
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_ref, flash_attention_bwd_ref)
+    from repro_torch.launch import serve, shapes, train
+    from repro_torch.models import api, encdec
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.optim.schedules import cosine
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    deterministic_cuda()
+    card = card_line()
+    cfg = get_arch(WHISPER_ARCH)
+    L = cfg.n_layers + cfg.n_encoder_layers
+    per_prefill = {"flash_attention": L, "flash_attention/wgmma": L,
+                   "flash_attention/simt": 0, **no_bwd("flash_attention")}
+
+    # (a) the CLI, twice
+    argv = ["--arch", WHISPER_ARCH, "--batch", str(WHISPER_BATCH),
+            "--prompt-len", str(WHISPER_FRAMES), "--new-tokens",
+            str(WHISPER_NEW), "--device", "cuda"]
+    runs = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        fkernel.reset_counts()                   # --- main path starts
+        t0 = time.perf_counter()
+        with flash_tally(fkernel) as tally:
+            gen, rep = serve.run(argv)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(fkernel.COUNTS)               # --- main path ends
+        check_lm_launches(f"whisper_serve CLI run {i + 1}", got,
+                          per_prefill, 1)
+        check_tally(f"whisper_serve CLI run {i + 1}", tally, L // 2, 0)
+        runs.append((gen, rep, got))
+        log(f"whisper_serve/cli run {i + 1}: {wall:.2f} s (init "
+            f"included); prefill {rep['prefill_ms']:.3f} ms, decode "
+            f"{rep['decode_ms_per_token']:.3f} ms a step, "
+            f"{rep['tok_per_s']:.1f} tok/s (synchronised host clock); "
+            f"launches {got}, by causal flag {tally['fwd']}")
+    (gen, _, launches), (gen2, _, _) = runs
+    if tuple(gen.shape) != (WHISPER_BATCH, WHISPER_NEW) or \
+            not torch.equal(gen, gen2):
+        raise AssertionError("whisper_serve: the CLI's two runs differ")
+    log(f"whisper_serve/cli: the two runs' {tuple(gen.shape)} tokens are "
+        f"bitwise equal; row 0 {gen[0, :8].tolist()}")
+
+    params = api.init_params(prng.PRNGKey(0), cfg, "cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    norms = 2 * cfg.d_model * (2 * cfg.n_encoder_layers + 3 * cfg.n_layers
+                               + 2)
+    if n_params != cfg.n_params() + norms:
+        raise AssertionError(f"whisper: {n_params} parameters, "
+                             f"n_params() {cfg.n_params()} + {norms}")
+    log(f"whisper/model: {cfg.name} {n_params} parameters ({cfg.dtype}) = "
+        f"n_params() {cfg.n_params()} + {norms} LayerNorm values")
+
+    # (b) prefill + decode against decode_train; (c) the kernels
+    key = prng.PRNGKey(9, device="cuda")
+    frames = prng.normal(key, (WHISPER_BATCH, WHISPER_FRAMES,
+                               cfg.d_model)).to(cfg.torch_dtype)
+    gaps, records = {}, {}
+    enc = encdec.encode(params, frames, cfg)
+    for S in WHISPER_PROMPTS:
+        tok = prng.randint(prng.fold_in(key, S),
+                           (WHISPER_BATCH, S + WHISPER_DECODE), 0,
+                           cfg.vocab_size).long()
+        batch = {"frames": frames, "tokens": tok[:, :S]}
+        fkernel.reset_counts()
+        with capture_calls({"flash": (fops, "flash_attention")},
+                           limit=L) as captured:
+            lg, cache = api.prefill_fn(params, batch, cfg)
+            torch.cuda.synchronize()
+        check_lm_launches(f"whisper prefill S_dec={S}", dict(fkernel.COUNTS),
+                          per_prefill, 1)
+        hid, _ = encdec.decode_train(params, tok, enc, cfg)
+        full = params.unembed(hid)
+        gaps[f"prefill S_dec={S}"] = lm_gap(lg, full[:, S - 1:S])
+        fkernel.reset_counts()
+        st = cache
+        for i in range(WHISPER_DECODE):
+            dec, st = api.decode_fn(params, tok[:, S + i:S + i + 1], st,
+                                    S + i, cfg)
+            gaps[f"decode S_dec={S} step {i + 1}"] = lm_gap(
+                dec, full[:, S + i:S + i + 1])
+        torch.cuda.synchronize()
+        check_lm_launches(f"whisper decode S_dec={S}", dict(fkernel.COUNTS),
+                          per_prefill, 0)
+        if not (torch.isfinite(lg).all() and torch.isfinite(dec).all()):
+            raise AssertionError(f"whisper S_dec={S}: logits not finite")
+        log(f"whisper/S_dec={S}: prefill logits vs decode_train "
+            f"{gaps[f'prefill S_dec={S}']:.4g}, decode steps " + ", ".join(
+                f"{gaps[f'decode S_dec={S} step {i + 1}']:.4g}"
+                for i in range(WHISPER_DECODE)) +
+            f" (max |a-b| / max(1, max |b|); max |logit| "
+            f"{full.float().abs().max().item():.3g})")
+        if S == WHISPER_PROMPTS[0]:
+            zero = api.init_decode_state(cfg, WHISPER_BATCH, WHISPER_FRAMES,
+                                         device="cuda")
+            forgot = lm_gap(api.decode_fn(params, tok[:, S:S + 1], zero, S,
+                                          cfg)[0], full[:, S:S + 1])
+            log(f"whisper/control: a decode step from a zero cache vs "
+                f"decode_train {forgot:.4g} (must exceed {LM_BF16_RTOL})")
+            if not forgot > LM_BF16_RTOL:
+                raise AssertionError("whisper: the logit check passed a "
+                                     "decode step that forgot the prompt")
+        if S == WHISPER_PROMPTS[1]:
+            calls = captured["flash"]
+            for part, (qkv, kw, out) in (("encoder", calls[0]),
+                                         ("decoder", calls[-1])):
+                q, k, v = qkv
+                causal = part == "decoder"
+                if kw != {"causal": causal, "window": 0}:
+                    raise AssertionError(f"whisper {part}: attention "
+                                         f"called with {kw}")
+                ref = attention_ref(q, k, v, causal, 0)
+                err = (out.float() - ref.float()).abs().max().item()
+                if not torch.allclose(out.float(), ref.float(), **TOL_BF16):
+                    raise AssertionError(f"whisper flash {part}: max abs "
+                                         f"{err:.3g}")
+                qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+                one = fkernel.launch(qc[:1], kc[:1], vc[:1], causal, 0)
+                if not torch.equal(one, out[:1]):
+                    raise AssertionError(f"whisper flash {part}: rows of "
+                                         f"batch 1 != those of batch "
+                                         f"{q.shape[0]}")
+                ms = time_ms(lambda: fkernel.launch(qc, kc, vc, causal, 0))
+                plain = time_ms(lambda: attention_ref(q, k, v, causal, 0),
+                                iters=20)
+                lib = time_ms(lambda: F.scaled_dot_product_attention(
+                    qc, kc, vc, is_causal=causal))
+                bnd, by = flash_bound(q, k, causal, 0)
+                records[part] = dict(
+                    shape=list(q.shape), causal=causal, max_abs_err=err,
+                    ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                    library_ms=lib)
+                log(f"kernel/flash_attention at whisper's {part} "
+                    f"{list(q.shape)} causal {causal}: max abs {err:.3g} "
+                    f"(TOL_BF16), rows bitwise; kernel {ms * 1e3:.2f} us "
+                    f"plain {plain * 1e3:.2f} us SDPA {lib * 1e3:.2f} us "
+                    f"bound {bnd * 1e3:.3f} us ({by})")
+        del captured, cache, st, full, hid
+    worst = max(gaps.values())
+    log(f"whisper/bf16 gaps: worst {worst:.4g} (limit {LM_BF16_RTOL})")
+    if not worst <= LM_BF16_RTOL:
+        raise AssertionError(f"whisper: a bf16 gap beyond {LM_BF16_RTOL}: "
+                             f"{gaps}")
+
+    # prefill and a decode step: wall (events) and device time
+    tok = prng.randint(key, (WHISPER_BATCH, 9), 0, cfg.vocab_size).long()
+    batch = {"frames": frames, "tokens": tok[:, :8]}
+    prefill = lambda: api.prefill_fn(params, batch, cfg)
+    pre_ms = time_ms(prefill, iters=5, warmup=1)
+    _, cache = prefill()
+    step = lambda: api.decode_fn(params, tok[:, 8:9], cache, 8, cfg)
+    dec_ms = time_ms(step, iters=20, warmup=2)
+    pre = device_ms("whisper_serve/prefill", prefill, n=2, top=8,
+                    shares=["flash_wgmma_kernel"], per="prefill")
+    dec = device_ms("whisper_serve/decode", step, n=5, top=6,
+                    per="decode step")
+    idle = lambda dev, wall: "not measured" if dev is None else \
+        f"{100 * (1 - dev / wall):.1f}%"
+    log(f"whisper_serve/prefill: B={WHISPER_BATCH} frames {WHISPER_FRAMES} "
+        f"S_dec 8 wall {pre_ms:.3f} ms (events), device "
+        f"{fmt_ms(pre['_ms'])} over {pre['_events']} events, idle "
+        f"{idle(pre['_ms'], pre_ms)}; flash "
+        f"{fmt_ms(pre['flash_wgmma_kernel'])} over "
+        f"{pre['flash_wgmma_kernel/events']} launches")
+    log(f"whisper_serve/decode: B={WHISPER_BATCH} a step {dec_ms:.3f} ms "
+        f"(events), {WHISPER_BATCH * 1e3 / dec_ms:.1f} tok/s, device "
+        f"{fmt_ms(dec['_ms'])} over {dec['_events']} events, idle "
+        f"{idle(dec['_ms'], dec_ms)}; card {card}")
+    del params, cache, enc, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the backward kernel at the training step's shapes
+    g = torch.Generator(device="cuda").manual_seed(22)
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    bf16 = torch.bfloat16
+    for part, (shape, causal) in (("encoder", WHISPER_FLASH_BWD[0]),
+                                  ("decoder", WHISPER_FLASH_BWD[1])):
+        gaps_w, err, faults, args, ran = flash_bwd_case(
+            rn, shape, causal, 0, bf16, path=True, tag="whisper_train")
+        if ran != "wgmma":
+            raise AssertionError(f"whisper flash bwd {part}: took {ran}")
+        sgaps, _, sfaults, _, _ = flash_bwd_case(
+            rn, shape, causal, 0, bf16, path=True, variant="simt",
+            inputs=args, tag="whisper_train")
+        q, k, v, out, dout, lse = args
+        r = dict(shape=list(q.shape), causal=causal, max_abs_err=err,
+                 row_gap=max(gaps_w), row_limit=BWD_BF16_ROW, faults=faults,
+                 simt_row_gap=max(sgaps), simt_faults=sfaults)
+        r["ms"] = time_ms(lambda: fkernel.launch_backward(*args, causal, 0),
+                          iters=20, warmup=2)
+        r["simt_ms"] = time_ms(lambda: fkernel.launch_backward(
+            *args, causal, 0, variant="simt"), iters=5, warmup=1)
+        r["plain_ms"] = time_ms(lambda: flash_attention_bwd_ref(
+            *args, causal, 0), iters=3, warmup=1)
+        with torch.enable_grad():
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+            r["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                o, (qg, kg, vg), dout, retain_graph=True), iters=20,
+                warmup=2)
+        r["bound_ms"], r["bound_by"] = flash_bwd_bound(q, k, causal, 0)
+        records[f"bwd_{part}"] = r
+        log(f"kernel/flash_attention_bwd at whisper's {part} {r['shape']} "
+            f"causal {causal}: wgmma {r['ms']:.4f} ms, simt "
+            f"{r['simt_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+            f"backward {r['library_ms']:.4f} ms "
+            f"({r['ms'] / r['library_ms']:.2f}x), bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}): {100 * r['bound_ms'] / r['ms']:.2f}% of "
+            f"the bound's rate; row gap {r['row_gap']:.3g} (simt "
+            f"{r['simt_row_gap']:.3g}), least fault "
+            f"{min(faults.values()):.3g}")
+        del args, q, k, v, out, dout, lse, o, qg, kg, vg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the train CLI's main, counters read after every step
+    per_step = {"flash_attention": L, "flash_attention/wgmma": L,
+                "flash_attention/simt": 0, "flash_attention_bwd": L,
+                "flash_attention_bwd/wgmma": L,
+                "flash_attention_bwd/simt": 0}
+    train_launches = dict.fromkeys(per_step, 0)
+    walls = []
+    tally = {}
+
+    def on_step(i, params, opt, metrics):
+        torch.cuda.synchronize()
+        got = dict(fkernel.COUNTS)
+        check_lm_launches(f"whisper_train step {i}", got, per_step, 1)
+        check_tally(f"whisper_train step {i}", tally["now"], L // 2, L // 2)
+        for k, v in got.items():
+            train_launches[k] += v
+        fkernel.reset_counts()
+        for d in tally["now"].values():
+            d.update({True: 0, False: 0})
+        now = time.perf_counter()
+        walls.append(now - clock[0])
+        clock[0] = now
+
+    argv = ["--arch", WHISPER_ARCH, "--steps", str(WHISPER_TRAIN_STEPS),
+            "--batch", str(WHISPER_TRAIN_BATCH), "--seq",
+            str(WHISPER_TRAIN_SEQ), "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    fkernel.reset_counts()                       # --- main path starts
+    clock = [time.perf_counter()]
+    t0 = clock[0]
+    with flash_tally(fkernel) as tally["now"]:
+        losses = train.main(argv, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0              # --- main path ends
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    log(f"whisper_train/cli: {' '.join(argv)}: {wall:.2f} s (init "
+        f"included); losses {[round(x, 4) for x in losses]}; first-10 mean "
+        f"{first:.4f}, last-10 mean {last:.4f}; step wall (host clock, "
+        f"synchronised) first {walls[0]:.3f} s (init included), median of "
+        f"the rest {sorted(walls[1:])[len(walls[1:]) // 2]:.4f} s; peak "
+        f"memory {peak:.2f} GB; launches {train_launches}")
+    if len(losses) != WHISPER_TRAIN_STEPS or not all(
+            math.isfinite(x) for x in losses) or not first > last:
+        raise AssertionError(f"whisper_train: losses not finite or not "
+                             f"falling: {losses}")
+
+    key0 = prng.PRNGKey(0, device="cuda")
+    params = api.init_params(key0, cfg, "cuda")
+    opt = init_opt_state(params)
+    step = shapes.make_train_step(cfg, AdamWConfig(
+        lr=3e-4, schedule=cosine(WHISPER_TRAIN_STEPS, warmup=1)))
+    batch = train.build_batch(prng.fold_in(key0, 0), cfg,
+                              WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: step(params, opt, batch), iters=3, warmup=1)
+    step_peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = device_ms("whisper_train/step", lambda: step(params, opt, batch),
+                     n=2, top=10, shares=["flash_wgmma_kernel", "flash_bwd"],
+                     per="step")
+    # the card time of a step's 12 launches (6 encoder, 6 decoder)
+    records["encoder"]["step_card_ms"] = prof["flash_wgmma_kernel"]
+    records["bwd_encoder"]["step_card_ms"] = prof["flash_bwd"]
+    records["bwd_encoder"]["step_card_events"] = prof["flash_bwd/events"]
+    idle_s = "not measured" if prof["_ms"] is None else \
+        f"{100 * (1 - prof['_ms'] / step_ms):.1f}%"
+    log(f"whisper_train/step: B={WHISPER_TRAIN_BATCH} frames "
+        f"{WHISPER_TRAIN_SEQ} S_dec {cfg.max_decoder_len} wall "
+        f"{step_ms:.3f} ms (events), device {fmt_ms(prof['_ms'])} over "
+        f"{prof['_events']} events, idle {idle_s}; peak memory "
+        f"{step_peak:.2f} GB; flash forward "
+        f"{fmt_ms(prof['flash_wgmma_kernel'])} and backward "
+        f"{fmt_ms(prof['flash_bwd'])} a step (12 launches each, the "
+        f"backward's {prof['flash_bwd/events']} events); card {card}")
+    repeat_step_bitwise("whisper_train", step, params, opt, batch)
+    del params, opt, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) the card against the CPU port: 2 + 2 layers, batch 1
+    small = dataclasses.replace(cfg, n_layers=WHISPER_CPU_LAYERS,
+                                n_encoder_layers=WHISPER_CPU_LAYERS)
+    m_card = api.init_params(prng.PRNGKey(0), small, "cuda")
+    m_cpu = copy.deepcopy(m_card).to("cpu")
+    b1 = train.build_batch(prng.fold_in(key0, 1), small, 1, WHISPER_GRAD_SEQ)
+    b2 = train.build_batch(prng.fold_in(key0, 2), small, 1, WHISPER_GRAD_SEQ)
+    t0 = time.perf_counter()
+    l_card, g_card = shapes.loss_and_grads(m_card, b1, small)
+    on_cpu = lambda b: {k: v.cpu() for k, v in b.items()}
+    l_cpu, g_cpu = shapes.loss_and_grads(m_cpu, on_cpu(b1), small)
+    _, g_other = shapes.loss_and_grads(m_cpu, on_cpu(b2), small)
+    cpu_s = time.perf_counter() - t0
+    loss_gap = abs(l_card.item() - l_cpu.item()) / abs(l_cpu.item())
+    ggaps = grad_gaps(g_card, g_cpu)
+    control = grad_gaps(g_card, g_other)
+    worst = max(ggaps, key=ggaps.get)
+    median = lambda d: sorted(d.values())[len(d) // 2]
+    log(f"whisper_train/card_vs_cpu ({WHISPER_CPU_LAYERS} + "
+        f"{WHISPER_CPU_LAYERS} layers, B=1, frames and S_dec "
+        f"{WHISPER_GRAD_SEQ}, {cpu_s:.1f} s): loss card {l_card.item():.6f} "
+        f"cpu {l_cpu.item():.6f} (rel {loss_gap:.3g}, limit "
+        f"{LM_LOSS_RTOL}); gradient leaves ‖card − cpu‖ / ‖cpu‖: median "
+        f"{median(ggaps):.4g}, worst {ggaps[worst]:.4g} ({worst}), limit "
+        f"{LM_GRAD_RTOL}; control (another batch's cpu gradients): median "
+        f"{median(control):.4g}, least {min(control.values()):.4g}")
+    if not (loss_gap <= LM_LOSS_RTOL and ggaps[worst] <= LM_GRAD_RTOL):
+        raise AssertionError(f"whisper_train: card vs cpu beyond the "
+                             f"limits: loss {loss_gap:.3g}, {worst} "
+                             f"{ggaps[worst]:.3g}")
+    if not median(control) > LM_GRAD_RTOL:
+        raise AssertionError("whisper_train: the gradient check passed "
+                             "another batch's gradients")
+    del m_card, m_cpu, g_card, g_cpu, g_other
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"whisper/phase_s: {time.perf_counter() - t_phase:.1f}; card {card}")
+    return records, launches, train_launches
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").is_file():
@@ -3594,6 +4053,8 @@ def main() -> int:
     moe_records, moe_launches = phase_moe()
     lm_records, lm_launches = phase_lm_serve()
     train_records, lm_train_launches = phase_lm_train()
+    whisper_records, whisper_launches, whisper_train_launches = \
+        phase_whisper()
     records["ddpm_step"]["card_ms"] = ddpm_card_ms
     records["ddpm_step_batched"]["card_ms"] = batched_card_ms
     records.update(dit_records)
@@ -3603,11 +4064,20 @@ def main() -> int:
     for name, rec in lm_records.items():
         records[name]["lm_prefill"] = rec
     records.update(train_records)
-    # launches of the eight main paths (each counted from zero just
-    # before it)
+    records["flash_attention"]["whisper_encoder"] = \
+        whisper_records["encoder"]
+    records["flash_attention"]["whisper_decoder"] = \
+        whisper_records["decoder"]
+    records["flash_attention_bwd"]["whisper_encoder"] = \
+        whisper_records["bwd_encoder"]
+    records["flash_attention_bwd"]["whisper_decoder"] = \
+        whisper_records["bwd_decoder"]
+    # launches of the ten main paths (each counted from zero just before
+    # it)
     by_path = dict(zip(PATHS, (launches, train_launches, runtime_launches,
                                eval_launches, dit_launches, moe_launches,
-                               lm_launches, lm_train_launches)))
+                               lm_launches, lm_train_launches,
+                               whisper_launches, whisper_train_launches)))
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in set().union(*by_path.values())}
     log(f"total_s: {time.perf_counter() - t_start:.1f}")

@@ -19,7 +19,7 @@ The children, in order:
   version) are listed.
 
 Each child records checksums of the step's inputs (the Zipf table's
-cumsum, step 0's tokens, the initial parameters) and of every module's
+cumsum, summed on the host as the draws sum it; step 0's tokens, the initial parameters) and of every module's
 output in the first forward, in call order (a global forward hook; the
 bit patterns summed as int64, all and every seventh), each step's loss
 and gradient norm (their float32 bits) and a checksum of the parameters
@@ -90,8 +90,7 @@ def child(mode: str, steps: int) -> dict:
     cfg = get_arch("zamba2-1.2b")
     key = prng.PRNGKey(0, device="cuda")
     inputs = dict(
-        zipf_cumsum=checksum(torch.cumsum(zipf_probs(cfg.vocab_size,
-                                                     device="cuda"), 0)),
+        zipf_cumsum=checksum(torch.cumsum(zipf_probs(cfg.vocab_size), 0)),
         tokens=checksum(train.build_batch(prng.fold_in(key, 0), cfg, 4,
                                           1024)["tokens"]),
         init_params=[sum(checksum(t)[j] for t in named(

@@ -7,7 +7,8 @@ JAX side — no JAX is imported here) and:
 * ``load_unet`` copies a ``core/unet.py`` parameter tree into a UNet
   module: HWIO conv kernels become OIHW, ``(in, out)`` dense weights
   become ``nn.Linear``'s ``(out, in)``, GroupNorm ``scale``/``bias``
-  become ``weight``/``bias``; ``None`` attention slots stay ``None``.
+  become ``weight``/``bias`` (a LayerNorm keeps JAX's ``scale`` and
+  ``bias``); ``None`` attention slots stay ``None``.
 * ``load_dit`` copies a ``core/dit.py`` parameter tree into a DiT
   module the same way, with its layer stacks unstacked; a bare array
   (``pos``, ``A_log``, an RMSNorm ``scale``, an MoE block's
@@ -18,8 +19,10 @@ JAX side — no JAX is imported here) and:
 * ``load_params`` also copies the evaluation nets (eval/: the FD
   proxy's feature-net tuple, the reconstructor's and the classifier's
   dicts), whose bare HWIO kernels become bias-free OIHW convs;
-  ``load_dit`` also copies a language model (models/api.init_params: the
-  DiT's stacks ``layers`` / ``mamba``, the embedding (V, D) as it is).
+  ``load_dit`` also copies a language model or the encoder-decoder
+  (models/api.init_params: the DiT's stacks ``layers`` / ``mamba``, the
+  encoder-decoder's ``enc_layers`` / ``dec_layers``, the embedding (V,
+  D) as it is).
 * ``unstack`` splits params stacked on a leading client axis k (the
   JAX package's stacked-clients layout) into k per-client trees.
 * ``load_opt_state`` turns a JAX AdamW state (``{"m", "v", "step"}``)
@@ -121,7 +124,8 @@ def _walk(module, tree, name: str, leaf):
                 "b": leaf(module.bias, tree["b"], "as_is", name + ".b")}
     if isinstance(module, nn.Linear):
         return leaf(module.weight, tree, "dense", name)
-    if isinstance(tree, dict) and set(tree) == {"scale", "bias"}:
+    if isinstance(tree, dict) and set(tree) == {"scale", "bias"} and \
+            hasattr(module, "weight"):        # GroupNorm's torch names
         return {"scale": leaf(module.weight, tree["scale"], "as_is",
                               name + ".scale"),
                 "bias": leaf(module.bias, tree["bias"], "as_is",
@@ -140,7 +144,8 @@ def _walk(module, tree, name: str, leaf):
                     f"{type(module).__name__}")
 
 
-_STACKS = ("mamba", "layers")     # core/dit.py's stacked layer axes
+# the stacked layer axes of core/dit.py, the LMs and the encoder-decoder
+_STACKS = ("mamba", "layers", "enc_layers", "dec_layers")
 
 
 def _unstack_layers(params):
@@ -256,7 +261,7 @@ def load_dit(model: nn.Module, params) -> nn.Module:
     """Copy a JAX-layout DiT parameter tree (core/dit.init_dit, numpy
     leaves) into a ``core.dit.DiT`` in place, or a language model's
     (models/api.init_params) into its module.  The layer stacks
-    (``mamba``, ``layers``) carry a leading layer axis in JAX
+    (``_STACKS``) carry a leading layer axis in JAX
     (``stacked_init``); they are unstacked into the module's layer lists.
     Every parameter of the module must be covered."""
     return load_params(model, _unstack_layers(params))

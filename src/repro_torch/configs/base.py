@@ -6,7 +6,9 @@ field defaults, ``get_arch`` with the same dashed aliases, ``reduced``
 with the same CPU-test overrides, and the input shapes (``ShapeConfig``,
 ``SHAPES``, ``get_shape``).  ``torch_dtype`` takes the place of
 ``jnp_dtype``.  Every ``configs/<id>.py`` of the JAX package has a copy
-here exporting the same ``CONFIG``.
+here exporting the same ``CONFIG``; ``all_archs`` lists them, and
+``n_params`` / ``n_active_params`` are the reference's analytic counts
+(norms excluded).
 """
 from __future__ import annotations
 
@@ -83,11 +85,66 @@ class ArchConfig:
         return self.ssm_d_inner // self.ssm_head_dim
 
     @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
     def supports_long_decode(self) -> bool:
         """True if a 500k-token decode is sub-quadratic / bounded-memory."""
         if self.family in ("ssm", "hybrid"):
             return True     # the hybrid's shared attention has a window
         return self.sliding_window > 0
+
+    @property
+    def has_decoder(self) -> bool:
+        return True  # all assigned archs are decoders or enc-dec
+
+    def n_params(self) -> int:
+        """Analytic parameter count (the roofline's MODEL_FLOPS): the
+        projections, MLPs or experts, embedding and unembedding, and for
+        the encoder-decoder the encoder's layers and the cross
+        attention; norms are not counted."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        dh, h, hkv = self.head_dim_, self.n_heads, self.n_kv_heads
+        attn = d * h * dh + 2 * d * hkv * dh + h * dh * d
+        if self.family in ("ssm", "hybrid"):
+            per_layer = _ssm_layer_params(self)
+        elif self.n_experts:
+            per_layer = attn + d * self.n_experts + self.n_experts * 3 * d * f
+        else:
+            mlp = 3 * d * f if self.mlp_type == "swiglu" else 2 * d * f
+            per_layer = attn + mlp
+        total = self.n_layers * per_layer + 2 * v * d
+        if self.family == "hybrid" and self.shared_attn_every:
+            mlp = 3 * d * f if self.mlp_type == "swiglu" else 2 * d * f
+            total += attn + mlp  # one shared block
+        if self.is_encoder_decoder:
+            mlp = 2 * d * f
+            total += self.n_encoder_layers * (attn + mlp)
+            total += self.n_layers * attn  # cross attention
+        return total
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: top_k experts instead of all)."""
+        if not self.n_experts:
+            return self.n_params()
+        d, f = self.d_model, self.d_ff
+        dh, h, hkv = self.head_dim_, self.n_heads, self.n_kv_heads
+        attn = d * h * dh + 2 * d * hkv * dh + h * dh * d
+        per_layer = attn + d * self.n_experts + self.top_k * 3 * d * f
+        return self.n_layers * per_layer + 2 * self.vocab_size * d
+
+
+def _ssm_layer_params(cfg: ArchConfig) -> int:
+    d = cfg.d_model
+    di = cfg.ssm_d_inner
+    n = cfg.ssm_state
+    h = cfg.ssm_n_heads
+    # in_proj -> (z, x, B, C, dt), conv, out_proj
+    in_proj = d * (2 * di + 2 * n + h)
+    conv = cfg.ssm_conv_kernel * (di + 2 * n)
+    out = di * d
+    return in_proj + conv + out + 2 * h  # + A, D per head
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +199,10 @@ def get_arch(name: str) -> ArchConfig:
     mod_name = _ALIASES.get(name, name).replace("-", "_").replace(".", "p")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
+
+
+def all_archs():
+    return [get_arch(a) for a in ARCH_IDS]
 
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:

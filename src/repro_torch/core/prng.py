@@ -230,17 +230,20 @@ def choice(key: torch.Tensor, n: int, shape: Sequence[int] = (),
     arange(n).  Without ``p``, ``randint(key, shape, 0, n)`` bit for bit.
     With ``p`` (n float32 weights), JAX's algorithm: cdf = cumsum(p), r =
     cdf[-1]·(1 − uniform(key, shape)), the first index whose cdf value
-    is not below r (``searchsorted``, left side).  The uniforms equal
-    JAX's bit for bit; a torch-computed ``p`` or cumsum may differ from
-    XLA's by an ulp, which moves an r lying that close to a bin's edge
-    into the neighbouring bin.  Returns int32."""
+    is not below r (``searchsorted``, left side).  The cumsum is taken on
+    the host (a CUDA cumsum may group its sums otherwise from call to
+    call) and moved to the key's device, so the card draws what the CPU
+    draws bit for bit.  The uniforms equal JAX's bit for bit; a
+    torch-computed ``p`` or cumsum may differ from XLA's by an ulp, which
+    moves an r lying that close to a bin's edge into the neighbouring
+    bin.  Returns int32."""
     if p is None:
         return randint(key, shape, 0, n)
-    p = torch.as_tensor(p, dtype=torch.float32).to(key.device)
+    p = torch.as_tensor(p, dtype=torch.float32).cpu()
     if p.shape != (n,):
         raise ValueError(f"choice: p has shape {tuple(p.shape)}, expected "
                          f"({n},)")
-    cdf = torch.cumsum(p, dim=0)
+    cdf = torch.cumsum(p, dim=0).to(key.device)
     r = cdf[-1] * (1 - uniform(key, shape))
     return torch.searchsorted(cdf, r).to(torch.int32)
 

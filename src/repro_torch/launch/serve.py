@@ -10,9 +10,12 @@ The port of the JAX package's ``launch/serve.py``, with its flags plus
 ``--device`` (CUDA unless ``--device cpu``).  Weights come from threefry
 ``PRNGKey(0)`` (``api.init_params``), and so does the prompt,
 ``randint(PRNGKey(0), (B, S), 0, vocab)``, so on the CPU the reference
-and the port decode the same tokens.  A VLM's stub vision embeddings are
-drawn in float32 and cast to the model's type (the reference draws them
-in that type; equal for float32 models).  ``--no-greedy`` samples from
+and the port decode the same tokens.  A VLM's stub vision embeddings and
+the audio family's stub frames (B, prompt_len, d_model) are drawn in
+float32 and cast to the model's type (the reference draws them in that
+type; equal for float32 models); the audio family's decoder prompt is
+the prompt's first min(8, prompt_len) tokens, and decoding starts after
+it.  ``--no-greedy`` samples from
 softmax(logits / ``--temperature``) with ``prng.categorical``, keyed
 ``fold_in(PRNGKey(0), i)`` for the i-th token.  Prefill and the decode
 loop are timed on the host's clock, synchronised with the card at each
@@ -75,6 +78,10 @@ def run(argv: Optional[List[str]] = None
         prefix = cfg.n_vision_tokens
         batch["vision_embeds"] = prng.normal(
             key, (B, prefix, cfg.d_model)).to(cfg.torch_dtype)
+    if cfg.family == "audio":
+        batch["frames"] = prng.normal(key, (B, S, cfg.d_model)).to(
+            cfg.torch_dtype)
+        batch["tokens"] = prompt[:, :min(8, S)]
 
     def pick(logits, k):
         last = logits[:, -1, :]
@@ -93,7 +100,7 @@ def run(argv: Optional[List[str]] = None
         print(f"prefill: {tuple(logits.shape)} in {prefill_ms:.1f} ms")
         tok = pick(logits, prng.fold_in(key, 0))
         out = [tok]
-        start = S + prefix
+        start = batch["tokens"].shape[1] + prefix
         t0 = _now(dev)
         for i in range(args.new_tokens - 1):
             logits, state = api.decode_fn(params, tok, state, start + i,

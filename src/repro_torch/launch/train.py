@@ -11,9 +11,11 @@ The port of the JAX package's ``launch/train.py``, with its flags plus
 ``lm_batch(fold_in(PRNGKey(0), i), ...)`` (data/tokens.py) with
 ``make_train_step`` (launch/shapes.py: the loss and its gradients, then
 AdamW), under WSD for minicpm and cosine (warmup steps/20) otherwise.  A
-VLM's stub vision embeddings are drawn in float32 with ``prng.normal``
-and cast to the model's type (the reference draws them in that type;
-equal for float32 models).  The audio family is not ported and raises.
+VLM's stub vision embeddings and the audio family's stub frames (B, seq,
+d_model) are drawn in float32 with ``prng.normal`` and cast to the
+model's type (the reference draws them in that type; equal for float32
+models); the audio family's tokens and labels are cut to
+``min(max_decoder_len, seq)``.
 On the card, attention and the SSD scan train through their backward
 kernels; an MoE architecture's grouped matmul has no backward kernel yet
 and refuses.  ``--checkpoint`` saves the parameters and the AdamW state
@@ -42,13 +44,16 @@ from repro_torch.optim.schedules import cosine, wsd
 def build_batch(key: torch.Tensor, cfg: ArchConfig, batch: int,
                 seq: int) -> dict:
     """The training batch of step key ``key``, on the key's device."""
-    if cfg.family == "audio":
-        raise NotImplementedError(api._AUDIO)
     b = lm_batch(key, batch, seq, cfg.vocab_size)
     if cfg.family == "vlm":
         b["vision_embeds"] = prng.normal(
             key, (batch, cfg.n_vision_tokens, cfg.d_model)).to(
                 cfg.torch_dtype)
+    if cfg.family == "audio":
+        b["frames"] = prng.normal(key, (batch, seq, cfg.d_model)).to(
+            cfg.torch_dtype)
+        dec = min(cfg.max_decoder_len, seq)
+        b["tokens"], b["labels"] = b["tokens"][:, :dec], b["labels"][:, :dec]
     return b
 
 

@@ -8,15 +8,18 @@ The port of the JAX package's ``models/api.py``:
   init_decode_state(cfg, batch, seq, dtype, device) -> state
   decode_fn(params, token, state, pos, cfg)     -> (logits, state)
 
-for the dense, moe, vlm, ssm and hybrid families.  The audio family
-(whisper's encoder-decoder, ``models/encdec.py``) is not ported yet
-(ROADMAP.md queue 1 item 10) and raises ``NotImplementedError``.  No
-``Runtime``: one device, MoE as JAX's one-device ``moe_dense``.  The
-decode state is per-layer lists (models/transformer.py, models/hybrid.py)
-where JAX stacks a leading layer axis.  On the card, ``loss_fn`` under
-grad runs attention and the SSD scan through their kernels' autograd
-routes (a backward kernel each); the MoE family's grouped matmul has no
-backward kernel yet and refuses.
+for every family: dense, moe and vlm (models/transformer.py, vlm.py),
+ssm and hybrid (models/hybrid.py), and audio (whisper's encoder-decoder,
+models/encdec.py: ``loss_fn`` and ``prefill_fn`` take ``frames`` as
+well; ``prefill_fn`` ignores ``cache_len``, the decoder's cache is
+``max_decoder_len`` long; ``init_decode_state``'s ``seq_len`` is the
+encoder's length).  No ``Runtime``: one device, MoE as JAX's one-device
+``moe_dense``.  The decode state is per-layer lists
+(models/transformer.py, models/hybrid.py, models/encdec.py) where JAX
+stacks a leading layer axis.  On the card, ``loss_fn`` under grad runs
+attention and the SSD scan through their kernels' autograd routes (a
+backward kernel each); the MoE family's grouped matmul has no backward
+kernel yet and refuses.
 """
 from __future__ import annotations
 
@@ -24,35 +27,31 @@ from typing import Dict
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import hybrid, transformer, vlm
+from repro_torch.models import encdec, hybrid, transformer, vlm
 
 SSM_FAMILIES = ("ssm", "hybrid")
-_AUDIO = ("the audio family (whisper's encoder-decoder, models/encdec.py) "
-          "is not ported yet: ROADMAP.md queue 1 item 10")
-
-
-def _no_audio(cfg: ArchConfig) -> None:
-    if cfg.family == "audio":
-        raise NotImplementedError(_AUDIO)
 
 
 def init_params(key: torch.Tensor, cfg: ArchConfig, device=None):
     """The model of ``cfg``'s family on ``device`` (CUDA unless asked
     otherwise), its weights drawn there from ``key`` as JAX's
     ``init_params(key, cfg)`` draws them."""
-    _no_audio(cfg)
     key = key.to(resolve_device(device))
     if cfg.family in SSM_FAMILIES:
         return hybrid.init_hybrid_params(key, cfg)
+    if cfg.family == "audio":
+        return encdec.init_encdec_params(key, cfg)
     return transformer.init_lm_params(key, cfg)
 
 
 def loss_fn(params, batch: Dict, cfg: ArchConfig):
     """The training loss of ``batch`` ({tokens, labels}, and
-    vision_embeds for the vlm family), a 0-dim float32 tensor."""
-    _no_audio(cfg)
+    vision_embeds for the vlm family, frames for the audio family), a
+    0-dim float32 tensor."""
     if cfg.family in SSM_FAMILIES:
         return hybrid.hybrid_loss(params, batch, cfg)
+    if cfg.family == "audio":
+        return encdec.encdec_loss(params, batch, cfg)
     if cfg.family == "vlm":
         return vlm.vlm_loss(params, batch, cfg)
     return transformer.lm_loss(params, batch, cfg)
@@ -62,10 +61,12 @@ def prefill_fn(params, batch: Dict, cfg: ArchConfig, cache_len=None):
     """cache_len: the KV buffer's size (prompt + decode budget).  It
     defaults to the prompt's length, i.e. no decode headroom: servers pass
     prompt_len + max_new_tokens (clipped to the sliding window if any)."""
-    _no_audio(cfg)
     if cfg.family in SSM_FAMILIES:
         return hybrid.hybrid_prefill(params, batch["tokens"], cfg,
                                      cache_len=cache_len)
+    if cfg.family == "audio":
+        return encdec.encdec_prefill(params, batch["frames"],
+                                     batch["tokens"], cfg)
     if cfg.family == "vlm":
         return vlm.vlm_prefill(params, batch, cfg, cache_len=cache_len)
     return transformer.lm_prefill(params, batch["tokens"], cfg,
@@ -74,15 +75,17 @@ def prefill_fn(params, batch: Dict, cfg: ArchConfig, cache_len=None):
 
 def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, dtype=None,
                       device=None):
-    _no_audio(cfg)
     dev = resolve_device(device)
     if cfg.family in SSM_FAMILIES:
         return hybrid.init_hybrid_state(cfg, batch, seq_len, dtype, dev)
+    if cfg.family == "audio":
+        return encdec.init_encdec_cache(cfg, batch, seq_len, dtype, dev)
     return transformer.init_lm_cache(cfg, batch, seq_len, dtype, dev)
 
 
 def decode_fn(params, token, state, pos: int, cfg: ArchConfig):
-    _no_audio(cfg)
     if cfg.family in SSM_FAMILIES:
         return hybrid.hybrid_decode_step(params, token, state, pos, cfg)
+    if cfg.family == "audio":
+        return encdec.encdec_decode_step(params, token, state, pos, cfg)
     return transformer.lm_decode_step(params, token, state, pos, cfg)

@@ -9,8 +9,9 @@ used by ``decode_attention`` (one query against a cache, computed outside
 any kernel in the reference too) and by callers with an arbitrary mask.
 The KV cache (``init_cache``, ``cache_len_for``) is a fixed-size buffer,
 a ring indexed by ``pos % C`` when a sliding window bounds it.
-Cross-attention (``cross_attention``, ``encoder_kv``) comes with the
-encoder-decoder.
+The encoder-decoder's cross attention (``cross_attention`` against the
+K/V of ``encoder_kv``) has Sq != Sk, which no flash kernel takes; as in
+the reference it runs through ``attend``, plain torch on both devices.
 
 RoPE rotates interleaved pairs (``x[..., ::2]``, ``x[..., 1::2]``) as JAX
 does, not the half-split ``rotate_half`` of common PyTorch code.
@@ -161,6 +162,22 @@ def self_attention(params: Attention, x, *, n_heads, n_kv_heads, head_dim,
     if return_kv:
         return out, (k, v)
     return out
+
+
+def cross_attention(params: Attention, x, enc_k, enc_v, *, n_heads,
+                    n_kv_heads, head_dim):
+    """Decoder → encoder attention.  x: (B, Sq, D); enc_k / enc_v: (B,
+    Hkv, Se, dh), prepared once by ``encoder_kv``."""
+    q = _split_heads(params.wq(x), n_heads, head_dim)
+    return params.wo(_merge_heads(attend(q, enc_k, enc_v, None)))
+
+
+def encoder_kv(params: Attention, enc_out, n_kv_heads, head_dim):
+    """The cross attention's K and V of the encoder's output (B, Se, D),
+    each (B, Hkv, Se, dh)."""
+    k = _split_heads(params.wk(enc_out), n_kv_heads, head_dim)
+    v = _split_heads(params.wv(enc_out), n_kv_heads, head_dim)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Shared building blocks: the dense-weight initialiser (threefry-keyed,
 equal to the JAX package's for the same key), the token embedding, the
-sinusoidal timestep embedding, RMSNorm and the two MLPs.
+sinusoidal timestep embedding, RMSNorm, whisper's LayerNorm and the two
+MLPs.
 
 Parameters live in ``nn.Module``s whose attribute names are the JAX
 package's parameter keys (``scale``, ``w_gate``, ``w_up`` …), so
@@ -122,6 +123,39 @@ def rmsnorm(params: RMSNorm, x: torch.Tensor, eps: float = 1e-5):
 
 
 # ---------------------------------------------------------------------------
+# LayerNorm (whisper)
+# ---------------------------------------------------------------------------
+
+
+class LayerNorm(nn.Module):
+    """JAX keys ``scale`` and ``bias``."""
+
+    def __init__(self, d: int, dtype, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(d, dtype=dtype, device=device))
+
+    def forward(self, x, eps: float = 1e-5):
+        return layernorm(self, x, eps)
+
+
+def layernorm_init(d: int, dtype, device=None) -> LayerNorm:
+    return LayerNorm(d, dtype, device)
+
+
+def layernorm(params: LayerNorm, x: torch.Tensor, eps: float = 1e-5):
+    """JAX's LayerNorm: the row's mean and population variance (jnp.var,
+    so ``correction=0``) in float32, scale and bias applied in float32,
+    then one rounding to x's type."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    y = y * params.scale.float() + params.bias.float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
 
@@ -154,6 +188,12 @@ def swiglu(params: SwiGLU, x):
 def gelu_mlp(params: GeluMLP, x):
     # jax.nn.gelu defaults to the tanh approximation
     return params.w2(F.gelu(params.w1(x), approximate="tanh"))
+
+
+def gelu_mlp_init(key: torch.Tensor, d: int, f: int, dtype) -> GeluMLP:
+    m = GeluMLP(d, f, dtype, key.device)
+    fill_mlp(m, key)
+    return m
 
 
 def make_mlp(d: int, f: int, dtype, mlp_type: str, device=None) -> nn.Module:

@@ -391,8 +391,8 @@ def test_runtime_phase_configuration():
 
 def test_main_runs_every_phase_in_order():
     """The phases main() drives, in order: the evaluation scores what the
-    training runtime trained, and the LM serving path runs last, after
-    the DiT's and the MoE's kernel shapes."""
+    training runtime trained, the LM serving path runs after the DiT's
+    and the MoE's kernel shapes, and the encoder-decoder last."""
     import inspect
     import re
     cs = _chip_smoke()
@@ -401,17 +401,20 @@ def test_main_runs_every_phase_in_order():
                      "phase_flash_ssd", "phase_unet", "phase_main_path",
                      "phase_contracts", "phase_train", "phase_train_runtime",
                      "phase_eval", "phase_dit", "phase_grouped_matmul",
-                     "phase_moe", "phase_lm_serve", "phase_lm_train"]
+                     "phase_moe", "phase_lm_serve", "phase_lm_train",
+                     "phase_whisper"]
     assert cs.PATHS == ("serve", "train", "train_runtime", "eval", "dit",
-                        "moe", "lm_serve", "lm_train")
+                        "moe", "lm_serve", "lm_train", "whisper_serve",
+                        "whisper_train")
     for name in calls:
         assert callable(getattr(cs, name))
 
 
 def test_kernels_line_carries_the_new_paths_and_lm_shapes():
     """``launches_by_path`` has an entry for every path of PATHS (eval,
-    lm_serve and lm_train included); flash and the SSD scan carry their
-    numbers at the LM prefill's shapes."""
+    lm_serve, lm_train and whisper's two included); flash and the SSD
+    scan carry their numbers at the LM prefill's shapes, flash and its
+    backward theirs at whisper's encoder and decoder shapes."""
     cs = _chip_smoke()
     names = list(cs.KERNELS)
     records = {n: dict(max_abs_err=0.0, ms=1.0, plain_ms=2.0, bound_ms=0.5,
@@ -428,7 +431,14 @@ def test_kernels_line_carries_the_new_paths_and_lm_shapes():
            "moe": {"grouped_matmul": 6}, "lm_serve": {"flash_attention": 6,
                                                       "ssd_scan": 38},
            "lm_train": {"flash_attention": 120, "flash_attention_bwd": 120,
-                        "ssd_scan": 760, "ssd_scan_bwd": 760}}
+                        "ssd_scan": 760, "ssd_scan_bwd": 760},
+           "whisper_serve": {"flash_attention": 12},
+           "whisper_train": {"flash_attention": 240,
+                             "flash_attention_bwd": 240}}
+    enc = dict(shape=[4, 8, 1500, 64], causal=False, ms=0.05)
+    bwd = dict(shape=[8, 8, 1500, 64], causal=False, ms=0.3, simt_ms=9.0)
+    records["flash_attention"]["whisper_encoder"] = enc
+    records["flash_attention_bwd"]["whisper_encoder"] = bwd
     by_path = dict(zip(cs.PATHS, (per[p] for p in cs.PATHS)))
     launches = {n: sum(p.get(n, 0) for p in by_path.values())
                 for n in names}
@@ -444,6 +454,86 @@ def test_kernels_line_carries_the_new_paths_and_lm_shapes():
     assert line[2]["lm_prefill"] == lm["flash_attention"]
     assert line[3]["lm_prefill"] == lm["ssd_scan"]
     assert "lm_prefill" not in line[0]
+    assert line[2]["launches_by_path"]["whisper_serve"] == 12
+    assert line[5]["launches_by_path"]["whisper_train"] == 240
+    assert line[3]["launches_by_path"]["whisper_train"] == 0
+    assert line[2]["whisper_encoder"] == enc
+    assert line[5]["whisper_encoder"] == bwd
+    assert "whisper_encoder" not in line[3]
+
+
+def test_whisper_phase_configuration():
+    """whisper-base at its published widths and depth; 1,500 frames, a
+    23-tile K/V sweep with a 28-row tail; decoder prompts below, at and
+    past the 448-slot cache; 8 x 1,500 frames to train; 2 + 2 layers on
+    the CPU."""
+    from repro_torch.configs.base import get_arch
+    cs = _chip_smoke()
+    cfg = get_arch(cs.WHISPER_ARCH)
+    assert (cfg.n_encoder_layers, cfg.n_layers, cfg.d_model, cfg.n_heads,
+            cfg.head_dim_, cfg.d_ff, cfg.vocab_size, cfg.max_decoder_len,
+            cfg.dtype) == (6, 6, 512, 8, 64, 2048, 51_865, 448, "bfloat16")
+    assert cs.WHISPER_FRAMES == 1500 and divmod(1500, 64) == (23, 28)
+    assert (cs.WHISPER_BATCH, cs.WHISPER_NEW) == (4, 32)
+    lo, at, past = cs.WHISPER_PROMPTS
+    assert lo < cfg.max_decoder_len == at < past
+    assert (cs.WHISPER_TRAIN_STEPS, cs.WHISPER_TRAIN_BATCH,
+            cs.WHISPER_TRAIN_SEQ) == (20, 8, 1500)
+    enc, dec = cs.WHISPER_FLASH_BWD
+    assert enc == ((8, 8, 8, 1500, 64), False)
+    assert dec == ((8, 8, 8, cfg.max_decoder_len, 64), True)
+    assert cs.WHISPER_CPU_LAYERS == 2 and cs.WHISPER_GRAD_SEQ % 64
+
+
+def test_flash_tally_counts_by_causal_flag():
+    cs = _chip_smoke()
+    calls = []
+    fake = SimpleNamespace(
+        launch=lambda q, k, v, causal, window=0, lse=None: calls.append(
+            ("f", causal)) or "out",
+        launch_backward=lambda q, k, v, o, do, lse, causal, window, **kw:
+            calls.append(("b", causal)) or "grads")
+    orig = fake.launch, fake.launch_backward
+    with cs.flash_tally(fake) as tally:
+        assert fake.launch(1, 2, 3, False, 0) == "out"
+        assert fake.launch(1, 2, 3, True, 0, lse=4) == "out"
+        assert fake.launch_backward(1, 2, 3, 4, 5, 6, True, 0) == "grads"
+        assert tally == {"fwd": {True: 1, False: 1},
+                         "bwd": {True: 1, False: 0}}
+        with pytest.raises(AssertionError, match="by causal flag"):
+            cs.check_tally("t", tally, 1, 1)
+        fake.launch_backward(1, 2, 3, 4, 5, 6, False, 0)
+        cs.check_tally("t", tally, 1, 1)
+    assert (fake.launch, fake.launch_backward) == orig
+    assert calls == [("f", False), ("f", True), ("b", True), ("b", False)]
+
+
+def test_repeat_step_bitwise_on_the_cpu():
+    """The bitwise-repeat check on a reduced whisper's step on the CPU
+    (deterministic there), and a step that is not repeatable fails it."""
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.core import prng
+    from repro_torch.launch import shapes, train
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    cs = _chip_smoke()
+    cfg = reduced(get_arch("whisper-base"))
+    params = api.init_params(prng.PRNGKey(0), cfg, "cpu")
+    opt = init_opt_state(params)
+    step = shapes.make_train_step(cfg, AdamWConfig(lr=1e-3))
+    batch = train.build_batch(prng.PRNGKey(1), cfg, 2, 20)
+    loss, gnorm = cs.repeat_step_bitwise("t", step, params, opt, batch)
+    assert np.isfinite(loss) and np.isfinite(gnorm)
+    assert int(opt["step"]) == 1
+    drift = iter(range(10))
+
+    def noisy(p, o, b):
+        out = step(p, o, b)
+        with torch.no_grad():
+            next(iter(p.parameters())).add_(next(drift) * 1e-3)
+        return out
+    with pytest.raises(AssertionError, match="repeated step differs"):
+        cs.repeat_step_bitwise("t", noisy, params, opt, batch)
 
 
 def test_eval_and_lm_phase_configuration():

@@ -15,7 +15,8 @@ decode; ``launch/serve.py``) against the JAX package's on the CPU.
   JAX's, exactly and within TOL.
 * ``prng.categorical`` against ``jax.random.categorical``: equal indices.
 * ``launch/serve.py --reduced --device cpu`` decodes JAX's tokens (greedy
-  and sampled).
+  and sampled), whisper-base's encoder-decoder included.  The
+  encoder-decoder's own parity tests are tests/test_torch_encdec.py.
 """
 import jax
 import jax.numpy as jnp
@@ -259,12 +260,19 @@ def test_serve_cli_decodes_jax_tokens(arch, extra, capsys):
     assert "tok/s" in capsys.readouterr().out
 
 
-def test_audio_waits_for_the_encoder_decoder():
-    cfg = reduced(get_arch("whisper-base"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        api.init_params(prng.PRNGKey(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="encdec"):
-        api.prefill_fn(None, {}, cfg)
+@pytest.mark.parametrize("extra", [[], ["--no-greedy", "--temperature",
+                                           "0.7"]])
+def test_audio_serve_cli_decodes_jax_tokens(extra, capsys):
+    """whisper-base (reduced): 24 stub frames, the prompt's first 8 tokens
+    as the decoder's prompt, 12 new tokens from position 8 on, through
+    the 16-slot cache's wrap."""
+    argv = ["--arch", "whisper-base", "--reduced", "--batch", "2",
+            "--prompt-len", "24", "--new-tokens", "12"] + extra
+    ref = np.asarray(jserve.main(argv))
+    out = tserve.main(argv + ["--device", "cpu"])
+    assert out.shape == (2, 12)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert "prefill: (2, 1, 512)" in capsys.readouterr().out
 
 
 def test_entry_points_want_cuda_without_a_card():

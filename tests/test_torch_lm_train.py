@@ -18,9 +18,11 @@ CPU.
   grad norm, and the parameters and both moments after it against JAX's
   ``make_train_step`` within TOL (the moments against their own scale, as
   the gradients).
-* ``cross_entropy``'s mask and count against JAX's; the audio family
-  raises ``NotImplementedError``; the step builders, ``skip_reason`` and
-  the input shapes against the reference's.
+* ``cross_entropy``'s mask and count against JAX's; the audio family's
+  batch (stub frames, tokens cut to ``max_decoder_len``) and its loss
+  against the reference's (tests/test_torch_encdec.py holds the
+  encoder-decoder's gradients and AdamW step); the step builders,
+  ``skip_reason`` and the input shapes against the reference's.
 * The CLI (``launch/train.py``) is tests/test_torch_lm_train_cli.py.
 """
 import dataclasses
@@ -51,6 +53,7 @@ from repro_torch.optim.adamw import AdamWConfig, init_opt_state, named
 torch.set_num_threads(1)
 
 TOL = dict(atol=2e-5, rtol=2e-3)
+INIT_ATOL = 5e-5             # prng.normal against jax.random.normal
 GRAD_ATOL = 2e-5             # times each leaf's largest |value|
 ARCHS = ["granite-8b", "dbrx-132b", "internvl2-76b", "mamba2-2.7b",
          "zamba2-1.2b"]
@@ -150,13 +153,34 @@ def test_cross_entropy_masks_and_clips_its_count():
                   jnp.asarray(mask))), **TOL)
 
 
-def test_audio_raises():
+@pytest.mark.parametrize("seq", [40, 12])
+def test_audio_batch_and_loss_match_jax(seq):
+    """The train CLI's audio batch (``build_batch``): frames (B, seq, D)
+    from the step key, tokens and labels cut to min(max_decoder_len 16,
+    seq), against the reference's; then ``api.loss_fn`` on it with JAX's
+    weights bridged."""
+    from repro.launch import train as jtrain
+    jcfg = jax_reduced(jax_get_arch("whisper-base"))
     cfg = reduced(get_arch("whisper-base"))
-    with pytest.raises(NotImplementedError, match="encdec"):
-        api.loss_fn(None, {}, cfg)
-    with pytest.raises(NotImplementedError, match="encdec"):
-        train.main(["--arch", "whisper-base", "--reduced", "--steps", "1",
-                    "--device", "cpu"])
+    jb = jtrain.build_batch(jax.random.PRNGKey(4), jcfg, 2, seq)
+    b = train.build_batch(prng.PRNGKey(4), cfg, 2, seq)
+    assert set(b) == set(jb) == {"tokens", "labels", "frames"}
+    dec = min(16, seq)
+    assert tuple(b["tokens"].shape) == tuple(b["labels"].shape) == (2, dec)
+    assert tuple(b["frames"].shape) == (2, seq, cfg.d_model)
+    np.testing.assert_allclose(b["frames"].numpy(), np.asarray(jb["frames"]),
+                               atol=INIT_ATOL, rtol=0)
+    np.testing.assert_array_equal(b["tokens"].numpy(),
+                                  np.asarray(jb["tokens"]))
+    np.testing.assert_array_equal(b["labels"].numpy(),
+                                  np.asarray(jb["labels"]))
+    jp = japi.init_params(jax.random.PRNGKey(0), jcfg)
+    from repro_torch.models.encdec import EncDec
+    model = bridge.load_dit(EncDec(cfg), jax.tree.map(np.asarray, jp))
+    with torch.no_grad():
+        loss = api.loss_fn(model, b, cfg)
+    np.testing.assert_allclose(loss.item(), float(japi.loss_fn(jp, jb, jcfg)),
+                               **TOL)
 
 
 def test_step_builders_and_skip_reasons():

@@ -7,6 +7,9 @@ same threefry init and data but for a few Zipf draws at a bin's edge,
 tests/test_torch_tokens.py; measured equal to the 4 printed decimals),
 and a ``--checkpoint`` that ``restore`` reads back into a model and an
 AdamW state bitwise equal to those after the last step.
+
+``--arch whisper-base --reduced --steps 3 --batch 2 --seq 40``: the
+encoder-decoder's losses equal to the reference CLI's to 4 decimals.
 """
 import numpy as np
 import torch
@@ -50,3 +53,15 @@ def test_train_cli_falls_and_checkpoint_restores_bitwise(tmp_path, capsys):
     for which in ("m", "v"):
         for n, t in opt[which].items():
             assert torch.equal(t, final[which][n]), (which, n)
+
+
+def test_audio_train_cli_matches_the_reference_cli(capsys):
+    argv = ["--arch", "whisper-base", "--reduced", "--steps", "3",
+            "--batch", "2", "--seq", "40"]
+    losses = train.main(argv + ["--device", "cpu"])
+    jlosses = jtrain.main(argv)
+    assert len(losses) == 3 and all(np.isfinite(losses))
+    np.testing.assert_allclose(losses, jlosses, atol=5e-5, rtol=0)
+    out = capsys.readouterr().out.splitlines()
+    port = [l for l in out if l.startswith("first-10-mean")]
+    assert len(port) == 2 and port[0] == port[1]

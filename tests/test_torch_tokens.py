@@ -13,7 +13,17 @@
   reports how many differ (a difference, not a fault: ROADMAP.md).
 * ``lm_batch``: the one-step shift and the copy span of
   tests/test_data.py, the span at JAX's position.
+* The Zipf table is computed on the host once per (vocab, alpha) with
+  one thread (``zipf_probs``, cached): bitwise this one-thread process's
+  table, and the same in a fresh process at any thread count (a float32
+  CPU sum's bits follow its split over threads); ``choice`` sums it on
+  the host; the same key draws the same tokens in a fresh process, and
+  (the ``cuda`` test, skipped without a card) on the card.
 """
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -120,3 +130,58 @@ def test_copy_span_creates_repetition_at_jaxs_position():
     assert (b["tokens"].numpy() != np.asarray(ref["tokens"])).mean() < 0.01
     np.testing.assert_array_equal(b["tokens"][:, 1:].numpy(),
                                   b["labels"][:, :-1].numpy())
+
+
+def test_zipf_table_is_cached_on_the_host():
+    for vocab in (VOCAB, 51_865, 97):
+        probs = tokens.zipf_probs(vocab)
+        assert probs.device.type == "cpu" and probs.dtype == torch.float32
+        ranks = torch.arange(1, vocab + 1, dtype=torch.float32)
+        want = ranks ** (-1.1)                 # this process: one thread
+        assert torch.equal(probs, want / want.sum())
+        assert tokens.zipf_probs(vocab) is probs      # computed once
+    # choice sums the table on the host: cumsum, r, left searchsorted
+    key = prng.PRNGKey(13)
+    cdf = torch.cumsum(tokens.zipf_probs(VOCAB), 0)
+    r = cdf[-1] * (1 - prng.uniform(key, (4, 33)))
+    assert torch.equal(prng.choice(key, VOCAB, (4, 33),
+                                   p=tokens.zipf_probs(VOCAB)),
+                       torch.searchsorted(cdf, r).to(torch.int32))
+    with pytest.raises(ValueError, match="expected"):
+        prng.choice(key, 10, (2,), p=tokens.zipf_probs(VOCAB))
+
+
+_DRAW = """
+import sys, torch
+sys.path.insert(0, {src!r})
+torch.set_num_threads({threads})
+from repro_torch.core import prng
+from repro_torch.data import tokens
+t = tokens.lm_batch(prng.PRNGKey(21), 4, 300, 51_865)["tokens"]
+print(",".join(str(int(x)) for x in t.reshape(-1)))
+assert torch.get_num_threads() == {threads}
+"""
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_zipf_tokens_equal_in_a_fresh_process(threads):
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    out = subprocess.run([sys.executable, "-c",
+                          _DRAW.format(src=src, threads=threads)],
+                         capture_output=True, text=True, check=True,
+                         timeout=120).stdout.strip()
+    here = tokens.lm_batch(prng.PRNGKey(21), 4, 300, 51_865)["tokens"]
+    assert out == ",".join(str(int(x)) for x in here.reshape(-1))
+
+
+@pytest.mark.cuda
+def test_cuda_zipf_tokens_equal_the_cpu_tokens():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card with -m cuda)")
+    for seed, vocab, shape in ((0, 32_000, (4, 1025)),
+                               (7, 51_865, (8, 1501))):
+        cpu = tokens.zipf_tokens(prng.PRNGKey(seed), shape, vocab)
+        card = tokens.zipf_tokens(prng.PRNGKey(seed, device="cuda"), shape,
+                                  vocab)
+        assert card.device.type == "cuda"
+        assert torch.equal(card.cpu(), cpu)
