@@ -99,15 +99,19 @@ package).  Phases, each of which fails the run on any error:
    and bfloat16, with contiguous tokens and tokens broadcast to every
    expert (expert stride 0), and a misaligned token pointer; the wgmma,
    wmma and simt variants must all be launched;
-13. the MoE path: the Zamba2 models are freed, then server and three
+13. the MoE path: the Zamba2 models are freed; a ``TrainRuntime`` round
+   with MoE DiTs at the reduced DBRX-132B widths in bf16 (the round
+   completes, the server's parameters move, its moments stay finite, the
+   grouped matmul's backward kernel launched); then server and three
    client DiTs with DBRX-132B blocks at full width (configs/dbrx_132b.py:
    d_model 6144, 48 query / 8 KV heads of 128, 16 experts of FFN width
    10,752, top-4, bf16) cut to 2 blocks (MOE_LAYERS), on the same 64
-   tokens, threefry-initialised on the card.  The grouped matmul has no
-   backward kernel: an Alg.-1 loss through the server DiT with grad
-   enabled, a ``TrainRuntime`` round with an MoE DiT (reduced widths) and
-   ``launch/train.py`` on DBRX-132B (reduced) must raise its refusal.
-   Flash attention at head dim
+   tokens, threefry-initialised on the card; between the server's draw
+   and the clients', one Alg.-1 loss through the server DiT and its
+   backward, counters zeroed just before: 6 grouped-matmul and 2 flash
+   backward launches (``wmma``, ``wgmma``), every gradient leaf within
+   LM_GRAD_RTOL of the same loss's with the expert products through the
+   plain versions, another noise's outside.  Flash attention at head dim
    128 and the three grouped-matmul launches of the first block are held
    against their plain versions on the inputs the first forward feeds
    them and timed there, beside ``torch.bmm`` and SDPA, with their card
@@ -118,7 +122,30 @@ package).  Phases, each of which fails the run on any error:
    ``ServeRuntime`` pass (T=60, cuts 8/15/30), counters read just after:
    6 grouped-matmul and 2 flash launches per forward, all on the wgmma
    variants.  The pass's outputs must equal ``sample_plan_reference``
-   bitwise;
+   bitwise.  The path's launches: the gradient's, the round's and the
+   pass's and sample's;
+13b. the MoE training path (``phase_moe_train``): (a) the grouped
+   matmul's backward kernel (csrc/grouped_matmul_bwd.cu) against
+   ``grouped_matmul_bwd_ref`` at DBRX's expert shapes for the C each path
+   feeds it (GMM_BWD_CASES: dense DiT 256 broadcast, expert-parallel DiT
+   80, expert-parallel LM 1,280, dense LM 4,096 broadcast), bf16
+   (``wmma``) and float32 (``simt``), each row within BWD_BF16_ROW /
+   BWD_FP32_ROW, planted faults beyond it, two launches and dX's rows
+   across C bitwise, timed beside the plain version, the ``torch.bmm``
+   pair and the bound, and the forward at the same C beside
+   ``torch.bmm``; the flash backward at DBRX's attention
+   (FLASH_BWD_DBRX); (b) ``moe_ep`` and ``moe_ep2d`` on a one-card NCCL
+   mesh (``make_debug_mesh``) for one full-width layer of 256 tokens,
+   within MOE_EP_RTOL of ``moe_dense`` at capacity factor 8 and with
+   their drops at 1.25, two calls bitwise; (d) the ``train`` CLI on the
+   reduced DBRX-132B (float32) for 20 steps, counters checked every step,
+   losses within LM_LOSS_RTOL of the CPU CLI's; at full width (2 blocks,
+   B 4 x S 1,024) ``loss_and_grads`` dense and expert-parallel, counted
+   from zero just before each: 6 grouped-matmul and 2 flash forward
+   launches and as many backward; loss, wall, device time, idle, peak
+   memory; the reduced config's gradients on the card against the CPU
+   port, dense and expert-parallel, within LM_GRAD_RTOL, another batch's
+   outside;
 14. the LM serving path: Zamba2-1.2B as a language model at the
    published widths (38 Mamba2 layers, d_model 2048, 64 SSD heads of 64,
    state 64, the shared block every 6 layers, vocab 32,000, bf16,
@@ -171,7 +198,8 @@ package).  Phases, each of which fails the run on any error:
    train.py``'s ``main`` for 20 steps of 8 x 1,500 frames and 448 tokens,
    12 + 12 flash launches a step (backward all wgmma), the loss falling,
    a repeated step bitwise; (f) 2 + 2 layers against the CPU port;
-17. a ``kernels`` JSON line, the card line again, and the result line.
+17. a ``kernels`` JSON line (eight kernels, ``launches_by_path`` over
+   the eleven paths), the card line again, and the result line.
 
 Exits nonzero, printing no result line, without a CUDA device or outside
 a checkout.
@@ -251,13 +279,37 @@ DIT_T = 60                      # the serve pass's T
 DIT_CUTS = [8, 15, 30]          # its three clients' cuts (T/8, T/4, T/2)
 GMM_SWEEP = [(4, 32, 64, 48), (2, 100, 50, 70), (8, 16, 16, 16),
              (1, 7, 9, 11)]     # test_grouped_matmul_sweep (E, C, D, F)
-# the wgmma variant over two C-tiles, and with F not a multiple of 192
-GMM_WGMMA = [(2, 200, 512, 384), (2, 300, 128, 200)]
+# the wgmma variant over two C-tiles, and with F not a multiple of 192;
+# the capacity-packed C of the expert-parallel DiT (80, below the 256-row
+# tile) and LM (1,280), and the dense LM's C 4,096 (16 tiles)
+GMM_WGMMA = [(2, 200, 512, 384), (2, 300, 128, 200), (2, 80, 256, 192),
+             (2, 1280, 64, 128), (1, 4096, 64, 64)]
 TOL_GMM = dict(atol=1e-4, rtol=1e-3)      # that test's fp32 tolerance
 # the MoE path: DBRX-132B at its published widths, 40 blocks cut to 2 so
 # that four models (server + 3 clients, 13.19 GB each in bf16) fit the
 # card's 80 GB; three blocks each would take 78.8 GB
 MOE_ARCH, MOE_LAYERS = "dbrx-132b", 2
+# the MoE training path (phase_moe_train): the grouped matmul's backward
+# at DBRX's expert shapes (E 16, D 6,144, F 10,752; the gate/up product),
+# one case per C the paths feed it: (what, C, tokens broadcast to every
+# expert); the dense DiT (B 4 x 64 tokens), the expert-parallel DiT's
+# capacity int(4 * 256 / 16 * 1.25) = 80, the expert-parallel LM's
+# int(4 * 4096 / 16 * 1.25) = 1,280 and the dense LM's 4 x 1,024 tokens
+GMM_BWD_CASES = [("dense DiT", 256, True), ("EP DiT", 80, False),
+                 ("EP LM", 1280, False), ("dense LM", 4096, True)]
+# one full-width MoE layer's tokens through moe_ep / moe_ep2d against
+# moe_dense: capacity factor 8 drops nothing (the grouped matmul's bf16
+# limit, PERF.md section 6), the configured 1.25 drops some
+MOE_EP_TOKENS, MOE_EP_RTOL, MOE_EP_ROOMY = 256, 0.0312, 8.0
+# the LM: 2 of DBRX-132B's 40 blocks at the published widths, bf16, B x
+# S = 4 x 1,024 (train_4k's 4,096 cut as phase 15's), loss and
+# gradients (two float32 AdamW states would not fit: PERF.md section 4);
+# the reduced config's CLI and gradients against the CPU port
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_PEAK_GB = 4, 1024, 72.0
+MOE_GRAD_SEQ = 64
+# the flash backward at DBRX's attention shape (48 query / 8 KV heads of
+# 128, causal) at the LM step's batch and length
+FLASH_BWD_DBRX = ((MOE_TRAIN_BATCH, 48, 8, MOE_TRAIN_SEQ, 128), True)
 # the training path: Alg. 1 with six CONFIG U-Nets (paper §4: 5 clients),
 # 2 batches of 8 per client, one round of 10 steps at cut 250 of T=1000
 TRAIN_CLIENTS, TRAIN_CUT, TRAIN_BATCH, TRAIN_BATCHES = 5, 250, 8, 2
@@ -289,14 +341,18 @@ REPLACES = {"ddpm_step": "src/repro/kernels/ddpm_step/kernel.py:43",
             "grouped_matmul": "src/repro/kernels/grouped_matmul/kernel.py:39",
             "flash_attention_bwd":
                 "src/repro/kernels/flash_attention/kernel.py:76",
-            "ssd_scan_bwd": "src/repro/kernels/ssd_scan/kernel.py:69"}
+            "ssd_scan_bwd": "src/repro/kernels/ssd_scan/kernel.py:69",
+            "grouped_matmul_bwd":
+                "src/repro/kernels/grouped_matmul/kernel.py:39"}
 SOURCES = {"ddpm_step": "ddpm_step.cu", "ddpm_step_batched": "ddpm_step.cu",
            "flash_attention": "flash_attention.cu",
            "ssd_scan": "ssd_scan.cu", "grouped_matmul": "grouped_matmul.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
-           "ssd_scan_bwd": "ssd_scan_bwd.cu"}
+           "ssd_scan_bwd": "ssd_scan_bwd.cu",
+           "grouped_matmul_bwd": "grouped_matmul_bwd.cu"}
 KERNELS = ("ddpm_step_batched", "ddpm_step", "flash_attention", "ssd_scan",
-           "grouped_matmul", "flash_attention_bwd", "ssd_scan_bwd")
+           "grouped_matmul", "flash_attention_bwd", "ssd_scan_bwd",
+           "grouped_matmul_bwd")
 
 
 def log(*a):
@@ -454,6 +510,26 @@ def gmm_bound(E: int, C: int, D: int, F: int, itemsize: int,
                   BF16_FLOPS_PER_S if itemsize == 2 else FP32_FLOPS_PER_S)
 
 
+def gmm_bwd_work(E: int, C: int, D: int, F: int, itemsize: int,
+                 shared_tokens: bool):
+    """(bytes, flops) of the grouped matmul's backward for dout (E, C,
+    F): the tokens (one (C, D) set when broadcast), the weights and dout
+    read once, dtokens (one (C, D) sum over the experts when the tokens
+    are broadcast) and dweights written once; 4·E·C·D·F flops (dY·Wᵀ and
+    Xᵀ·dY)."""
+    tokens = (1 if shared_tokens else E) * C * D
+    return (2 * tokens + 2 * E * D * F + E * C * F) * itemsize, \
+        4 * E * C * D * F
+
+
+def gmm_bwd_bound(E: int, C: int, D: int, F: int, itemsize: int,
+                  shared_tokens: bool):
+    """(least time in ms, what binds it) of the grouped matmul's backward
+    on this card, rated as ``gmm_bound``."""
+    return _bound(*gmm_bwd_work(E, C, D, F, itemsize, shared_tokens),
+                  BF16_FLOPS_PER_S if itemsize == 2 else FP32_FLOPS_PER_S)
+
+
 def kernels_line(records, launches, by_path=None):
     """The ``kernels`` JSON object: one entry per kernel with its route,
     source, the TPU kernel it replaces, its main-path launches and the
@@ -468,12 +544,17 @@ def kernels_line(records, launches, by_path=None):
     (``whisper_encoder``, ``whisper_decoder``), the SSD
     scan the simt variant's time at the path's shape, the two DDPM
     entries (whose main numbers are the keyed variants') the composed
-    step they replace and the given-noise variant's numbers, and the two
-    backward kernels their shape and device events a launch."""
+    step they replace and the given-noise variant's numbers, the
+    backward kernels their shape and device events a launch, flash's
+    backward its numbers at DBRX's attention (``dbrx_train``), the
+    grouped matmul its forward at the capacity-packed and dense LM's C
+    (``capacity_shapes``) and its backward every shape of
+    GMM_BWD_CASES (``shapes``)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     extra = ("card_ms", "simt_ms", "head_dim_128", "lm_prefill",
-             "whisper_encoder", "whisper_decoder", "shapes",
+             "whisper_encoder", "whisper_decoder", "dbrx_train", "shapes",
+             "capacity_shapes",
              "op_ms", "composed_ms", "composed_card_ms", "composed_events",
              "keyed_card_ms", "keyed_events", "given", "shape", "chunk",
              "card_events", "row_gap", "row_limit", "faults",
@@ -1869,14 +1950,21 @@ def capture_calls(targets, limit: int = 1, clone: bool = True):
             setattr(mod, attr, orig[name])
 
 
-def init_dits(tag, arch, dcfg, key):
-    """Server and client DiTs drawn on the card from ``split(key, 4)``."""
+def init_dits(tag, arch, dcfg, key, between=None):
+    """Server and client DiTs drawn on the card from ``split(key, 4)``;
+    ``between(server)``, if given, runs after the server is drawn and
+    before the clients are (its time is not the init's)."""
     import torch
     from repro_torch.core import prng
     from repro_torch.core.dit import init_dit
     ks, *kc = prng.split(key, len(DIT_CUTS) + 1)
     t0 = time.perf_counter()
     sp = init_dit(ks, arch, dcfg, "cuda")
+    if between is not None:
+        torch.cuda.synchronize()
+        t_between = time.perf_counter()
+        between(sp)
+        t0 += time.perf_counter() - t_between
     cp = [init_dit(k, arch, dcfg, "cuda") for k in kc]
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in sp.parameters())
@@ -2049,11 +2137,18 @@ def ssd_rows_bitwise(tag, skernel, cargs, chunk, y, fs) -> None:
         f"{x.shape[0]} bitwise (y and final state)")
 
 
+BWD_VARIANTS = {"flash_attention": ("wgmma", "simt"),
+                "ssd_scan": ("wgmma", "simt"),
+                "grouped_matmul": ("wmma", "simt")}
+
+
 def no_bwd(*names) -> dict:
     """Zero backward launches of the kernels ``names`` (flash_attention,
-    ssd_scan): the entries a forward-only path's launch counts hold."""
+    ssd_scan, grouped_matmul): the entries a forward-only path's launch
+    counts hold."""
     return {k: 0 for name in names
-            for k in (f"{name}_bwd", f"{name}_bwd/wgmma", f"{name}_bwd/simt")}
+            for k in (f"{name}_bwd", *(f"{name}_bwd/{v}"
+                                       for v in BWD_VARIANTS[name]))}
 
 
 def dit_grad_check(tag, apply_fn, sp, xty, per_fwd, kmods) -> dict:
@@ -2077,10 +2172,7 @@ def dit_grad_check(tag, apply_fn, sp, xty, per_fwd, kmods) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = lm_counts(*kmods)
-    want = dict(per_fwd)
-    for name in ("flash_attention", "ssd_scan"):
-        want[f"{name}_bwd"] = want[f"{name}_bwd/wgmma"] = per_fwd[name]
-        want[f"{name}_bwd/simt"] = 0
+    want = with_backward(per_fwd, "flash_attention", "ssd_scan")
     if got != want:
         raise AssertionError(f"{tag}: launches of a loss and its backward "
                              f"{got}, expected {want}")
@@ -2099,57 +2191,171 @@ def dit_grad_check(tag, apply_fn, sp, xty, per_fwd, kmods) -> dict:
     return got
 
 
-def refuse_dit_loss(tag, apply_fn, sp, xty) -> None:
-    """An Alg.-1 loss through an MoE DiT with grad enabled must raise the
-    grouped matmul's refusal (it has no backward kernel) and give no
-    loss."""
+@contextlib.contextmanager
+def plain_expert_products():
+    """While active, the MoE's expert products run through the grouped
+    matmul's plain versions on the card, as one autograd Function:
+    ``grouped_matmul_ref`` forward, ``grouped_matmul_bwd_ref`` backward
+    (its algorithm, held against autograd of the forward and JAX's vjp in
+    tests/test_torch_gmm_bwd.py).  It saves the bf16 operands as they
+    are: autograd of the float32 einsum would keep float32 copies of the
+    2.1 GB weights."""
+    import torch
+    from repro_torch.kernels.grouped_matmul.ref import (
+        grouped_matmul_bwd_ref, grouped_matmul_ref)
+    from repro_torch.models import moe
+
+    class PlainFn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, tokens, weights):
+            ctx.save_for_backward(tokens, weights)
+            return grouped_matmul_ref(tokens, weights)
+
+        @staticmethod
+        def backward(ctx, dout):
+            return grouped_matmul_bwd_ref(*ctx.saved_tensors, dout)
+
+    orig = moe.gmm_ops.grouped_matmul
+    moe.gmm_ops.grouped_matmul = PlainFn.apply
+    try:
+        yield
+    finally:
+        moe.gmm_ops.grouped_matmul = orig
+
+
+def with_backward(per_fwd: dict, *names, variant=None) -> dict:
+    """The launches of a forward and its backward: ``per_fwd`` with each
+    kernel of ``names`` launched backward as often as forward, all on
+    ``variant`` (default each kernel's first backward variant, the
+    tensor-core one)."""
+    want = dict(per_fwd)
+    for name in names:
+        ran = variant or BWD_VARIANTS[name][0]
+        want[f"{name}_bwd"] = per_fwd[name]
+        for v in BWD_VARIANTS[name]:
+            want[f"{name}_bwd/{v}"] = per_fwd[name] if v == ran else 0
+    return want
+
+
+def moe_dit_grad_check(tag, apply_fn, sp, xty, per_fwd, kmods) -> dict:
+    """(c) One Alg.-1 loss (``mse_eps_loss``) and its backward through the
+    full-width MoE DiT, counters zeroed just before: as many grouped-matmul
+    and flash backward launches as forward ones, on the tensor-core
+    variants; every gradient leaf within LM_GRAD_RTOL (‖g − r‖ / ‖r‖)
+    of the same loss's with the expert products through the plain versions
+    (``plain_expert_products``), while the plain gradients of another
+    noise put the median leaf beyond it.  Returns the launches."""
     import torch
     from repro_torch.core.protocol import mse_eps_loss
     x, t, y = xty
-    loss = None
-    with torch.enable_grad():
-        try:
-            loss = mse_eps_loss(apply_fn, sp, x, t, y, torch.zeros_like(x))
-        except RuntimeError as e:
-            if "grouped_matmul" not in str(e) or \
-                    "no backward" not in str(e):
-                raise
-            log(f"{tag}/refusal: mse_eps_loss with grad enabled raised: {e}")
-    if loss is not None:
-        raise AssertionError(f"{tag}: a loss with grad enabled came back "
-                             "through a kernel that has no backward")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    eps, other = (torch.randn(x.shape, generator=gen, device="cuda")
+                  for _ in range(2))
+    names, params = zip(*sp.named_parameters())
+
+    def grads_of(noise):
+        with torch.enable_grad():
+            loss = mse_eps_loss(apply_fn, sp, x, t, y, noise)
+            return loss.detach(), dict(zip(names, torch.autograd.grad(
+                loss, params)))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kmod in kmods:
+        kmod.reset_counts()
+    t0 = time.perf_counter()
+    loss, grads = grads_of(eps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = lm_counts(*kmods)
+    want = with_backward(per_fwd, "grouped_matmul", "flash_attention")
+    if got != want:
+        raise AssertionError(f"{tag}: launches of a loss and its backward "
+                             f"{got}, expected {want}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    bad = [n for n, g in grads.items() if not torch.isfinite(g).all()]
+    if bad or not torch.isfinite(loss):
+        raise AssertionError(f"{tag}: gradients not finite on {bad[:5]}")
+    with plain_expert_products():
+        ref_loss, ref = grads_of(eps)
+        gaps = grad_gaps(grads, ref)
+        del ref
+        _, ref_other = grads_of(other)
+        control = grad_gaps(grads, ref_other)
+        del ref_other
+    worst = max(gaps, key=gaps.get)
+    median = lambda d: sorted(d.values())[len(d) // 2]
+    log(f"{tag}/grad: mse_eps_loss {loss.item():.6f} (plain expert "
+        f"products {ref_loss.item():.6f}) and its backward through the "
+        f"full-width MoE DiT in {wall:.3f} s (first call), peak memory "
+        f"{peak:.2f} GB; {len(names)} gradient leaves against the plain "
+        f"products' ‖k − r‖ / ‖r‖: median {median(gaps):.4g}, worst "
+        f"{gaps[worst]:.4g} ({worst}), limit {LM_GRAD_RTOL}; control "
+        f"(another noise): median {median(control):.4g}; launches {got}")
+    if not gaps[worst] <= LM_GRAD_RTOL:
+        raise AssertionError(f"{tag}: gradient leaf {worst} "
+                             f"{gaps[worst]:.3g} beyond {LM_GRAD_RTOL}")
+    if not median(control) > LM_GRAD_RTOL:
+        raise AssertionError(f"{tag}: the gradient check passed another "
+                             "noise's gradients")
+    del grads
+    torch.cuda.empty_cache()
+    return got
 
 
-def refuse_dit_runtime(tag, apply_fn, sp, n_classes: int) -> None:
-    """A ``TrainRuntime`` round whose denoiser is an MoE DiT must raise
-    the grouped matmul's refusal on the card too (no fallback) and leave
-    the runtime where it was: server and client are ``sp`` itself, one
-    client with one batch of B images."""
+def moe_runtime_round(dcfg) -> dict:
+    """(c) A ``TrainRuntime`` round whose denoisers are MoE DiTs, at the
+    reduced DBRX-132B widths in bf16 (two float32 AdamW states of a
+    full-width one would not fit beside it: PERF.md section 4): one
+    client with one batch of B images, cut 250 of T=1000.  The round must
+    complete (``round == 1``), move the server's parameters and leave its
+    moments finite, through the grouped matmul's backward kernel.
+    Returns the launches of the round."""
     import torch
+    from repro_torch.configs.base import get_arch, reduced
     from repro_torch.core import prng
+    from repro_torch.core.dit import init_dit, make_dit_apply
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.grouped_matmul import kernel as gkernel
     from repro_torch.train import ParticipationConfig, TrainConfig, \
         TrainRuntime
+    small = dataclasses.replace(reduced(get_arch(MOE_ARCH)),
+                                dtype="bfloat16")
     cfg = TrainConfig(T=1000, t_cut=250, image_shape=IMG,
-                      n_classes=n_classes, batch_size=B, batches_per_round=1,
+                      n_classes=dcfg.n_classes, batch_size=B,
+                      batches_per_round=1,
                       participation=ParticipationConfig(policy="full"))
-    rt = TrainRuntime(cfg, lambda k: sp, apply_fn, prng.PRNGKey(0),
+    rt = TrainRuntime(cfg, lambda k: init_dit(k, small, dcfg, "cuda"),
+                      make_dit_apply(small, dcfg), prng.PRNGKey(0),
                       device="cuda")
-    eye = torch.eye(n_classes, device="cuda")
-    rt.register_client(torch.zeros((B,) + IMG, device="cuda"),
-                       eye[torch.arange(B, device="cuda") % n_classes])
-    try:
-        rt.run_round()
-    except RuntimeError as e:
-        if "grouped_matmul" not in str(e) or "no backward" not in str(e):
-            raise
-        log(f"{tag}/runtime_refusal: TrainRuntime.run_round raised: {e}")
-    else:
-        raise AssertionError(f"{tag}: a training round ran through a kernel "
-                             "that has no backward")
-    if rt.round != 0 or int(rt.server_opt["step"]) != 0:
-        raise AssertionError(f"{tag}: the refused round moved the runtime")
-    del rt
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    eye = torch.eye(dcfg.n_classes, device="cuda")
+    rt.register_client(torch.randn((B,) + IMG, generator=gen, device="cuda"),
+                       eye[torch.arange(B, device="cuda") % dcfg.n_classes])
+    before = {n: p.detach().clone()
+              for n, p in rt.server_params.named_parameters()}
+    for kmod in (fkernel, gkernel):
+        kmod.reset_counts()
+    t0 = time.perf_counter()
+    rt.run_round()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = lm_counts(fkernel, gkernel)
+    moved = sum(not torch.equal(p, before[n])
+                for n, p in rt.server_params.named_parameters())
+    finite = all(torch.isfinite(v).all() for w in ("m", "v")
+                 for v in rt.server_opt[w].values())
+    log(f"moe/runtime_round: TrainRuntime.run_round with reduced "
+        f"{MOE_ARCH} DiTs (bf16): round {rt.round}, {moved} of "
+        f"{len(before)} server parameters moved, moments finite {finite}, "
+        f"{wall:.2f} s (first call); launches {got}")
+    if rt.round != 1 or not moved or not finite or \
+            not got["grouped_matmul_bwd/wmma"]:
+        raise AssertionError("moe: the MoE TrainRuntime round did not "
+                             "train through the grouped matmul's backward")
+    del rt, before
     torch.cuda.empty_cache()
+    return got
 
 
 def phase_dit():
@@ -2308,38 +2514,6 @@ def phase_grouped_matmul():
                                  f"{sorted(want)}")
 
 
-def refuse_moe_training(dcfg, key) -> None:
-    """The grouped matmul has no backward kernel: a ``TrainRuntime``
-    round with an MoE DiT and the LM training CLI on an MoE architecture
-    must raise its refusal on the card.  Both at the reduced DBRX-132B
-    widths (the runtime holds two float32 AdamW states; at full width,
-    four times a 13 GB model's bytes each)."""
-    import torch
-    from repro_torch.configs.base import get_arch, reduced
-    from repro_torch.core.dit import init_dit, make_dit_apply
-    from repro_torch.launch import train
-    small = dataclasses.replace(reduced(get_arch(MOE_ARCH)),
-                                dtype="bfloat16")
-    sp = init_dit(key, small, dcfg, "cuda")
-    refuse_dit_runtime("moe", make_dit_apply(small, dcfg), sp,
-                       dcfg.n_classes)
-    argv = ["--arch", MOE_ARCH, "--reduced", "--steps", "1", "--batch", "1",
-            "--seq", "32", "--device", "cuda"]
-    try:
-        with contextlib.redirect_stdout(sys.stderr):
-            train.main(argv)
-    except RuntimeError as e:
-        if "grouped_matmul" not in str(e) or "no backward" not in str(e):
-            raise
-        log(f"moe/train_cli_refusal: launch/train.py {' '.join(argv)} "
-            f"raised: {e}")
-    else:
-        raise AssertionError("moe: the LM training CLI trained an MoE "
-                             "architecture through the grouped matmul")
-    del sp
-    torch.cuda.empty_cache()
-
-
 def phase_moe():
     """The MoE path: four DBRX-132B DiTs at full width, cut to MOE_LAYERS
     blocks.  Returns (kernel records at the MoE path's shapes, launches
@@ -2371,12 +2545,16 @@ def phase_moe():
     per_fwd = {"grouped_matmul": 3 * n, "grouped_matmul/wgmma": 3 * n,
                "grouped_matmul/wmma": 0, "grouped_matmul/simt": 0,
                "flash_attention": n, "flash_attention/wgmma": n,
-               "flash_attention/simt": 0, **no_bwd("flash_attention")}
+               "flash_attention/simt": 0,
+               **no_bwd("flash_attention", "grouped_matmul")}
     key = prng.PRNGKey(0, device="cuda")
-    refuse_moe_training(dcfg, key)
-    sp, cp = init_dits("moe", arch, dcfg, key)
+    runtime_launches = moe_runtime_round(dcfg)
     xty = dit_inputs(dcfg.n_classes)
-    refuse_dit_loss("moe", apply_fn, sp, xty)
+    grad_launches = {}
+    sp, cp = init_dits("moe", arch, dcfg, key, between=lambda m:
+                       grad_launches.update(moe_dit_grad_check(
+                           "moe", apply_fn, m, xty, per_fwd,
+                           (fkernel, gkernel))))
 
     with capture_calls({"flash_attention": (fops, "flash_attention"),
                         "grouped_matmul": (moe.gmm_ops, "grouped_matmul")},
@@ -2477,6 +2655,12 @@ def phase_moe():
                               fwd_ms, per_fwd, (fkernel, gkernel))
     log(f"moe/peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         " GB")
+    # the path's runs: the Alg.-1 gradient, the runtime round, the serve
+    # pass and sample (each counted from zero just before)
+    launches = {k: launches.get(k, 0) + grad_launches.get(k, 0) +
+                runtime_launches.get(k, 0)
+                for k in set(launches) | set(grad_launches) |
+                set(runtime_launches)}
     return {"grouped_matmul": record, "flash_attention@128": flash128}, \
         launches
 
@@ -2597,7 +2781,8 @@ WHISPER_FLASH_BWD = (((8, 8, 8, 1500, 64), False),
                      ((8, 8, 8, 448, 64), True))
 WHISPER_CPU_LAYERS, WHISPER_GRAD_SEQ = 2, 333
 PATHS = ("serve", "train", "train_runtime", "eval", "dit", "moe",
-         "lm_serve", "lm_train", "whisper_serve", "whisper_train")
+         "moe_train", "lm_serve", "lm_train", "whisper_serve",
+         "whisper_train")
 
 
 def eval_scores(trained, data, key, n: int = EVAL_N) -> dict:
@@ -3606,6 +3791,409 @@ def phase_lm_train():
     return records, launches
 
 
+def gmm_faults() -> dict:
+    """Planted faults of the grouped matmul's backward (dtokens,
+    dweights), for ``fault_gaps``: dtokens past the first 64 token rows
+    and dweights past the first 64 rows of D scaled, dtokens from the next
+    expert."""
+    return {"dX past the first 64 rows": (0, scaled_past(1, 64)),
+            "dW past the first 64 rows": (1, scaled_past(1, 64)),
+            "dX from the next expert": (0, lambda g: g.roll(1, dims=0))}
+
+
+def gmm_bwd_case(rn, E, D, F, what, C, broadcast, dtype):
+    """(a) One case of the grouped matmul's backward at DBRX's expert
+    shapes: the kernel against ``grouped_matmul_bwd_ref`` on the same
+    inputs, each gradient within BWD_FP32_ROW or BWD_BF16_ROW
+    (``row_gap``), planted faults beyond it, two launches bitwise and dX's
+    first 64 rows equal to a launch over those rows alone; its time
+    beside the plain version's, the ``torch.bmm`` pair's and the bound;
+    in bf16 also the forward at this C against its plain version, timed
+    beside ``torch.bmm``.  Returns the case's record."""
+    import torch
+    from repro_torch.kernels.grouped_matmul import kernel as gkernel
+    from repro_torch.kernels.grouped_matmul.ref import (
+        grouped_matmul_bwd_ref, grouped_matmul_ref)
+    tok = rn(C, D).to(dtype).unsqueeze(0).expand(E, -1, -1) if broadcast \
+        else rn(E, C, D).to(dtype)
+    w = (rn(E, D, F) * D ** -0.5).to(dtype)
+    dy = rn(E, C, F).to(dtype)
+    tag = f"grouped_matmul_bwd {what} {(E, C, D, F)} {str(dtype)[6:]}"
+    before = dict(gkernel.COUNTS)
+    launch = lambda: gkernel.launch_backward(tok, w, dy)
+    grads = launch()
+    ran = launched_variant(gkernel, "grouped_matmul_bwd", before)
+    refs = grouped_matmul_bwd_ref(tok, w, dy)
+    tol = BWD_FP32_ROW if dtype == torch.float32 else BWD_BF16_ROW
+    gaps = [row_gap(g, r) for g, r in zip(grads, refs)]
+    err = max((g.float() - r.float()).abs().max().item()
+              for g, r in zip(grads, refs))
+    if not max(gaps) <= tol:
+        raise AssertionError(f"{tag}: dX/dW row gaps {gaps} > {tol}")
+    faults = fault_gaps(grads, refs, gmm_faults())
+    check_faults(tag, faults, tol)
+    del refs
+    again = launch()
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError(f"{tag}: two launches differ")
+    del again
+    part, _ = gkernel.launch_backward(tok[:, :64], w,
+                                      dy[:, :64].contiguous())
+    if not torch.equal(part, grads[0][:, :64]):
+        raise AssertionError(f"{tag}: dX rows at C = 64 != the first 64 "
+                             f"rows at C = {C}")
+    del grads, part
+    iters = 5 if dtype == torch.bfloat16 else 2
+    ms = time_ms(launch, iters=iters, warmup=1)
+    plain = time_ms(lambda: grouped_matmul_bwd_ref(tok, w, dy), iters=2,
+                    warmup=1)
+    xs, wt = tok.contiguous(), w.transpose(1, 2)
+    lib = time_ms(lambda: (torch.bmm(dy, wt), torch.bmm(xs.transpose(1, 2),
+                                                        dy)),
+                  iters=iters, warmup=1)
+    bnd, by = gmm_bwd_bound(E, C, D, F, w.element_size(), broadcast)
+    rec = dict(what=what, shape=[E, C, D, F], broadcast=broadcast,
+               dtype=str(dtype)[6:], variant=ran, max_abs_err=err,
+               row_gap=max(gaps), row_limit=tol, faults=faults, ms=ms,
+               plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by)
+    log(f"moe_train/{tag} ({ran}): dX/dW row gaps "
+        f"{', '.join(f'{e:.3g}' for e in gaps)} (limit {tol}), max abs "
+        f"{err:.3g}; planted faults (x{1 + FAULT}) "
+        f"{', '.join(f'{f}: {g:.3g}' for f, g in faults.items())}; two "
+        f"launches and rows across C bitwise; kernel {ms:.4f} ms plain "
+        f"{plain:.4f} ms torch.bmm pair {lib:.4f} ms ({ms / lib:.2f}x) "
+        f"bound {bnd:.4f} ms ({by}): {100 * bnd / ms:.2f}% of the bound's "
+        f"rate, {4 * E * C * D * F / ms / 1e9:.1f} TFLOP/s")
+    if dtype == torch.bfloat16:
+        out = gkernel.launch(tok, w)
+        ref = grouped_matmul_ref(tok, w)
+        ferr = (out.float() - ref.float()).abs().max().item()
+        if not torch.allclose(out.float(), ref.float(), **TOL_BF16):
+            raise AssertionError(f"grouped_matmul {what} C {C}: max abs "
+                                 f"{ferr:.3g} beyond {TOL_BF16}")
+        del out, ref
+        fms = time_ms(lambda: gkernel.launch(tok, w), iters=iters, warmup=1)
+        flib = time_ms(lambda: torch.bmm(xs, w), iters=iters, warmup=1)
+        fbnd, fby = gmm_bound(E, C, D, F, 2, broadcast)
+        rec["forward"] = dict(shape=[E, C, D, F], broadcast=broadcast,
+                              variant=gkernel.choose_variant(tok, w),
+                              max_abs_err=ferr, ms=fms, library_ms=flib,
+                              bound_ms=fbnd, bound_by=fby)
+        log(f"moe_train/grouped_matmul {what} {(E, C, D, F)} bf16 "
+            f"({rec['forward']['variant']}): max_abs_err {ferr:.3g}; kernel "
+            f"{fms:.4f} ms torch.bmm {flib:.4f} ms ({fms / flib:.3f}x) "
+            f"bound {fbnd:.4f} ms ({fby})")
+    del tok, w, dy, xs, wt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def gmm_bwd_checks(arch) -> dict:
+    """(a) The grouped matmul's backward at every case of GMM_BWD_CASES,
+    bf16 (``wmma``) and float32 (``simt``): both variants must be
+    launched.  Returns the ``grouped_matmul_bwd`` record (its main numbers
+    the dense LM's bf16 case; ``shapes`` every case) and the forward's
+    numbers at the capacity-packed and dense LM's C."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(23)
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    E, D, F = arch.n_experts, arch.d_model, arch.d_ff
+    cases = [gmm_bwd_case(rn, E, D, F, what, C, bc, dtype)
+             for dtype in (torch.bfloat16, torch.float32)
+             for what, C, bc in GMM_BWD_CASES]
+    ran = sorted({c["variant"] for c in cases})
+    if ran != ["simt", "wmma"]:
+        raise AssertionError(f"grouped_matmul_bwd: the cases launched {ran}")
+    head = next(c for c in cases if c["what"] == "dense LM" and
+                c["dtype"] == "bfloat16")
+    record = {k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by",
+                                   "faults")}
+    record.update(shape=head["shape"], row_limit=BWD_BF16_ROW,
+                  row_gap=max(c["row_gap"] for c in cases
+                              if c["dtype"] == "bfloat16"),
+                  shapes=[{k: v for k, v in c.items() if k != "forward"}
+                          for c in cases])
+    forward = [c["forward"] for c in cases
+               if "forward" in c and c["shape"][1] != 256]
+    return record, forward
+
+
+def moe_ep_checks(layer, arch, mesh) -> None:
+    """(b) One full-width MoE layer, MOE_EP_TOKENS tokens (4 x 64), through
+    ``moe_ep`` and ``moe_ep2d`` on the one-card NCCL mesh: at capacity
+    factor MOE_EP_ROOMY (nothing dropped) within MOE_EP_RTOL of
+    ``moe_dense`` (max |ep − dense| / max(1, max |dense|)); at the
+    configured factor with its drops counted and the output finite; two
+    calls bitwise."""
+    import torch
+    from repro_torch.models import moe
+    g = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.randn((4, MOE_EP_TOKENS // 4, arch.d_model), generator=g,
+                    device="cuda").to(arch.torch_dtype)
+    for cf in (MOE_EP_ROOMY, arch.capacity_factor):
+        cfg = dataclasses.replace(arch, capacity_factor=cf)
+        xt = x.reshape(-1, arch.d_model)
+        _, w, idx = moe._router(layer, xt, arch.top_k)
+        cap = moe._capacity(cfg, xt.shape[0])
+        _, meta = moe._dispatch_local(xt, w, idx, arch.n_experts, cap)
+        drops = int((~meta["keep"]).sum())
+        dense, _ = moe.moe_dense(layer, x, cfg)
+        scale = max(1.0, dense.float().abs().max().item())
+        for mode in ("ep", "ep2d"):
+            fn = getattr(moe, f"moe_{mode}")
+            y, aux = fn(layer, x, cfg, mesh)
+            again, _ = fn(layer, x, cfg, mesh)
+            gap = (y.float() - dense.float()).abs().max().item() / scale
+            log(f"moe_train/{mode} capacity factor {cf} (C {cap} of "
+                f"{xt.shape[0]} tokens x top-{arch.top_k}, {drops} "
+                f"assignments dropped): max |{mode} - dense| / max(1, max "
+                f"|dense|) {gap:.4g} (limit {MOE_EP_RTOL} without drops), "
+                f"aux {aux.item():.5f}; two calls bitwise")
+            if not torch.equal(y, again):
+                raise AssertionError(f"moe {mode}: two calls differ")
+            if not torch.isfinite(y).all() or y.shape != x.shape:
+                raise AssertionError(f"moe {mode}: bad output")
+            if cf == MOE_EP_ROOMY and (drops or not gap <= MOE_EP_RTOL):
+                raise AssertionError(f"moe {mode}: {gap:.4g} from dense "
+                                     f"with {drops} drops")
+        del dense, y, again
+    torch.cuda.empty_cache()
+
+
+def moe_flash_bwd(rn) -> dict:
+    """The flash backward at DBRX's attention (FLASH_BWD_DBRX: 48 query /
+    8 KV heads of 128, causal) against its plain version with planted
+    faults, timed beside SDPA's backward (K/V repeated per group) and the
+    bound.  Returns its record."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_ref
+    shape, causal = FLASH_BWD_DBRX
+    gaps, err, faults, args, ran = flash_bwd_case(
+        rn, shape, causal, 0, torch.bfloat16, path=True, tag="moe_train")
+    if ran != "wgmma":
+        raise AssertionError(f"moe_train flash bwd: took {ran}")
+    q, k, v, out, dout, lse = args
+    r = dict(shape=list(q.shape), kv_heads=k.shape[1], causal=causal,
+             max_abs_err=err, row_gap=max(gaps), row_limit=BWD_BF16_ROW,
+             faults=faults)
+    r["ms"] = time_ms(lambda: fkernel.launch_backward(*args, causal, 0),
+                      iters=10, warmup=2)
+    r["plain_ms"] = time_ms(lambda: flash_attention_bwd_ref(
+        *args, causal, 0), iters=2, warmup=1)
+    grp = q.shape[1] // k.shape[1]
+    with torch.enable_grad():
+        qg, kg, vg = (t.detach().requires_grad_() for t in (
+            q, k.repeat_interleave(grp, 1), v.repeat_interleave(grp, 1)))
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        r["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            o, (qg, kg, vg), dout, retain_graph=True), iters=10, warmup=2)
+    r["bound_ms"], r["bound_by"] = flash_bwd_bound(q, k, causal, 0)
+    log(f"kernel/flash_attention_bwd at DBRX's {r['shape']} Hkv "
+        f"{r['kv_heads']} causal: wgmma {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, SDPA backward {r['library_ms']:.4f} ms "
+        f"({r['ms'] / r['library_ms']:.2f}x), bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}): {100 * r['bound_ms'] / r['ms']:.2f}% of the "
+        f"bound's rate; row gap {r['row_gap']:.3g}, least fault "
+        f"{min(faults.values()):.3g}")
+    del args, q, k, v, out, dout, lse, o, qg, kg, vg
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_moe_train():
+    """The MoE training path (DBRX-132B, MOE_LAYERS blocks at the
+    published widths, bf16): (a) ``gmm_bwd_checks``; the flash backward
+    at DBRX's attention (``moe_flash_bwd``); (b) ``moe_ep_checks`` on a
+    one-card NCCL mesh (``make_debug_mesh``, torn down at the end); (d)
+    the ``train`` CLI on the reduced config (float32: the ``simt``
+    variants) for LM_TRAIN_STEPS steps, counters read after every step,
+    its losses within LM_LOSS_RTOL of the same CLI's on the CPU; at full
+    width, B x S = MOE_TRAIN_BATCH x MOE_TRAIN_SEQ, ``loss_and_grads``
+    dense and expert-parallel (``make_runtime``), each counted from zero
+    just before: per layer 3 grouped matmuls and 1 flash forward with as
+    many backward launches; loss, wall, device ms, events, idle and peak
+    memory; the reduced config's gradients on the card against the CPU
+    port, dense and expert-parallel, within LM_GRAD_RTOL, another batch's
+    outside.  Returns (records, launches of the path's runs)."""
+    import copy
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.core import prng
+    from repro_torch.device import deterministic_cuda
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.grouped_matmul import kernel as gkernel
+    from repro_torch.launch import shapes, train
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import api
+    from repro_torch.models.transformer import CPU
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    deterministic_cuda()
+    card = card_line()
+    kmods = (fkernel, gkernel)
+    arch = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_LAYERS)
+    record, forward = gmm_bwd_checks(arch)                     # (a)
+    g = torch.Generator(device="cuda").manual_seed(25)
+    flash = moe_flash_bwd(lambda *s: torch.randn(s, generator=g,
+                                                 device="cuda"))
+    mesh = make_debug_mesh()
+    log(f"moe_train/mesh: {mesh} over {dist.get_backend()}, world size "
+        f"{dist.get_world_size()}")
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # (d) the CLI on the reduced config, card and CPU
+    small = reduced(get_arch(MOE_ARCH))
+    L = small.n_layers
+    per_cli = {"grouped_matmul": 3 * L, "grouped_matmul/simt": 3 * L,
+               "grouped_matmul/wgmma": 0, "grouped_matmul/wmma": 0,
+               "flash_attention": L, "flash_attention/simt": L,
+               "flash_attention/wgmma": 0}
+    per_cli = with_backward(per_cli, "grouped_matmul", "flash_attention",
+                            variant="simt")             # float32
+
+    def on_step(i, params, opt, metrics):
+        torch.cuda.synchronize()
+        got = lm_counts(*kmods)
+        check_lm_launches(f"moe_train cli step {i}", got, per_cli, 1)
+        add(got)
+        for kmod in kmods:
+            kmod.reset_counts()
+
+    argv = ["--arch", MOE_ARCH, "--reduced", "--steps", str(LM_TRAIN_STEPS)]
+    for kmod in kmods:                           # --- main path starts
+        kmod.reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        losses = train.main(argv + ["--device", "cuda"], on_step=on_step)
+        card_s = time.perf_counter() - t0
+        cpu_losses = train.main(argv + ["--device", "cpu"])
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)]
+    log(f"moe_train/cli: {' '.join(argv)} --device cuda: {card_s:.2f} s; "
+        f"losses {[round(x, 4) for x in losses]}; against the CPU CLI's "
+        f"largest relative gap {max(gaps):.3g} (limit {LM_LOSS_RTOL})")
+    if len(losses) != LM_TRAIN_STEPS or not max(gaps) <= LM_LOSS_RTOL:
+        raise AssertionError(f"moe_train cli: losses {losses} against the "
+                             f"CPU's {cpu_losses}")
+
+    # (d) full width: loss and gradients, dense and expert-parallel
+    key = prng.PRNGKey(0, device="cuda")
+    t0 = time.perf_counter()
+    lm = api.init_params(key, arch, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    log(f"moe_train/init: {MOE_ARCH} LM of {n_params} parameters "
+        f"({arch.n_layers} layers, bf16) in {time.perf_counter() - t0:.2f} "
+        f"s; device memory {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    moe_ep_checks(lm.layers[0].moe, arch, mesh)                # (b)
+    batch = train.build_batch(prng.fold_in(key, 0), arch, MOE_TRAIN_BATCH,
+                              MOE_TRAIN_SEQ)
+    n = arch.n_layers
+    per_step = with_backward(
+        {"grouped_matmul": 3 * n, "grouped_matmul/wgmma": 3 * n,
+         "grouped_matmul/wmma": 0, "grouped_matmul/simt": 0,
+         "flash_attention": n, "flash_attention/wgmma": n,
+         "flash_attention/simt": 0}, "grouped_matmul", "flash_attention")
+    steps = {}
+    for mode, rt in (("dense", CPU), ("ep", shapes.make_runtime(mesh))):
+        run = lambda: shapes.loss_and_grads(lm, batch, arch, rt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kmod in kmods:
+            kmod.reset_counts()
+        t0 = time.perf_counter()
+        loss, grads = run()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        got = lm_counts(*kmods)
+        check_lm_launches(f"moe_train {mode}", got, per_step, 1)
+        add(got)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        bad = [k for k, v in grads.items() if not torch.isfinite(v).all()]
+        if bad or not torch.isfinite(loss):
+            raise AssertionError(f"moe_train {mode}: not finite: {bad[:5]}")
+        del grads
+        step_ms = time_ms(run, iters=2, warmup=0)
+        prof = device_ms(f"moe_train/{mode}", run, n=1, top=8,
+                         shares=["gmm_bwd", "gmm_wgmma", "flash_bwd"],
+                         per="step")
+        idle = "not measured" if prof["_ms"] is None else \
+            f"{100 * (1 - prof['_ms'] / step_ms):.1f}%"
+        steps[mode] = dict(loss=loss.item(), wall_ms=step_ms,
+                           device_ms=prof["_ms"], events=prof["_events"],
+                           peak_gb=peak, gmm_bwd_ms=prof["gmm_bwd"])
+        log(f"moe_train/{mode}: loss_and_grads B={MOE_TRAIN_BATCH} "
+            f"S={MOE_TRAIN_SEQ}: loss {loss.item():.5f}; first call "
+            f"{first:.3f} s; wall {step_ms:.3f} ms (events), device "
+            f"{fmt_ms(prof['_ms'])} over {prof['_events']} events, idle "
+            f"{idle}; peak memory {peak:.2f} GB; the backward kernel "
+            f"{fmt_ms(prof['gmm_bwd'])} a step over {prof['gmm_bwd/events']}"
+            f" events; launches {got}; card {card}")
+        if mode == "dense" and prof["gmm_bwd"] is not None:
+            record["card_ms"] = prof["gmm_bwd"] / (3 * n)
+            record["card_events"] = prof["gmm_bwd/events"] / (3 * n)
+    record["steps"] = steps
+    del lm, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the reduced config's gradients, card against the CPU port
+    m_card = api.init_params(prng.PRNGKey(0), small, "cuda")
+    m_cpu = copy.deepcopy(m_card).to("cpu")
+    b1, b2 = (train.build_batch(prng.fold_in(key, i), small, 2,
+                                MOE_GRAD_SEQ) for i in (1, 2))
+    on_cpu = lambda b: {k: v.cpu() for k, v in b.items()}
+    card_grads = {"dense": shapes.loss_and_grads(m_card, b1, small),
+                  "ep": shapes.loss_and_grads(m_card, b1, small,
+                                              shapes.make_runtime(mesh))}
+    dist.destroy_process_group()                 # the card's NCCL mesh
+    cpu_mesh = make_debug_mesh(device="cpu")
+    try:
+        for mode, rt in (("dense", CPU),
+                         ("ep", shapes.make_runtime(cpu_mesh))):
+            l_card, g_card = card_grads[mode]
+            l_cpu, g_cpu = shapes.loss_and_grads(m_cpu, on_cpu(b1), small, rt)
+            _, g_other = shapes.loss_and_grads(m_cpu, on_cpu(b2), small, rt)
+            loss_gap = abs(l_card.item() - l_cpu.item()) / abs(l_cpu.item())
+            gaps = grad_gaps(g_card, g_cpu)
+            control = grad_gaps(g_card, g_other)
+            worst = max(gaps, key=gaps.get)
+            median = lambda d: sorted(d.values())[len(d) // 2]
+            log(f"moe_train/card_vs_cpu {mode} (reduced, B=2, "
+                f"S={MOE_GRAD_SEQ}): loss card {l_card.item():.6f} cpu "
+                f"{l_cpu.item():.6f} (rel {loss_gap:.3g}); gradient leaves "
+                f"median {median(gaps):.4g}, worst {gaps[worst]:.4g} "
+                f"({worst}), limit {LM_GRAD_RTOL}; control median "
+                f"{median(control):.4g}")
+            if not (loss_gap <= LM_LOSS_RTOL and
+                    gaps[worst] <= LM_GRAD_RTOL):
+                raise AssertionError(f"moe_train {mode}: card vs cpu beyond "
+                                     f"the limits: loss {loss_gap:.3g}, "
+                                     f"{worst} {gaps[worst]:.3g}")
+            if not median(control) > LM_GRAD_RTOL:
+                raise AssertionError(f"moe_train {mode}: the gradient check "
+                                     "passed another batch's gradients")
+    finally:
+        dist.destroy_process_group()
+    del m_card, m_cpu, card_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"moe_train/phase_s: {time.perf_counter() - t_phase:.1f}; card "
+        f"{card}")
+    return dict(grouped_matmul_bwd=record, capacity_shapes=forward,
+                flash_bwd=flash), launches
+
+
 @contextlib.contextmanager
 def flash_tally(fkernel):
     """While active, counts the flash forward and backward launches by
@@ -4051,6 +4639,7 @@ def main() -> int:
     dit_records, dit_launches = phase_dit()
     phase_grouped_matmul()
     moe_records, moe_launches = phase_moe()
+    moe_train_records, moe_train_launches = phase_moe_train()
     lm_records, lm_launches = phase_lm_serve()
     train_records, lm_train_launches = phase_lm_train()
     whisper_records, whisper_launches, whisper_train_launches = \
@@ -4072,12 +4661,18 @@ def main() -> int:
         whisper_records["bwd_encoder"]
     records["flash_attention_bwd"]["whisper_decoder"] = \
         whisper_records["bwd_decoder"]
-    # launches of the ten main paths (each counted from zero just before
-    # it)
+    records["flash_attention_bwd"]["dbrx_train"] = \
+        moe_train_records["flash_bwd"]
+    records["grouped_matmul"]["capacity_shapes"] = \
+        moe_train_records["capacity_shapes"]
+    records["grouped_matmul_bwd"] = moe_train_records["grouped_matmul_bwd"]
+    # launches of the eleven main paths (each counted from zero just
+    # before it)
     by_path = dict(zip(PATHS, (launches, train_launches, runtime_launches,
                                eval_launches, dit_launches, moe_launches,
-                               lm_launches, lm_train_launches,
-                               whisper_launches, whisper_train_launches)))
+                               moe_train_launches, lm_launches,
+                               lm_train_launches, whisper_launches,
+                               whisper_train_launches)))
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in set().union(*by_path.values())}
     log(f"total_s: {time.perf_counter() - t_start:.1f}")

@@ -7,9 +7,11 @@ predicts the noise of each patch.
 
 * dense / moe / vlm families: bidirectional attention blocks
   (``causal=False``; the model then ignores any sliding window, as in
-  JAX); an MoE block runs every expert on every token (JAX's one-device
-  ``moe_dense``) with its expert products through the hand-written CUDA
-  grouped-matmul kernel on the card;
+  JAX); an MoE block runs in the mode the ``runtime`` picks
+  (models/transformer.py ``Runtime``; the default ``CPU`` gives
+  ``moe_dense``, every expert on every token, and a mesh ``moe_ep`` or
+  ``moe_ep2d``), with its expert products through the hand-written CUDA
+  grouped-matmul kernels on the card (the backward kernel under grad);
 * ssm / hybrid families: Mamba2 layers, a causal scan over the raster
   order, and for the hybrid (Zamba2) one shared attention+MLP block,
   bidirectional, after every ``shared_attn_every`` layers.  The SSD scan
@@ -21,7 +23,7 @@ predicts the noise of each patch.
 ``bridge.load_dit`` fills one from a JAX tree; ``init_dit`` draws the
 weights with the port's threefry in JAX's key order, so both packages
 hold the same weights for the same key.  ``dit_apply(params, x, t, y,
-arch, dit)`` is the denoiser signature of core/protocol.
+arch, dit, runtime)`` is the denoiser signature of core/protocol.
 """
 from __future__ import annotations
 
@@ -38,8 +40,9 @@ from repro_torch.models.hybrid import _grouping, _split_groups
 from repro_torch.models.layers import (dense, fill, fill_dense, rmsnorm,
                                        rmsnorm_init, sinusoidal_embedding)
 from repro_torch.models.ssm import Mamba, fill_mamba, mamba_forward
-from repro_torch.models.transformer import (Block, _scan_blocks, block_apply,
-                                            fill_block, stacked_init)
+from repro_torch.models.transformer import (CPU, Block, Runtime, _scan_blocks,
+                                            block_apply, fill_block,
+                                            stacked_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,25 +132,26 @@ def init_dit(key: torch.Tensor, arch: ArchConfig, dit: DiTConfig,
     return model
 
 
-def _backbone(params: DiT, h, arch: ArchConfig):
+def _backbone(params: DiT, h, arch: ArchConfig, runtime: Runtime = CPU):
     N = h.shape[1]
     positions = torch.arange(N, device=h.device)[None]
     if not _is_ssm(arch):
         return _scan_blocks(params.layers, h, arch, positions,
-                            causal=False)[0]
+                            causal=False, runtime=runtime)[0]
     g, G, _ = _grouping(arch)
     head, tail = _split_groups(params.mamba, g, G)
     for group in head:
         for layer in group:
             h = mamba_forward(layer, h, arch)
         h, _, _ = block_apply(params.shared, h, arch, positions,
-                              causal=False)
+                              causal=False, runtime=runtime)
     for layer in tail:
         h = mamba_forward(layer, h, arch)
     return h
 
 
-def dit_apply(params: DiT, x, t, y, arch: ArchConfig, dit: DiTConfig):
+def dit_apply(params: DiT, x, t, y, arch: ArchConfig, dit: DiTConfig,
+              runtime: Runtime = CPU):
     """x: (B, H, W, C); t: (B,) real timesteps; y: (B, n_classes)
     multi-hot.  Returns ε̂ (B, H, W, C) in float32."""
     B, H, W, C = x.shape
@@ -159,14 +163,14 @@ def dit_apply(params: DiT, x, t, y, arch: ArchConfig, dit: DiTConfig):
     cond = tm["w2"](F.silu(tm["w1"](temb)))
     cond = cond + params.label_proj(y.to(cond.dtype))
     h = h + cond[:, None, :]
-    h = _backbone(params, h, arch)
+    h = _backbone(params, h, arch, runtime)
     h = rmsnorm(params.final_norm, h, arch.norm_eps)
     out = params.patch_out(h)
     return unpatchify(out.float(), dit.patch_size, H, W, C).contiguous()
 
 
-def make_dit_apply(arch: ArchConfig, dit: DiTConfig):
+def make_dit_apply(arch: ArchConfig, dit: DiTConfig, runtime: Runtime = CPU):
     """The samplers' ``apply_fn(params, x_t, t, y)``."""
     def f(params, x_t, t, y):
-        return dit_apply(params, x_t, t, y, arch, dit)
+        return dit_apply(params, x_t, t, y, arch, dit, runtime)
     return f

@@ -19,18 +19,18 @@ def refuse_grad(kernel: str, *tensors) -> None:
     """Raise if autograd would need a gradient through a raw ``launch``:
     an output filled through ctypes carries no ``grad_fn``, so a loss on
     the card would otherwise train nothing upstream of the kernel without
-    an error.  Two kernels have a backward kernel: ``ops.flash_attention``
-    and ``ops.ssd_scan`` route an input that needs grad through their
-    ``torch.autograd.Function`` (whose forward calls ``launch`` with grad
-    off), but their raw ``launch`` still refuses, as the DDPM step's and
-    the grouped matmul's do (those have no backward).  Under ``no_grad``
-    (the samplers) or with no input that requires grad, it returns.  The
-    plain versions on the CPU stay differentiable."""
+    an error.  Three kernels have a backward kernel: ``ops.flash_attention``,
+    ``ops.ssd_scan`` and ``ops.grouped_matmul`` route an input that needs
+    grad through their ``torch.autograd.Function`` (whose forward calls
+    ``launch`` with grad off), but their raw ``launch`` still refuses, as
+    the DDPM step's does (it has no backward).  Under ``no_grad`` (the
+    samplers) or with no input that requires grad, it returns.  The plain
+    versions on the CPU stay differentiable."""
     if torch.is_grad_enabled() and any(
             torch.is_tensor(t) and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{kernel}: the CUDA kernel's raw launch has no backward; an "
             "input requires grad with grad enabled.  Run it under "
             "torch.no_grad(), go through the op's autograd route where it "
-            "has one (flash_attention, ssd_scan), or train on the CPU (the "
-            "plain version is differentiable)")
+            "has one (flash_attention, ssd_scan, grouped_matmul), or train "
+            "on the CPU (the plain version is differentiable)")

@@ -1,5 +1,7 @@
 """Loader and launch of the CUDA grouped-matmul kernels
-(csrc/grouped_matmul.cu), built with nvcc on first use (kernels/build.py).
+(csrc/grouped_matmul.cu) and of their backward
+(csrc/grouped_matmul_bwd.cu), built with nvcc on first use
+(kernels/build.py).
 
 ``choose_variant`` picks the kernel from dtype, shape, strides and
 alignment alone: ``wgmma`` (bf16 through TMA and wgmma, warp-specialised
@@ -8,10 +10,17 @@ and persistent) wherever its loads can be described by tensor maps,
 (CUDA cores) for float32.  ``tma_maps`` computes the wgmma variant's
 tensor maps.
 
+``launch_backward`` runs the backward's two products (dX = dY·Wᵀ and
+dW = Xᵀ·dY) in the variant that ``choose_variant_backward`` picks from
+the dtype: ``wmma`` (bf16 on the tensor cores) or ``simt`` (float32 on
+the CUDA cores).
+
 ``COUNTS["grouped_matmul"]`` and the variant's
 ``COUNTS["grouped_matmul/<variant>"]`` are bumped only where a kernel is
-launched, so a run can show that its path went through the kernel, and
-through which one.
+launched, ``COUNTS["grouped_matmul_bwd"]`` and
+``COUNTS["grouped_matmul_bwd/<variant>"]`` where the backward is, so a
+run can show that its path went through the kernels, and through which
+ones.
 """
 from __future__ import annotations
 
@@ -24,10 +33,16 @@ from repro_torch.kernels import build, raw_stream, refuse_grad
 from repro_torch.kernels.tma import BF16_BYTES, TmaMap, as_ctypes
 
 SOURCE = "grouped_matmul.cu"
+BWD_SOURCE = "grouped_matmul_bwd.cu"
 VARIANTS = ("wgmma", "wmma", "simt")
+BWD_VARIANTS = ("wmma", "simt")
 COUNTS: Dict[str, int] = {"grouped_matmul": 0,
-                          **{f"grouped_matmul/{v}": 0 for v in VARIANTS}}
+                          **{f"grouped_matmul/{v}": 0 for v in VARIANTS},
+                          "grouped_matmul_bwd": 0,
+                          **{f"grouped_matmul_bwd/{v}": 0
+                             for v in BWD_VARIANTS}}
 _VARIANT_CODES = {"simt": 0, "wmma": 1, "wgmma": 2}
+_BWD_CODES = {"simt": 0, "wmma": 1}
 # the wgmma variant's tile (csrc/grouped_matmul.cu, namespace wg): all of
 # C = 256 token rows, 64 of depth a stage, weights in boxes of 64 columns
 TILE_C, TILE_D, BOX_F = 256, 64, 64
@@ -38,6 +53,10 @@ _TILE_F = 64            # the smaller of the older variants' F-tiles
 # tokens map, weights map, stream
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
     [ctypes.c_longlong] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+# tokens, weights, dout, dtokens, dweights, E, C, D, F, stride_e,
+# stride_c, variant, stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
+    [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
 
 
 def reset_counts() -> None:
@@ -88,40 +107,53 @@ def tma_maps(E: int, C: int, D: int, F: int, se: int,
     return tok, w
 
 
+def _check_operands(what: str, tokens: torch.Tensor,
+                    weights: torch.Tensor) -> Tuple[int, int, int, int]:
+    """(E, C, D, F) of tokens (E, C, D) with a unit inner stride and
+    contiguous weights (E, D, F) of one dtype, float32 or bfloat16;
+    raises otherwise."""
+    if tokens.ndim != 3 or weights.ndim != 3:
+        raise ValueError(f"{what}: tokens {tuple(tokens.shape)} and weights "
+                         f"{tuple(weights.shape)} need 3 dimensions")
+    if tokens.dtype not in (torch.float32, torch.bfloat16) or \
+            weights.dtype != tokens.dtype:
+        raise TypeError(f"{what} takes float32 or bfloat16 of one dtype, "
+                        f"got {tokens.dtype} and {weights.dtype}")
+    E, C, D = tokens.shape
+    F = weights.shape[-1]
+    if weights.shape != (E, D, F):
+        raise ValueError(f"{what}: tokens {tuple(tokens.shape)} do not fit "
+                         f"weights {tuple(weights.shape)}")
+    if not weights.is_contiguous():
+        raise ValueError(f"{what}: weights are not contiguous")
+    if D > 1 and tokens.stride(2) != 1:
+        raise ValueError(f"{what}: tokens need a unit inner stride, got "
+                         f"strides {tokens.stride()}")
+    return E, C, D, F
+
+
+def _check_device(what: str, tensors: Dict[str, torch.Tensor]) -> None:
+    dev = next(iter(tensors.values())).device
+    for name, a in tensors.items():
+        if a.device.type != "cuda" or a.device != dev:
+            raise ValueError(f"{what}: {name} on {a.device}, expected one "
+                             "CUDA device")
+
+
 def launch(tokens: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Run a kernel on CUDA tensors tokens (E, C, D) — any expert and
     row strides (0 for tokens broadcast to every expert), unit inner
     stride — and contiguous weights (E, D, F) of the same dtype (float32
     or bfloat16).  Returns a new contiguous (E, C, F) tensor of that
-    dtype.  Refuses inputs that need a gradient (no backward yet)."""
+    dtype.  Refuses inputs that need a gradient: ``ops.GroupedMatmulFn``
+    is the autograd route, with ``launch_backward`` in its backward."""
     refuse_grad("grouped_matmul", tokens, weights)
-    if tokens.ndim != 3 or weights.ndim != 3:
-        raise ValueError(f"grouped_matmul kernel: tokens "
-                         f"{tuple(tokens.shape)} and weights "
-                         f"{tuple(weights.shape)} need 3 dimensions")
-    if tokens.dtype not in (torch.float32, torch.bfloat16) or \
-            weights.dtype != tokens.dtype:
-        raise TypeError(f"grouped_matmul kernel takes float32 or bfloat16 "
-                        f"of one dtype, got {tokens.dtype} and "
-                        f"{weights.dtype}")
-    E, C, D = tokens.shape
-    F = weights.shape[-1]
-    if weights.shape != (E, D, F):
-        raise ValueError(f"grouped_matmul kernel: tokens "
-                         f"{tuple(tokens.shape)} do not fit weights "
-                         f"{tuple(weights.shape)}")
-    if not weights.is_contiguous():
-        raise ValueError("grouped_matmul kernel: weights are not contiguous")
-    if D > 1 and tokens.stride(2) != 1:
-        raise ValueError("grouped_matmul kernel: tokens need a unit inner "
-                         f"stride, got strides {tokens.stride()}")
+    E, C, D, F = _check_operands("grouped_matmul kernel", tokens, weights)
     if E > _MAX_GRID_YZ or -(-F // _TILE_F) > _MAX_GRID_YZ:
         raise ValueError(f"grouped_matmul kernel: grid over "
                          f"{_MAX_GRID_YZ} for E {E}, F {F}")
-    for name, a in (("tokens", tokens), ("weights", weights)):
-        if a.device.type != "cuda" or a.device != tokens.device:
-            raise ValueError(f"grouped_matmul kernel: {name} on {a.device}, "
-                             "expected one CUDA device")
+    _check_device("grouped_matmul kernel", dict(tokens=tokens,
+                                                weights=weights))
     out = torch.empty((E, C, F), dtype=tokens.dtype, device=tokens.device)
     if out.numel() == 0:
         return out
@@ -140,3 +172,49 @@ def launch(tokens: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     COUNTS["grouped_matmul"] += 1
     COUNTS[f"grouped_matmul/{variant}"] += 1
     return out
+
+
+def choose_variant_backward(tokens: torch.Tensor, weights: torch.Tensor,
+                            dout: torch.Tensor) -> str:
+    """The backward kernel for these operands, from the dtype alone:
+    ``wmma`` for bfloat16, ``simt`` for float32 (the kernel itself picks
+    16-byte copies where strides and pointers allow)."""
+    return "wmma" if tokens.dtype == torch.bfloat16 else "simt"
+
+
+def launch_backward(tokens: torch.Tensor, weights: torch.Tensor,
+                    dout: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernels (csrc/grouped_matmul_bwd.cu) of ``launch``
+    for the gradient ``dout`` (E, C, F) of its output: tokens and weights
+    as for ``launch``, ``dout`` contiguous in their dtype.  Returns
+    (dtokens, dweights): dY·Wᵀ as a new contiguous (E, C, D) tensor (one
+    slab per expert, also for tokens broadcast with expert stride 0) and
+    Xᵀ·dY as a new contiguous (E, D, F) tensor, in the inputs' dtype.
+    Shapes, types and strides are checked first, the device last."""
+    what = "grouped_matmul backward kernel"
+    E, C, D, F = _check_operands(what, tokens, weights)
+    if dout.shape != (E, C, F) or dout.dtype != tokens.dtype or \
+            not dout.is_contiguous():
+        raise ValueError(f"{what}: dout is {tuple(dout.shape)} "
+                         f"{dout.dtype}, expected a contiguous {(E, C, F)} "
+                         f"{tokens.dtype}")
+    if E > _MAX_GRID_YZ or -(-max(D, F) // _TILE_F) > _MAX_GRID_YZ:
+        raise ValueError(f"{what}: grid over {_MAX_GRID_YZ} for E {E}, D "
+                         f"{D}, F {F}")
+    _check_device(what, dict(tokens=tokens, weights=weights, dout=dout))
+    variant = choose_variant_backward(tokens, weights, dout)
+    dtok = torch.empty((E, C, D), dtype=tokens.dtype, device=tokens.device)
+    dw = torch.empty((E, D, F), dtype=tokens.dtype, device=tokens.device)
+    if dtok.numel() == 0 or dw.numel() == 0 or C == 0 or F == 0:
+        return dtok.zero_(), dw.zero_()
+    se, sc = token_strides(tokens)
+    rc = build.bind(BWD_SOURCE, "grouped_matmul_bwd_launch", _BWD_ARGTYPES)(
+        tokens.data_ptr(), weights.data_ptr(), dout.data_ptr(),
+        dtok.data_ptr(), dw.data_ptr(), E, C, D, F, se, sc,
+        _BWD_CODES[variant], raw_stream(tokens.device.index))
+    if rc != 0:
+        raise RuntimeError(f"grouped_matmul backward kernel ({variant}) "
+                           f"launch failed: cudaError {rc}")
+    COUNTS["grouped_matmul_bwd"] += 1
+    COUNTS[f"grouped_matmul_bwd/{variant}"] += 1
+    return dtok, dw

@@ -16,9 +16,9 @@ d_model) are drawn in float32 with ``prng.normal`` and cast to the
 model's type (the reference draws them in that type; equal for float32
 models); the audio family's tokens and labels are cut to
 ``min(max_decoder_len, seq)``.
-On the card, attention and the SSD scan train through their backward
-kernels; an MoE architecture's grouped matmul has no backward kernel yet
-and refuses.  ``--checkpoint`` saves the parameters and the AdamW state
+On the card, attention, the SSD scan and an MoE architecture's grouped
+matmul train through their backward kernels.  The runtime is the
+reference's ``Runtime()``: no mesh, MoE dense.  ``--checkpoint`` saves the parameters and the AdamW state
 by parameter name (checkpointing/checkpoint.py); ``restore`` reads them
 back into a model.
 """

@@ -3,23 +3,25 @@
 The port of the JAX package's ``models/api.py``:
 
   init_params(key, cfg, device)                 -> the model's module
-  loss_fn(params, batch, cfg)                   -> scalar loss (train_4k)
-  prefill_fn(params, batch, cfg, cache_len)     -> (logits, state)
+  loss_fn(params, batch, cfg, runtime)          -> scalar loss (train_4k)
+  prefill_fn(params, batch, cfg, runtime, cache_len) -> (logits, state)
   init_decode_state(cfg, batch, seq, dtype, device) -> state
-  decode_fn(params, token, state, pos, cfg)     -> (logits, state)
+  decode_fn(params, token, state, pos, cfg, runtime) -> (logits, state)
 
 for every family: dense, moe and vlm (models/transformer.py, vlm.py),
 ssm and hybrid (models/hybrid.py), and audio (whisper's encoder-decoder,
 models/encdec.py: ``loss_fn`` and ``prefill_fn`` take ``frames`` as
 well; ``prefill_fn`` ignores ``cache_len``, the decoder's cache is
 ``max_decoder_len`` long; ``init_decode_state``'s ``seq_len`` is the
-encoder's length).  No ``Runtime``: one device, MoE as JAX's one-device
-``moe_dense``.  The decode state is per-layer lists
-(models/transformer.py, models/hybrid.py, models/encdec.py) where JAX
-stacks a leading layer axis.  On the card, ``loss_fn`` under grad runs
-attention and the SSD scan through their kernels' autograd routes (a
-backward kernel each); the MoE family's grouped matmul has no backward
-kernel yet and refuses.
+encoder's length).  ``runtime`` (models/transformer.py ``Runtime``,
+default ``CPU``) picks the MoE family's mode as in JAX: ``moe_dense``
+without a mesh, ``moe_ep`` or ``moe_ep2d`` over a ``DeviceMesh``
+(launch/shapes.py ``make_runtime`` / ``runtime_for``).  The decode state
+is per-layer lists (models/transformer.py, models/hybrid.py,
+models/encdec.py) where JAX stacks a leading layer axis.  On the card,
+``loss_fn`` under grad runs attention, the SSD scan and the MoE's
+grouped matmul through their kernels' autograd routes (a backward
+kernel each).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from typing import Dict
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, hybrid, transformer, vlm
+from repro_torch.models.transformer import CPU, Runtime
 
 SSM_FAMILIES = ("ssm", "hybrid")
 
@@ -44,32 +47,34 @@ def init_params(key: torch.Tensor, cfg: ArchConfig, device=None):
     return transformer.init_lm_params(key, cfg)
 
 
-def loss_fn(params, batch: Dict, cfg: ArchConfig):
+def loss_fn(params, batch: Dict, cfg: ArchConfig, runtime: Runtime = CPU):
     """The training loss of ``batch`` ({tokens, labels}, and
     vision_embeds for the vlm family, frames for the audio family), a
     0-dim float32 tensor."""
     if cfg.family in SSM_FAMILIES:
-        return hybrid.hybrid_loss(params, batch, cfg)
+        return hybrid.hybrid_loss(params, batch, cfg, runtime)
     if cfg.family == "audio":
-        return encdec.encdec_loss(params, batch, cfg)
+        return encdec.encdec_loss(params, batch, cfg, runtime)
     if cfg.family == "vlm":
-        return vlm.vlm_loss(params, batch, cfg)
-    return transformer.lm_loss(params, batch, cfg)
+        return vlm.vlm_loss(params, batch, cfg, runtime)
+    return transformer.lm_loss(params, batch, cfg, runtime)
 
 
-def prefill_fn(params, batch: Dict, cfg: ArchConfig, cache_len=None):
+def prefill_fn(params, batch: Dict, cfg: ArchConfig, runtime: Runtime = CPU,
+               cache_len=None):
     """cache_len: the KV buffer's size (prompt + decode budget).  It
     defaults to the prompt's length, i.e. no decode headroom: servers pass
     prompt_len + max_new_tokens (clipped to the sliding window if any)."""
     if cfg.family in SSM_FAMILIES:
-        return hybrid.hybrid_prefill(params, batch["tokens"], cfg,
+        return hybrid.hybrid_prefill(params, batch["tokens"], cfg, runtime,
                                      cache_len=cache_len)
     if cfg.family == "audio":
         return encdec.encdec_prefill(params, batch["frames"],
-                                     batch["tokens"], cfg)
+                                     batch["tokens"], cfg, runtime)
     if cfg.family == "vlm":
-        return vlm.vlm_prefill(params, batch, cfg, cache_len=cache_len)
-    return transformer.lm_prefill(params, batch["tokens"], cfg,
+        return vlm.vlm_prefill(params, batch, cfg, runtime,
+                               cache_len=cache_len)
+    return transformer.lm_prefill(params, batch["tokens"], cfg, runtime,
                                   cache_len=cache_len)
 
 
@@ -83,9 +88,13 @@ def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, dtype=None,
     return transformer.init_lm_cache(cfg, batch, seq_len, dtype, dev)
 
 
-def decode_fn(params, token, state, pos: int, cfg: ArchConfig):
+def decode_fn(params, token, state, pos: int, cfg: ArchConfig,
+              runtime: Runtime = CPU):
     if cfg.family in SSM_FAMILIES:
-        return hybrid.hybrid_decode_step(params, token, state, pos, cfg)
+        return hybrid.hybrid_decode_step(params, token, state, pos, cfg,
+                                         runtime)
     if cfg.family == "audio":
-        return encdec.encdec_decode_step(params, token, state, pos, cfg)
-    return transformer.lm_decode_step(params, token, state, pos, cfg)
+        return encdec.encdec_decode_step(params, token, state, pos, cfg,
+                                         runtime)
+    return transformer.lm_decode_step(params, token, state, pos, cfg,
+                                      runtime)

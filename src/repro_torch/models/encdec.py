@@ -23,7 +23,9 @@ The decode state is a list of per-layer ``{"k", "v", "cross_k",
 length C = ``max_decoder_len`` whatever the prompt (zero-padded when the
 prompt is shorter, its last C positions when it is not; the reference
 ignores ``cache_len`` and keeps no ring), and the cross K/V span every
-encoder frame.
+encoder frame.  The entry points take JAX's ``runtime``
+(models/transformer.py ``Runtime``) and pass it on; nothing here reads
+it (no MoE block, no remat in these loops).
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ from repro_torch.models.layers import (GeluMLP, LayerNorm, dense, embedding,
                                        fill_dense, fill_embedding, fill_mlp,
                                        gelu_mlp, layernorm,
                                        sinusoidal_embedding)
-from repro_torch.models.transformer import cross_entropy, stacked_init
+from repro_torch.models.transformer import (CPU, Runtime, cross_entropy,
+                                            stacked_init)
 
 
 def _attention(cfg: ArchConfig, dtype, device) -> attn.Attention:
@@ -146,7 +149,8 @@ def _positions(S: int, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def encode(params: EncDec, frames, cfg: ArchConfig):
+def encode(params: EncDec, frames, cfg: ArchConfig,
+           runtime: Runtime = CPU):
     """frames: (B, S_enc, D) stub embeddings → (B, S_enc, D)."""
     S = frames.shape[1]
     pos = _positions(S, frames.device)
@@ -184,7 +188,8 @@ def _dec_embed(params: EncDec, tokens, cfg: ArchConfig):
 
 
 def decode_train(params: EncDec, tokens, enc_out, cfg: ArchConfig,
-                 collect_kv: bool = False, cross_kv=None):
+                 runtime: Runtime = CPU, collect_kv: bool = False,
+                 cross_kv=None):
     """Teacher-forced decoder pass.  tokens: (B, S_dec).  Returns (hidden
     (B, S_dec, D), [(k, v)] per layer when ``collect_kv``, else None).
     ``cross_kv`` (``encoder_cross_kv``'s lists) saves computing the cross
@@ -217,10 +222,11 @@ def decode_train(params: EncDec, tokens, enc_out, cfg: ArchConfig,
     return layernorm(params.dec_norm, x, cfg.norm_eps), kvs
 
 
-def encdec_loss(params: EncDec, batch, cfg: ArchConfig):
+def encdec_loss(params: EncDec, batch, cfg: ArchConfig,
+                runtime: Runtime = CPU):
     """batch: frames (B, S_enc, D), tokens (B, S_dec), labels (B, S_dec)."""
-    enc = encode(params, batch["frames"], cfg)
-    hidden, _ = decode_train(params, batch["tokens"], enc, cfg)
+    enc = encode(params, batch["frames"], cfg, runtime)
+    hidden, _ = decode_train(params, batch["tokens"], enc, cfg, runtime)
     return cross_entropy(params.unembed(hidden), batch["labels"])
 
 
@@ -232,12 +238,14 @@ def _fit(t, C: int):
     return F.pad(t, (0, 0, 0, C - S)) if S < C else t[:, :, -C:]
 
 
-def encdec_prefill(params: EncDec, frames, tokens, cfg: ArchConfig):
+def encdec_prefill(params: EncDec, frames, tokens, cfg: ArchConfig,
+                   runtime: Runtime = CPU):
     """The encoder pass and the decoder prompt.  Returns (last-token
     logits (B, 1, V), the per-layer cache)."""
-    enc = encode(params, frames, cfg)
+    enc = encode(params, frames, cfg, runtime)
     cross_k, cross_v = encoder_cross_kv(params, enc, cfg)
-    hidden, kvs = decode_train(params, tokens, enc, cfg, collect_kv=True,
+    hidden, kvs = decode_train(params, tokens, enc, cfg, runtime,
+                               collect_kv=True,
                                cross_kv=(cross_k, cross_v))
     C = cfg.max_decoder_len
     cache = [{"k": _fit(k, C), "v": _fit(v, C), "cross_k": ck,
@@ -258,7 +266,7 @@ def init_encdec_cache(cfg: ArchConfig, batch: int, enc_len: int,
 
 
 def encdec_decode_step(params: EncDec, token, cache, pos: int,
-                       cfg: ArchConfig):
+                       cfg: ArchConfig, runtime: Runtime = CPU):
     """One decoder token (B, 1) against the self cache (slot pos % C) and
     the cross K/V over every encoder frame; ``pos`` a host int.  Returns
     (logits (B, 1, V), new cache); the given cache is not changed."""

@@ -30,10 +30,10 @@ from repro_torch.models.layers import (dense, embedding, fill_dense,
                                        fill_embedding, rmsnorm, rmsnorm_init)
 from repro_torch.models.ssm import (Mamba, fill_mamba, mamba_decode,
                                     mamba_forward, mamba_init_state)
-from repro_torch.models.transformer import (Block, block_apply, block_decode,
-                                            cross_entropy, fill_block,
-                                            logits_of, ring_cache,
-                                            stacked_init)
+from repro_torch.models.transformer import (CPU, Block, Runtime, block_apply,
+                                            block_decode, cross_entropy,
+                                            fill_block, logits_of,
+                                            ring_cache, stacked_init)
 
 
 def _grouping(cfg: ArchConfig) -> Tuple[int, int, int]:
@@ -84,7 +84,7 @@ def init_hybrid_params(key: torch.Tensor, cfg: ArchConfig) -> HybridLM:
 
 
 def hybrid_forward(params: HybridLM, tokens, cfg: ArchConfig,
-                   collect_state: bool = False):
+                   runtime: Runtime = CPU, collect_state: bool = False):
     """Returns (hidden, states | None, shared_kvs | None): with
     ``collect_state`` the Mamba2 layers' decode states ``{"head",
     "tail"}`` and each shared application's full-sequence (k, v)."""
@@ -107,7 +107,8 @@ def hybrid_forward(params: HybridLM, tokens, cfg: ArchConfig,
     head_states, shared_kvs = [], []
     for group in head:
         x, st = mamba_group(x, group)
-        x, _, kv = block_apply(params.shared, x, cfg, positions)
+        x, _, kv = block_apply(params.shared, x, cfg, positions,
+                               runtime=runtime)
         head_states.append(st)
         shared_kvs.append(kv)
     x, tail_states = mamba_group(x, tail)
@@ -118,9 +119,10 @@ def hybrid_forward(params: HybridLM, tokens, cfg: ArchConfig,
         (shared_kvs if G > 0 else None)
 
 
-def hybrid_loss(params: HybridLM, batch, cfg: ArchConfig):
+def hybrid_loss(params: HybridLM, batch, cfg: ArchConfig,
+                runtime: Runtime = CPU):
     """The next-token loss of batch {tokens, labels}."""
-    hidden, _, _ = hybrid_forward(params, batch["tokens"], cfg)
+    hidden, _, _ = hybrid_forward(params, batch["tokens"], cfg, runtime)
     return cross_entropy(logits_of(params, hidden), batch["labels"])
 
 
@@ -140,10 +142,10 @@ def init_hybrid_state(cfg: ArchConfig, batch: int, seq_len: int, dtype=None,
 
 
 def hybrid_prefill(params: HybridLM, tokens, cfg: ArchConfig,
-                   cache_len: Optional[int] = None):
+                   runtime: Runtime = CPU, cache_len: Optional[int] = None):
     """Run the prompt; return (last-token logits (B, 1, V), decode
     state)."""
-    hidden, states, shared_kvs = hybrid_forward(params, tokens, cfg,
+    hidden, states, shared_kvs = hybrid_forward(params, tokens, cfg, runtime,
                                                 collect_state=True)
     S = tokens.shape[1]
     state = dict(states)
@@ -154,7 +156,7 @@ def hybrid_prefill(params: HybridLM, tokens, cfg: ArchConfig,
 
 
 def hybrid_decode_step(params: HybridLM, token, state, pos: int,
-                       cfg: ArchConfig):
+                       cfg: ArchConfig, runtime: Runtime = CPU):
     """token: (B, 1); ``state`` from ``init_hybrid_state`` or a prefill;
     ``pos`` the token's position (a host int).  Returns (logits (B, 1,
     V), new state); the given state is not changed."""
@@ -175,7 +177,7 @@ def hybrid_decode_step(params: HybridLM, token, state, pos: int,
         for group, gs, kv in zip(head, state["head"], state["shared"],
                                  strict=True):
             x, gs = mamba_group(x, group, gs)
-            x, kv = block_decode(params.shared, x, kv, pos, cfg)
+            x, kv = block_decode(params.shared, x, kv, pos, cfg, runtime)
             hs.append(gs)
             skv.append(kv)
         new_state["head"], new_state["shared"] = hs, skv

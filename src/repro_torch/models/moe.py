@@ -1,25 +1,53 @@
-"""Mixture-of-Experts layer, the one-device part.
+"""Mixture-of-Experts layer.
 
-The port of the JAX package's ``models/moe.py`` for the DiT path:
-``moe_init`` (here the ``MoE`` module and ``fill_moe``), ``_router``,
-``_aux_loss``, ``_expert_ffn``, ``moe_dense`` and ``moe_apply``.  On one
-device JAX's ``moe_apply`` is ``moe_dense``: every expert on every token,
-combined with the router's top-k weights, with no capacity and no drops.
-Its three expert products are the grouped matmul applied to the tokens
-broadcast to every expert, so here they run through
-``kernels.grouped_matmul.ops`` (the hand-written CUDA kernel on the card)
-on an ``expand`` of the tokens, which costs no copy.
+The port of the JAX package's ``models/moe.py``: ``moe_init`` (here the
+``MoE`` module and ``fill_moe``), ``_router``, ``_aux_loss``,
+``_expert_ffn``, the three modes and ``moe_apply``, which picks one from
+the ``runtime`` as JAX's does:
 
-The expert-parallel modes (``moe_ep``, ``moe_ep2d`` with
-``_dispatch_local`` / ``_combine_local`` over ``all_to_all``) are not
-ported yet.
+* ``moe_dense`` (no mesh): every expert on every token, combined with the
+  router's top-k weights, with no capacity and no drops.  Its expert
+  products take the tokens broadcast to every expert, an ``expand`` that
+  costs no copy.
+* ``moe_ep`` (a mesh, ``moe_mode="ep"``; training and prefill): tokens
+  packed into ``capacity`` slots per expert (``_dispatch_local``), sent to
+  the experts' ranks over the mesh's ``model`` group (``all_to_all``), run
+  through the local experts, sent back and combined with the router's
+  weights (``_combine_local``).  Tokens past an expert's capacity are
+  dropped, as in JAX.
+* ``moe_ep2d`` (``moe_mode="ep2d"``; decode): the weights stay put, each
+  rank holding its experts' slice of the FFN width over ``data``; the
+  tokens are gathered over the batch group, dispatched as in ``moe_ep``,
+  the partial products summed over ``data`` (``all_reduce``) and each
+  rank keeps its own rows.
+
+A rank of the mesh holds the full parameters and uses its slice of them
+(its experts, and in ``moe_ep2d`` its part of F), as JAX's ``shard_map``
+gives each device its shard; gradients reach the full tensors through
+the slices.  JAX's collectives become ``torch.distributed.nn.functional``
+ones on the mesh's process groups (launch/mesh.py), which autograd
+differentiates: ``all_to_all`` → ``all_to_all_single`` over ``model``,
+``all_gather`` over the batch axes → ``all_gather`` over ``data``,
+``psum`` → ``all_reduce``, ``axis_index`` → the rank in ``data``.  They
+run at one rank too.  The aux loss is the mean over the batch shards, the
+same value on every rank.
+
+Every expert product (three per layer) is the grouped matmul, through
+``kernels.grouped_matmul.ops`` (the hand-written CUDA kernels on the
+card, the forward and, under grad, the backward).  On CUDA ``_combine_local``
+sums a token's k rows in one fixed order (JAX scatter-adds them; an
+``index_add_`` would add them in atomic order), and ``_dispatch_local``
+writes the kept rows to their unique slots, so both are deterministic.
 """
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_fn
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -113,7 +141,214 @@ def moe_dense(params: MoE, x: torch.Tensor, cfg: ArchConfig
     return y.reshape(B, S, D), aux
 
 
-def moe_apply(params: MoE, x: torch.Tensor, cfg: ArchConfig
+# ---------------------------------------------------------------------------
+# expert-parallel modes over a DeviceMesh
+# ---------------------------------------------------------------------------
+
+
+def _collective(fn, *args, **kwargs):
+    """An autograd-aware collective of ``torch.distributed.nn.functional``
+    (newer torch marks the module deprecated; its functions still carry
+    a backward, which the plain collectives do not)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        return fn(*args, **kwargs)
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """JAX's tiled ``all_to_all`` on axis 0: equal slabs of ``t``'s rows,
+    slab j to rank j of ``group``; the result's slabs in source order."""
+    t = t.contiguous()
+    return _collective(dist_fn.all_to_all_single, torch.empty_like(t), t,
+                       group=group)
+
+
+def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    """JAX's tiled ``all_gather`` on axis 0: every rank's rows in rank
+    order."""
+    return torch.cat(_collective(dist_fn.all_gather, t.contiguous(),
+                                 group=group), dim=0)
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """``psum`` over ``group``."""
+    return _collective(dist_fn.all_reduce, t.contiguous(),
+                       op=dist.ReduceOp.SUM, group=group)
+
+
+def _axis(mesh, axes) -> str:
+    """The one mesh dimension named by ``axes`` (a name or a 1-tuple)."""
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    if len(names) != 1 or names[0] not in mesh.mesh_dim_names:
+        raise ValueError(f"moe: batch/model axes {axes} must name one "
+                         f"dimension of the mesh {mesh.mesh_dim_names}")
+    return names[0]
+
+
+def _axis_size(mesh, axes) -> int:
+    name = _axis(mesh, axes)
+    return mesh.size(mesh.mesh_dim_names.index(name))
+
+
+def _batch_mean(aux: torch.Tensor, mesh, batch_axes) -> torch.Tensor:
+    """The mean over the batch shards of each shard's aux loss (JAX's
+    ``jnp.mean`` over the batch-sharded ``aux[None]``)."""
+    axis = _axis(mesh, batch_axes)
+    return _all_reduce(aux, mesh.get_group(axis)) / _axis_size(mesh, axis)
+
+
+def _capacity(cfg: ArchConfig, N: int) -> int:
+    """Slots per expert: JAX's expression, evaluated in the same order."""
+    return max(int(cfg.top_k * N / cfg.n_experts * cfg.capacity_factor), 4)
+
+
+def _dispatch_local(xt: torch.Tensor, topk_w: torch.Tensor,
+                    topk_idx: torch.Tensor, n_experts: int, capacity: int):
+    """Pack tokens into per-expert slots (E, C) on this shard.  Returns
+    (buffer (E*C, D), meta needed to undo the packing: ``order``,
+    ``keep``, ``slot``, ``token_id``, ``weight``, as JAX's).
+
+    The assignments are sorted by expert (stable), each takes the next
+    slot of its expert, and those past ``capacity`` are dropped.  JAX adds
+    every assignment into the buffer at its slot; the kept slots are
+    unique and the dropped ones add zeros into slot 0, so writing the kept
+    rows (the dropped ones into a spare row, cut off after) gives the same
+    buffer without a sum."""
+    N, D = xt.shape
+    k = topk_idx.shape[1]
+    M = N * k
+    dev = xt.device
+    flat_e = topk_idx.reshape(M)
+    flat_w = topk_w.reshape(M)
+    token_id = torch.arange(N, device=dev).repeat_interleave(k)
+
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    pos_in_e = torch.arange(M, device=dev) - first
+    keep = pos_in_e < capacity
+    slot = torch.where(keep, sorted_e * capacity + pos_in_e,
+                       torch.zeros_like(pos_in_e))
+
+    rows = n_experts * capacity
+    vals = xt[token_id[order]] * keep[:, None].to(xt.dtype)
+    dest = torch.where(keep, slot, torch.full_like(slot, rows))
+    buf = xt.new_zeros((rows + 1, D)).index_put((dest,), vals)[:rows]
+    meta = dict(order=order, keep=keep, slot=slot, token_id=token_id,
+                weight=flat_w)
+    return buf, meta
+
+
+def _combine_local(buf_out: torch.Tensor, meta: dict, N: int
+                   ) -> torch.Tensor:
+    """Inverse of ``_dispatch_local``: (E*C, D) -> (N, D) weighted by the
+    router.  Each assignment's row goes back to its place in token order
+    (token n's k assignments at n*k .. n*k + k − 1) and a token's k rows
+    are summed in that order."""
+    order, keep, slot = meta["order"], meta["keep"], meta["slot"]
+    weight = meta["weight"]
+    M = order.numel()
+    gathered = buf_out[slot] * keep[:, None].to(buf_out.dtype)
+    w_sorted = weight[order].to(buf_out.dtype)
+    contrib = gathered * w_sorted[:, None]
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(M, device=order.device))
+    return contrib[inv].reshape(N, M // N, -1).sum(dim=1)
+
+
+def _expert_slice(mesh, model_axis: str, n_experts: int):
+    """(this rank's expert slice, ep, experts per rank)."""
+    ep = _axis_size(mesh, model_axis)
+    if n_experts % ep:
+        raise ValueError(f"moe: {n_experts} experts over {ep} model ranks")
+    e_loc = n_experts // ep
+    m = mesh.get_local_rank(model_axis)
+    return slice(m * e_loc, (m + 1) * e_loc), ep, e_loc
+
+
+def _experts_round_trip(buf, w_gate, w_up, w_down, group, ep: int,
+                        e_loc: int, capacity: int, reduce_group=None):
+    """The dispatched buffer (E*C, D) to the experts' ranks, through the
+    local experts (summed over ``reduce_group`` when given) and back."""
+    D = buf.shape[-1]
+    buf = _all_to_all(buf, group)       # rows grouped by source shard
+    toks = buf.reshape(ep, e_loc, capacity, D).transpose(0, 1)
+    out = _expert_ffn(w_gate, w_up, w_down,
+                      toks.reshape(e_loc, ep * capacity, D))
+    if reduce_group is not None:
+        out = _all_reduce(out, reduce_group)
+    out = out.reshape(e_loc, ep, capacity, D).transpose(0, 1)
+    return _all_to_all(out.reshape(ep * e_loc * capacity, D), group)
+
+
+def moe_ep(params: MoE, x: torch.Tensor, cfg: ArchConfig, mesh,
+           batch_axes=("data",), model_axis: str = "model"
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE over ``mesh``.  x: this rank's batch shard (B,
+    S, D); this rank runs its experts of the ``model`` axis.  One
+    all-to-all pair per layer (dispatch and return).  Returns (y (B, S, D)
+    in x's type, the aux loss averaged over the batch shards)."""
+    es, ep, e_loc = _expert_slice(mesh, model_axis, cfg.n_experts)
+    B, S, D = x.shape
+    xt = x.reshape(-1, D)
+    N = xt.shape[0]
+    probs, topk_w, topk_idx = _router(params, xt, cfg.top_k)
+    aux = _aux_loss(probs, topk_idx, cfg.n_experts)
+    capacity = _capacity(cfg, N)
+    buf, meta = _dispatch_local(xt, topk_w, topk_idx, cfg.n_experts,
+                                capacity)
+    out = _experts_round_trip(buf, params.w_gate[es], params.w_up[es],
+                              params.w_down[es], mesh.get_group(model_axis),
+                              ep, e_loc, capacity)
+    y = _combine_local(out, meta, N)
+    return y.reshape(B, S, D).to(x.dtype), _batch_mean(aux, mesh, batch_axes)
+
+
+def moe_ep2d(params: MoE, x: torch.Tensor, cfg: ArchConfig, mesh,
+             batch_axes=("data",), model_axis: str = "model",
+             data_axis: str = "data") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inference MoE with the weights stationary: experts over
+    ``model_axis``, each expert's FFN width over ``data_axis``.  The
+    tokens move instead: gathered over the batch group, dispatched over
+    ``model``, a partial-F expert product summed over ``data``, sent back,
+    and this rank's rows kept.  x: this rank's batch shard (B, S, D)."""
+    es, ep, e_loc = _expert_slice(mesh, model_axis, cfg.n_experts)
+    fp = _axis_size(mesh, data_axis)
+    if cfg.d_ff % fp:
+        raise ValueError(f"moe: d_ff {cfg.d_ff} over {fp} data ranks")
+    f_loc = cfg.d_ff // fp
+    r = mesh.get_local_rank(data_axis)
+    fs = slice(r * f_loc, (r + 1) * f_loc)
+    batch_axis = _axis(mesh, batch_axes)
+    B, S, D = x.shape
+    xt = x.reshape(-1, D)
+    n_loc = xt.shape[0]
+    xt_all = _all_gather(xt, mesh.get_group(batch_axis))
+    N = xt_all.shape[0]
+    probs, topk_w, topk_idx = _router(params, xt_all, cfg.top_k)
+    aux = _aux_loss(probs, topk_idx, cfg.n_experts)
+    capacity = _capacity(cfg, N)
+    buf, meta = _dispatch_local(xt_all, topk_w, topk_idx, cfg.n_experts,
+                                capacity)
+    out = _experts_round_trip(
+        buf, params.w_gate[es, :, fs], params.w_up[es, :, fs],
+        params.w_down[es, fs, :], mesh.get_group(model_axis), ep, e_loc,
+        capacity, reduce_group=mesh.get_group(data_axis))
+    y_all = _combine_local(out, meta, N)
+    shard = mesh.get_local_rank(batch_axis)
+    y = y_all[shard * n_loc:(shard + 1) * n_loc]
+    return y.reshape(B, S, D).to(x.dtype), _batch_mean(aux, mesh, batch_axes)
+
+
+def moe_apply(params: MoE, x: torch.Tensor, cfg: ArchConfig, runtime=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """JAX's ``moe_apply`` on one device (no mesh): ``moe_dense``."""
+    """JAX's ``moe_apply``: ``moe_ep`` or ``moe_ep2d`` on the runtime's
+    mesh by its ``moe_mode``, else ``moe_dense``."""
+    if runtime is not None and runtime.mesh is not None:
+        if runtime.moe_mode == "ep":
+            return moe_ep(params, x, cfg, runtime.mesh, runtime.batch_axes,
+                          runtime.model_axis)
+        if runtime.moe_mode == "ep2d":
+            return moe_ep2d(params, x, cfg, runtime.mesh, runtime.batch_axes,
+                            runtime.model_axis)
     return moe_dense(params, x, cfg)

@@ -6,12 +6,22 @@ The port of the JAX package's ``models/transformer.py``: ``block_init``,
 ``block_apply``, ``block_decode``, ``stacked_init`` and ``_scan_blocks``
 (a Python loop where JAX scans), and the LM entry points
 ``init_lm_params``, ``lm_forward``, ``logits_of``, ``_to_ring``,
-``lm_prefill``, ``init_lm_cache`` and ``lm_decode_step``.  JAX's
-``Runtime`` carries the mesh, remat, unroll and Pallas switches; the port
-reads none of them (one device, no tracing, kernels chosen by the
-tensors' device, MoE always JAX's one-device ``moe_dense``), so it has no
-``Runtime``.  A block of an MoE architecture (``n_experts`` set) holds
-``moe`` where the others hold ``mlp``.
+``lm_prefill``, ``init_lm_cache`` and ``lm_decode_step``, and JAX's
+``Runtime`` with its default ``CPU``.  A ``Runtime`` says how the model
+executes, beside the ``ArchConfig``: ``mesh`` (a ``DeviceMesh``,
+launch/mesh.py), ``batch_axes``, ``model_axis`` and ``moe_mode`` pick an
+MoE block's mode as JAX's ``moe_apply`` does (``moe_dense`` without a
+mesh; ``moe_ep`` or ``moe_ep2d`` over the mesh's process groups,
+models/moe.py); ``remat`` recomputes each block of ``_scan_blocks`` in
+the backward (``torch.utils.checkpoint``, as ``jax.checkpoint``).
+``use_pallas`` and ``unroll`` are accepted and change nothing: the port
+always loops over the layers in Python, and a kernel follows its
+tensors' device.  Every function that takes a ``runtime`` in JAX takes
+one here, defaulting to ``CPU``: in JAX's position where the port's
+callers pass the later arguments by keyword, and as the last keyword of
+``block_apply`` and ``_scan_blocks``, whose positional arguments keep
+the port's order.  A block of an MoE architecture (``n_experts`` set)
+holds ``moe`` where the others hold ``mlp``.
 
 Prefill runs the full-sequence blocks (attention through the flash
 kernel on the card) and keeps each layer's K/V; the cache is a list of
@@ -24,11 +34,13 @@ route, kernels/flash_attention/ops.py).
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+import dataclasses
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
@@ -37,6 +49,21 @@ from repro_torch.models.layers import (dense, embedding, fill_dense,
                                        fill_embedding, fill_mlp, make_mlp,
                                        mlp_apply, rmsnorm, rmsnorm_init)
 from repro_torch.models.moe import MoE, fill_moe, moe_apply
+
+
+@dataclasses.dataclass(frozen=True)
+class Runtime:
+    """How the model executes: JAX's ``Runtime``, field for field."""
+    mesh: Any = None                  # a DeviceMesh ("data", "model") or None
+    batch_axes: Any = ("data",)       # mesh axes the batch is sharded over
+    model_axis: str = "model"
+    moe_mode: str = "dense"           # dense | ep | ep2d (with a mesh)
+    use_pallas: bool = False          # accepted; kernels follow the device
+    remat: bool = False               # recompute each block in the backward
+    unroll: bool = False              # accepted; the port always loops
+
+
+CPU = Runtime()
 
 
 class Block(nn.Module):
@@ -72,7 +99,8 @@ def block_init(key: torch.Tensor, cfg: ArchConfig, dtype) -> Block:
 
 
 def block_apply(params: Block, x, cfg: ArchConfig, positions,
-                window: Optional[int] = None, causal: bool = True):
+                window: Optional[int] = None, causal: bool = True,
+                runtime: Runtime = CPU):
     """Full-sequence block (train / prefill).  Returns (x, aux, (k, v)):
     aux is the MoE router's auxiliary loss, the Python float 0.0 for an
     MLP block (no device tensor, so a dense stack adds no launch)."""
@@ -85,14 +113,15 @@ def block_apply(params: Block, x, cfg: ArchConfig, positions,
     x = x + a
     h = rmsnorm(params.norm2, x, cfg.norm_eps)
     if cfg.n_experts:
-        m, aux = moe_apply(params.moe, h, cfg)
+        m, aux = moe_apply(params.moe, h, cfg, runtime)
     else:
         m = mlp_apply(params.mlp, h, cfg.mlp_type)
         aux = 0.0
     return x + m, aux, kv
 
 
-def block_decode(params: Block, x, cache, pos: int, cfg: ArchConfig):
+def block_decode(params: Block, x, cache, pos: int, cfg: ArchConfig,
+                 runtime: Runtime = CPU):
     """One token through a block against its cache.  Returns (x, new
     cache)."""
     h = rmsnorm(params.norm1, x, cfg.norm_eps)
@@ -104,7 +133,7 @@ def block_decode(params: Block, x, cache, pos: int, cfg: ArchConfig):
     x = x + a
     h = rmsnorm(params.norm2, x, cfg.norm_eps)
     if cfg.n_experts:
-        m, _ = moe_apply(params.moe, h, cfg)
+        m, _ = moe_apply(params.moe, h, cfg, runtime)
     else:
         m = mlp_apply(params.mlp, h, cfg.mlp_type)
     return x + m, cache
@@ -119,14 +148,23 @@ def stacked_init(key: torch.Tensor, layers: Sequence[nn.Module],
 
 
 def _scan_blocks(layers, x, cfg: ArchConfig, positions,
-                 collect_kv: bool = False, window=None, causal: bool = True):
+                 collect_kv: bool = False, window=None, causal: bool = True,
+                 runtime: Runtime = CPU):
     """The blocks in order.  Returns (x, summed aux, [(k, v)] per layer
     when ``collect_kv``, else None); the aux stays the float 0.0 through
-    MLP blocks."""
+    MLP blocks.  With ``runtime.remat`` and grad enabled each block runs
+    under ``checkpoint`` (its activations recomputed in the backward)."""
     aux = 0.0
     kvs = [] if collect_kv else None
+    remat = runtime.remat and torch.is_grad_enabled()
     for layer in layers:
-        x, a, kv = block_apply(layer, x, cfg, positions, window, causal)
+        if remat:
+            x, a, kv = checkpoint(block_apply, layer, x, cfg, positions,
+                                  window, causal, runtime,
+                                  use_reentrant=False)
+        else:
+            x, a, kv = block_apply(layer, x, cfg, positions, window, causal,
+                                   runtime)
         aux = aux + a
         if collect_kv:
             kvs.append(kv)
@@ -166,8 +204,8 @@ def init_lm_params(key: torch.Tensor, cfg: ArchConfig) -> LM:
     return m
 
 
-def lm_forward(params: LM, tokens, cfg: ArchConfig, embeds_prefix=None,
-               collect_kv: bool = False):
+def lm_forward(params: LM, tokens, cfg: ArchConfig, runtime: Runtime = CPU,
+               embeds_prefix=None, collect_kv: bool = False):
     """tokens: (B, S) integer.  embeds_prefix: optional (B, P, D)
     prepended (VLM vision patches).  Returns (hidden (B, S[+P], D), aux,
     [(k, v)] per layer or None)."""
@@ -176,7 +214,8 @@ def lm_forward(params: LM, tokens, cfg: ArchConfig, embeds_prefix=None,
         x = torch.cat([embeds_prefix.to(x.dtype), x], dim=1)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
-    x, aux, kvs = _scan_blocks(params.layers, x, cfg, positions, collect_kv)
+    x, aux, kvs = _scan_blocks(params.layers, x, cfg, positions, collect_kv,
+                               runtime=runtime)
     return rmsnorm(params.final_norm, x, cfg.norm_eps), aux, kvs
 
 
@@ -199,11 +238,11 @@ def cross_entropy(logits, labels, mask=None):
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
-def lm_loss(params: LM, batch, cfg: ArchConfig):
+def lm_loss(params: LM, batch, cfg: ArchConfig, runtime: Runtime = CPU):
     """batch: {tokens (B, S), labels (B, S)}, labels already shifted by
     the data pipeline.  The next-token loss plus ``router_aux_coef`` times
     the MoE router's auxiliary loss."""
-    hidden, aux, _ = lm_forward(params, batch["tokens"], cfg)
+    hidden, aux, _ = lm_forward(params, batch["tokens"], cfg, runtime)
     loss = cross_entropy(logits_of(params, hidden), batch["labels"])
     return loss + cfg.router_aux_coef * aux
 
@@ -224,11 +263,11 @@ def ring_cache(kvs, cache_len: int, seq: int) -> List[dict]:
             for k, v in kvs]
 
 
-def lm_prefill(params: LM, tokens, cfg: ArchConfig,
+def lm_prefill(params: LM, tokens, cfg: ArchConfig, runtime: Runtime = CPU,
                cache_len: Optional[int] = None, embeds_prefix=None):
     """Run the prompt; return (last-token logits (B, 1, V), the cache: a
     list of per-layer ``{"k", "v"}``)."""
-    hidden, _, kvs = lm_forward(params, tokens, cfg,
+    hidden, _, kvs = lm_forward(params, tokens, cfg, runtime,
                                 embeds_prefix=embeds_prefix, collect_kv=True)
     S = hidden.shape[1]
     C = cache_len or attn.cache_len_for(S, cfg.sliding_window)
@@ -243,14 +282,15 @@ def init_lm_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=None,
                             device) for _ in range(cfg.n_layers)]
 
 
-def lm_decode_step(params: LM, token, cache, pos: int, cfg: ArchConfig):
+def lm_decode_step(params: LM, token, cache, pos: int, cfg: ArchConfig,
+                   runtime: Runtime = CPU):
     """token: (B, 1) integer; cache: per-layer ``{"k", "v"}``; ``pos``
     the token's position (a host int).  Returns (logits (B, 1, V), new
     cache)."""
     x = params.embed(token)
     new_cache = []
     for layer, c in zip(params.layers, cache):
-        x, c = block_decode(layer, x, c, pos, cfg)
+        x, c = block_decode(layer, x, c, pos, cfg, runtime)
         new_cache.append(c)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     return logits_of(params, x), new_cache

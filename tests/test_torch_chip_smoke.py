@@ -7,11 +7,13 @@ launched.  Device time is the sum over the device rows alone (the rule of
 torch's own profiler table); summing every row counted those kernels
 twice.  The grouped matmul's bound counts its bytes (tokens read once,
 one set when broadcast to every expert) and its flops, the keyed DDPM
-step's its bytes and its draw's operations; the ``kernels`` line lists
-all seven kernels (the five ports and the two backward kernels) with
-every key the contract names, and the kernels with variants their
-launches per variant; a main path's DDPM-step launches
-must all be keyed.  The training
+step's its bytes and its draw's operations, the grouped matmul's
+backward its two products'; the ``kernels`` line lists all eight
+kernels (the five ports and the three backward kernels) with every key
+the contract names, and the kernels with variants their launches per
+variant; a main path's DDPM-step launches must all be keyed.  Phase 13
+asserts no refusal: it trains the MoE DiT, and the MoE training phase's
+configuration follows the paths' capacities.  The training
 phase's checks (state copies, bitwise and toleranced comparisons of
 params, moments and step counters, the per-step recorder) run on a tiny
 round on the CPU.  The backward kernels' row check (``row_gap``): a
@@ -95,15 +97,20 @@ def test_kernels_line_lists_every_kernel_with_every_key():
     cs = _chip_smoke()
     names = ["ddpm_step_batched", "ddpm_step", "flash_attention",
              "ssd_scan", "grouped_matmul", "flash_attention_bwd",
-             "ssd_scan_bwd"]
+             "ssd_scan_bwd", "grouped_matmul_bwd"]
     records = {n: dict(max_abs_err=0.0, ms=1.0, plain_ms=2.0, bound_ms=0.5,
                        bound_by="bytes") for n in names}
-    for n in ("flash_attention_bwd", "ssd_scan_bwd"):
+    for n in ("flash_attention_bwd", "ssd_scan_bwd", "grouped_matmul_bwd"):
         records[n].update(shape=[4, 8], card_ms=0.9, card_events=3.0,
                           library_ms=None, row_gap=0.003, row_limit=0.01,
                           faults={"dv past the first K/V tile": 0.02})
+    records["grouped_matmul_bwd"].update(
+        library_ms=30.0, shapes=[dict(what="dense LM", ms=90.0)],
+        steps={"dense": {}})
+    records["flash_attention_bwd"]["dbrx_train"] = dict(ms=1.0)
     records["grouped_matmul"].update(library_ms=0.8, card_ms=0.79,
-                                     shapes=[dict(name="gate", ms=0.8)])
+                                     shapes=[dict(name="gate", ms=0.8)],
+                                     capacity_shapes=[dict(ms=0.3)])
     records["flash_attention"].update(
         library_ms=0.03, card_ms=0.004,
         head_dim_128=dict(ms=0.028, library_ms=0.035, bound_ms=0.0022))
@@ -121,7 +128,9 @@ def test_kernels_line_lists_every_kernel_with_every_key():
                      "ssd_scan/simt": 0, "ddpm_step/keyed": 2,
                      "ddpm_step/given": 0, "ddpm_step_batched/rowwise": 1,
                      "ddpm_step_batched/given": 0,
-                     "flash_attention_bwd/simt": 6, "ssd_scan_bwd/simt": 7})
+                     "flash_attention_bwd/simt": 6, "ssd_scan_bwd/simt": 7,
+                     "grouped_matmul_bwd/wmma": 8,
+                     "grouped_matmul_bwd/simt": 0})
     line = cs.kernels_line(records, launches)
     assert [k["name"] for k in line["kernels"]] == names
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -129,16 +138,20 @@ def test_kernels_line_lists_every_kernel_with_every_key():
     extra = {"flash_attention": {"launches_by_variant", "card_ms",
                                  "head_dim_128"},
              "ssd_scan": {"launches_by_variant", "card_ms", "simt_ms"},
-             "grouped_matmul": {"launches_by_variant", "card_ms", "shapes"},
+             "grouped_matmul": {"launches_by_variant", "card_ms", "shapes",
+                                "capacity_shapes"},
              "ddpm_step": {"card_ms", "launches_by_variant"} | set(keyed),
              "ddpm_step_batched": {"card_ms", "launches_by_variant"} |
              set(keyed),
              "flash_attention_bwd": {"launches_by_variant", "card_ms",
                                      "card_events", "shape", "row_gap",
-                                     "row_limit", "faults"},
+                                     "row_limit", "faults", "dbrx_train"},
              "ssd_scan_bwd": {"launches_by_variant", "card_ms",
                               "card_events", "shape", "row_gap",
-                              "row_limit", "faults"}}
+                              "row_limit", "faults"},
+             "grouped_matmul_bwd": {"launches_by_variant", "card_ms",
+                                    "card_events", "shape", "row_gap",
+                                    "row_limit", "faults", "shapes"}}
     for k in line["kernels"]:
         assert set(k) == keys | extra.get(k["name"], set())
         assert k["route"] == "cuda"
@@ -149,7 +162,15 @@ def test_kernels_line_lists_every_kernel_with_every_key():
         assert k["launches"] == launches[k["name"]]
     flash, ssd, gmm = line["kernels"][2], line["kernels"][3], \
         line["kernels"][4]
-    fbwd, sbwd = line["kernels"][5:]
+    fbwd, sbwd, gbwd = line["kernels"][5:]
+    assert gbwd["source"] == "src/repro_torch/csrc/grouped_matmul_bwd.cu"
+    assert gbwd["replaces"] == gmm["replaces"] == \
+        "src/repro/kernels/grouped_matmul/kernel.py:39"
+    assert gbwd["launches_by_variant"] == {"wmma": 8, "simt": 0}
+    assert gbwd["shapes"] == [dict(what="dense LM", ms=90.0)]
+    assert "steps" not in gbwd
+    assert gmm["capacity_shapes"] == [dict(ms=0.3)]
+    assert fbwd["dbrx_train"] == dict(ms=1.0)
     assert fbwd["source"] == "src/repro_torch/csrc/flash_attention_bwd.cu"
     assert fbwd["replaces"] == flash["replaces"]
     assert sbwd["replaces"] == ssd["replaces"]
@@ -391,8 +412,9 @@ def test_runtime_phase_configuration():
 
 def test_main_runs_every_phase_in_order():
     """The phases main() drives, in order: the evaluation scores what the
-    training runtime trained, the LM serving path runs after the DiT's
-    and the MoE's kernel shapes, and the encoder-decoder last."""
+    training runtime trained, the MoE training path follows the MoE
+    DiT's, the LM serving path runs after the DiT's and the MoE's kernel
+    shapes, and the encoder-decoder last."""
     import inspect
     import re
     cs = _chip_smoke()
@@ -401,11 +423,11 @@ def test_main_runs_every_phase_in_order():
                      "phase_flash_ssd", "phase_unet", "phase_main_path",
                      "phase_contracts", "phase_train", "phase_train_runtime",
                      "phase_eval", "phase_dit", "phase_grouped_matmul",
-                     "phase_moe", "phase_lm_serve", "phase_lm_train",
-                     "phase_whisper"]
+                     "phase_moe", "phase_moe_train", "phase_lm_serve",
+                     "phase_lm_train", "phase_whisper"]
     assert cs.PATHS == ("serve", "train", "train_runtime", "eval", "dit",
-                        "moe", "lm_serve", "lm_train", "whisper_serve",
-                        "whisper_train")
+                        "moe", "moe_train", "lm_serve", "lm_train",
+                        "whisper_serve", "whisper_train")
     for name in calls:
         assert callable(getattr(cs, name))
 
@@ -428,8 +450,10 @@ def test_kernels_line_carries_the_new_paths_and_lm_shapes():
     per = {"serve": {"ddpm_step": 1000}, "train": {"ddpm_step": 1000},
            "train_runtime": {"ddpm_step": 1000},
            "eval": {"ddpm_step": 1250}, "dit": {"flash_attention": 6},
-           "moe": {"grouped_matmul": 6}, "lm_serve": {"flash_attention": 6,
-                                                      "ssd_scan": 38},
+           "moe": {"grouped_matmul": 6, "grouped_matmul_bwd": 6},
+           "moe_train": {"grouped_matmul": 132, "grouped_matmul_bwd": 132,
+                         "flash_attention": 44},
+           "lm_serve": {"flash_attention": 6, "ssd_scan": 38},
            "lm_train": {"flash_attention": 120, "flash_attention_bwd": 120,
                         "ssd_scan": 760, "ssd_scan_bwd": 760},
            "whisper_serve": {"flash_attention": 12},
@@ -455,6 +479,10 @@ def test_kernels_line_carries_the_new_paths_and_lm_shapes():
     assert line[3]["lm_prefill"] == lm["ssd_scan"]
     assert "lm_prefill" not in line[0]
     assert line[2]["launches_by_path"]["whisper_serve"] == 12
+    assert line[7]["name"] == "grouped_matmul_bwd"
+    assert line[7]["launches_by_path"]["moe_train"] == 132
+    assert line[7]["launches_by_path"]["moe"] == 6
+    assert line[7]["launches_by_path"]["lm_train"] == 0
     assert line[5]["launches_by_path"]["whisper_train"] == 240
     assert line[3]["launches_by_path"]["whisper_train"] == 0
     assert line[2]["whisper_encoder"] == enc
@@ -764,3 +792,140 @@ def test_check_faults_raises_where_a_fault_reads_within_the_limit():
     assert torch.equal(cs.scaled_past(1, 2)(g)[:, :2], g[:, :2])
     assert torch.equal(cs.scaled_past(1, 2)(g)[:, 2:],
                        torch.full((2, 3, 3), 1 + cs.FAULT))
+
+
+@pytest.mark.parametrize("what,C,broadcast", [
+    ("dense DiT", 256, True), ("EP DiT", 80, False), ("EP LM", 1280, False),
+    ("dense LM", 4096, True)])
+def test_gmm_bwd_bound_counts_both_products(what, C, broadcast):
+    """The backward's bound at DBRX's expert shapes: the tokens, weights
+    and dout read once, dtokens (one (C, D) sum when broadcast) and
+    dweights written once, 4·E·C·D·F flops; bytes bind below the ridge
+    (C 256, 80), operations above it (C 1,280, 4,096), in float32
+    operations at every C."""
+    cs = _chip_smoke()
+    E, D, F = 16, 6144, 10752
+    tok = (1 if broadcast else E) * C * D
+    nbytes, flops = cs.gmm_bwd_work(E, C, D, F, 2, broadcast)
+    assert nbytes == 2 * (2 * tok + 2 * E * D * F + E * C * F)
+    assert flops == 4 * E * C * D * F
+    ms, by = cs.gmm_bwd_bound(E, C, D, F, 2, broadcast)
+    assert by == ("bytes" if C <= 256 else "operations")
+    assert ms == max(nbytes / cs.HBM_BYTES_PER_S,
+                     flops / cs.BF16_FLOPS_PER_S) * 1e3
+    assert cs.gmm_bwd_bound(E, C, D, F, 4, broadcast)[1] == "operations"
+    assert (what, C, broadcast) in cs.GMM_BWD_CASES
+
+
+def test_moe_train_configuration_follows_the_paths_capacities():
+    """GMM_BWD_CASES holds the C each path feeds the backward: the DiT's
+    B x 64 tokens and the LM's B x S dense, and ``moe._capacity`` of
+    those token counts at DBRX's configured capacity factor for the
+    expert-parallel paths; the phase runs the DBRX shapes of the
+    published config, cut in depth only."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import moe
+    cs = _chip_smoke()
+    arch = get_arch(cs.MOE_ARCH)
+    dit_tokens = cs.B * (cs.IMG[0] // 4) ** 2
+    lm_tokens = cs.MOE_TRAIN_BATCH * cs.MOE_TRAIN_SEQ
+    assert dict((w, (c, b)) for w, c, b in cs.GMM_BWD_CASES) == {
+        "dense DiT": (dit_tokens, True),
+        "EP DiT": (moe._capacity(arch, dit_tokens), False),
+        "EP LM": (moe._capacity(arch, lm_tokens), False),
+        "dense LM": (lm_tokens, True)}
+    assert [c for _, c, _ in cs.GMM_BWD_CASES] == [256, 80, 1280, 4096]
+    assert (arch.d_model, arch.n_heads, arch.n_kv_heads, arch.head_dim_,
+            arch.n_experts, arch.d_ff, arch.top_k, arch.capacity_factor,
+            arch.vocab_size) == (6144, 48, 8, 128, 16, 10752, 4, 1.25,
+                                 100352)
+    assert cs.FLASH_BWD_DBRX == ((4, 48, 8, 1024, 128), True)
+    assert cs.MOE_EP_TOKENS == 256 and cs.MOE_EP_ROOMY == 8.0
+    assert moe._capacity(dataclasses.replace(arch, capacity_factor=8.0),
+                         256) == 512
+    assert {(2, 80, 256, 192), (2, 1280, 64, 128), (1, 4096, 64, 64)} <= \
+        set(cs.GMM_WGMMA)
+
+
+def test_moe_phase_trains_and_refuses_nothing():
+    """Phase 13 trains where it refused: no refusal check is left in the
+    script, and the phase runs the runtime round and the gradient check."""
+    import inspect
+    cs = _chip_smoke()
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert "refuse_" not in src and "no backward" not in src
+    body = inspect.getsource(cs.phase_moe)
+    assert "moe_runtime_round(" in body and "moe_dit_grad_check(" in body
+    train = inspect.getsource(cs.phase_moe_train)
+    for call in ("gmm_bwd_checks(", "moe_ep_checks(", "moe_flash_bwd(",
+                 "make_debug_mesh(", "destroy_process_group("):
+        assert call in train
+
+
+def test_with_backward_and_no_bwd_name_each_variant():
+    cs = _chip_smoke()
+    per = {"grouped_matmul": 6, "flash_attention": 2}
+    want = cs.with_backward(per, "grouped_matmul", "flash_attention")
+    assert want == {**per, "grouped_matmul_bwd": 6,
+                    "grouped_matmul_bwd/wmma": 6,
+                    "grouped_matmul_bwd/simt": 0, "flash_attention_bwd": 2,
+                    "flash_attention_bwd/wgmma": 2,
+                    "flash_attention_bwd/simt": 0}
+    assert cs.with_backward(per, "grouped_matmul", variant="simt") == {
+        **per, "grouped_matmul_bwd": 6, "grouped_matmul_bwd/wmma": 0,
+        "grouped_matmul_bwd/simt": 6}
+    assert cs.no_bwd("grouped_matmul") == {"grouped_matmul_bwd": 0,
+                                           "grouped_matmul_bwd/wmma": 0,
+                                           "grouped_matmul_bwd/simt": 0}
+
+
+def _gmm_grads():
+    """(kernel, plain) gradients of a bf16 grouped matmul over 80 token
+    rows and D 96 (past the faults' first 64 rows)."""
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_bwd_ref
+    rng = np.random.default_rng(2)
+    r = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).bfloat16().float()
+    g32 = grouped_matmul_bwd_ref(r(3, 80, 96), r(3, 96, 40), r(3, 80, 40))
+    pairs = [_bf16_pair(g, 20 + i) for i, g in enumerate(g32)]
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+def test_gmm_bwd_row_check_and_its_planted_faults():
+    """A sound bf16 backward reads within BWD_BF16_ROW; each of
+    ``gmm_faults`` beyond it."""
+    cs = _chip_smoke()
+    kern, plain = _gmm_grads()
+    gaps = [cs.row_gap(a, b) for a, b in zip(kern, plain)]
+    assert 0 < max(gaps) <= 2 ** -7 < cs.BWD_BF16_ROW
+    faults = cs.fault_gaps(kern, plain, cs.gmm_faults())
+    assert set(faults) == {"dX past the first 64 rows",
+                           "dW past the first 64 rows",
+                           "dX from the next expert"}
+    cs.check_faults("gmm", faults, cs.BWD_BF16_ROW)
+
+
+def test_plain_expert_products_give_autograds_gradients():
+    """On the CPU the MoE's products are the plain version under
+    autograd; ``plain_expert_products`` (its forward and backward plain
+    versions as one Function) gives the same output and gradients, and
+    restores the op after."""
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.core import prng
+    from repro_torch.models import moe
+    cs = _chip_smoke()
+    cfg = reduced(get_arch("dbrx-132b"))
+    m = moe.moe_init(prng.PRNGKey(1), cfg, torch.float32)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 8, cfg.d_model)).astype(np.float32))
+    orig = moe.gmm_ops.grouped_matmul
+    y, _ = moe.moe_dense(m, x, cfg)
+    g = torch.autograd.grad(y.square().sum(), list(m.parameters()))
+    with cs.plain_expert_products():
+        assert moe.gmm_ops.grouped_matmul is not orig
+        y2, _ = moe.moe_dense(m, x, cfg)
+        g2 = torch.autograd.grad(y2.square().sum(), list(m.parameters()))
+    assert moe.gmm_ops.grouped_matmul is orig
+    assert torch.equal(y, y2)
+    for a, b in zip(g, g2):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)

@@ -3,7 +3,8 @@ hybrid (Mamba2 layers through the SSD scan's plain version, the shared
 attention block through flash attention's) against the JAX package's.
 
 This shows that the plain versions are differentiable end to end (on the
-card the same step is refused, tests/test_torch_kernel_grad.py).
+card the same step runs through the kernels' autograd routes, flash
+attention's and the SSD scan's backward kernels).
 Parameters come from JAX's ``init_dit`` through ``bridge.load_dit``;
 compared in JAX's layout (layer stacks restacked by ``bridge.dump_params``)
 at the tolerance ``tests/test_torch_dit.py`` holds the forward to (FWD:

@@ -1,14 +1,18 @@
-"""The CUDA kernels have no backward yet, and their wrappers say so.
+"""The CUDA kernels' raw launches have no backward, and say so.
 
 Each ``kernels/*/kernel.py::launch`` fills a fresh output through ctypes,
 so that output carries no ``grad_fn``: a loss on the card would train
 nothing upstream of the kernel, silently.  Each launch therefore refuses,
 as its first statement, an input (weights included) that requires grad
-while grad is enabled — no fallback, no flag.  Under ``no_grad`` (the
-samplers) or without such an input the refusal is silent, and the launch
-goes on to its own checks (here, on the CPU, the one that wants a CUDA
-device).  The public ops on CPU tensors take the plain versions, which
-stay differentiable.
+while grad is enabled — no fallback, no flag.  Flash attention, the SSD
+scan and the grouped matmul train on the card through their ops'
+autograd route instead (a ``torch.autograd.Function`` whose forward
+calls ``launch`` with grad off and whose backward is a backward kernel);
+the DDPM step has no backward.  Under ``no_grad`` (the samplers) or
+without such an input the refusal is silent, and the launch goes on to
+its own checks (here, on the CPU, the one that wants a CUDA device).
+The public ops on CPU tensors take the plain versions, which stay
+differentiable.
 """
 import pytest
 import torch

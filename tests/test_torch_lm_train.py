@@ -13,7 +13,9 @@ CPU.
   (``bridge.dump_params``), against ``jax.value_and_grad`` within
   GRAD_TOL: elementwise TOL's rtol, and an atol of GRAD_ATOL times the
   leaf's largest value (gradients run from ~1e-1 down to ~1e-6, where a
-  fixed atol would check nothing).
+  fixed atol would check nothing).  The moe case also through the
+  expert-parallel modes (``moe_ep``, ``moe_ep2d``) on a one-rank mesh
+  against JAX's on a (1, 1) mesh.
 * One ``make_train_step`` step (AdamW, lr 1e-3, clip 1.0): the loss, the
   grad norm, and the parameters and both moments after it against JAX's
   ``make_train_step`` within TOL (the moments against their own scale, as
@@ -32,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.configs.base import get_arch as jax_get_arch
 from repro.configs.base import get_shape as jax_get_shape
@@ -45,6 +48,7 @@ from repro_torch import bridge
 from repro_torch.configs.base import get_arch, get_shape, reduced
 from repro_torch.core import prng
 from repro_torch.launch import shapes, train
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import api
 from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.transformer import LM, cross_entropy
@@ -110,6 +114,33 @@ def test_loss_and_grads_match_jax(arch):
     assert set(grads) == set(named(model))
     port = bridge.dump_params(model, tree, grads)
     _close_tree(port, jgrads, f"{arch} grad", scaled=True)
+
+
+@pytest.mark.parametrize("mode", ["ep", "ep2d"])
+def test_moe_expert_parallel_loss_and_grads_match_jax(mode):
+    """The moe case through the expert-parallel modes: the port's
+    ``make_runtime`` on a one-rank ``gloo`` mesh against JAX's on a (1, 1)
+    mesh, the loss and every gradient leaf as the dense case holds them
+    (capacity factor 1.25: the same drops on both sides).  JAX's mesh has
+    Auto axes: its ``with_sharding_constraint`` refuses Explicit ones."""
+    jcfg, cfg, jp, tree, model, jbatch, tbatch = _setup("dbrx-132b", seed=2)
+    auto = (jax.sharding.AxisType.Auto,) * 2
+    jrt = jshapes.make_runtime(
+        jax.make_mesh((1, 1), ("data", "model"), axis_types=auto),
+        moe_mode=mode)
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p, b: japi.loss_fn(p, b, jcfg, jrt)))(jp, jbatch)
+    mesh = make_debug_mesh(device="cpu")
+    try:
+        rt = shapes.make_runtime(mesh, moe_mode=mode)
+        loss, grads = shapes.loss_and_grads(model, tbatch, cfg, rt)
+        dense, _ = shapes.loss_and_grads(model, tbatch, cfg)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(loss.item(), float(jloss), **TOL)
+    assert loss.item() != dense.item()          # the modes differ
+    port = bridge.dump_params(model, tree, grads)
+    _close_tree(port, jgrads, f"moe {mode} grad", scaled=True)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
