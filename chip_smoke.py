@@ -101,15 +101,18 @@ package).  Phases, each of which fails the run on any error:
    wmma and simt variants must all be launched;
 13. the MoE path: the Zamba2 models are freed; a ``TrainRuntime`` round
    with MoE DiTs at the reduced DBRX-132B widths in bf16 (the round
-   completes, the server's parameters move, its moments stay finite, the
-   grouped matmul's backward kernel launched); then server and three
+   completes, the server's parameters move but for the RMSNorm scales,
+   whose AdamW step is under half a bf16 ulp at 1.0 and whose gradients
+   reach them, its moments stay finite, the grouped matmul's backward
+   kernel launched in the variant ``choose_variant_backward`` picks,
+   ``wgmma``); then server and three
    client DiTs with DBRX-132B blocks at full width (configs/dbrx_132b.py:
    d_model 6144, 48 query / 8 KV heads of 128, 16 experts of FFN width
    10,752, top-4, bf16) cut to 2 blocks (MOE_LAYERS), on the same 64
    tokens, threefry-initialised on the card; between the server's draw
    and the clients', one Alg.-1 loss through the server DiT and its
    backward, counters zeroed just before: 6 grouped-matmul and 2 flash
-   backward launches (``wmma``, ``wgmma``), every gradient leaf within
+   backward launches (both ``wgmma``), every gradient leaf within
    LM_GRAD_RTOL of the same loss's with the expert products through the
    plain versions, another noise's outside.  Flash attention at head dim
    128 and the three grouped-matmul launches of the first block are held
@@ -129,10 +132,13 @@ package).  Phases, each of which fails the run on any error:
    ``grouped_matmul_bwd_ref`` at DBRX's expert shapes for the C each path
    feeds it (GMM_BWD_CASES: dense DiT 256 broadcast, expert-parallel DiT
    80, expert-parallel LM 1,280, dense LM 4,096 broadcast), bf16
-   (``wmma``) and float32 (``simt``), each row within BWD_BF16_ROW /
+   (``wgmma``) and float32 (``simt``), and one small bf16 case with a
+   misaligned token pointer (``wmma``), each row within BWD_BF16_ROW /
    BWD_FP32_ROW, planted faults beyond it, two launches and dX's rows
    across C bitwise, timed beside the plain version, the ``torch.bmm``
-   pair and the bound, and the forward at the same C beside
+   pair, the bound and, in bf16, the older ``wmma`` design (at C >=
+   GMM_BWD_HALF_FROM_C the ``wgmma`` variant must take at most half its
+   time), and the forward at the same C beside
    ``torch.bmm``; the flash backward at DBRX's attention
    (FLASH_BWD_DBRX); (b) ``moe_ep`` and ``moe_ep2d`` on a one-card NCCL
    mesh (``make_debug_mesh``) for one full-width layer of 256 tokens,
@@ -297,6 +303,12 @@ MOE_ARCH, MOE_LAYERS = "dbrx-132b", 2
 # int(4 * 4096 / 16 * 1.25) = 1,280 and the dense LM's 4 x 1,024 tokens
 GMM_BWD_CASES = [("dense DiT", 256, True), ("EP DiT", 80, False),
                  ("EP LM", 1280, False), ("dense LM", 4096, True)]
+# from this C on, where the operations bind, the backward's wgmma variant
+# must take at most half the time of the older wmma design at DBRX's
+# shapes; the small bf16 case whose misaligned token pointer keeps the
+# wmma variant held against its plain version: (E, C, D, F)
+GMM_BWD_HALF_FROM_C = 1280
+GMM_BWD_MISALIGNED = (4, 100, 136, 200)
 # one full-width MoE layer's tokens through moe_ep / moe_ep2d against
 # moe_dense: capacity factor 8 drops nothing (the grouped matmul's bf16
 # limit, PERF.md section 6), the configured 1.25 drops some
@@ -2139,7 +2151,7 @@ def ssd_rows_bitwise(tag, skernel, cargs, chunk, y, fs) -> None:
 
 BWD_VARIANTS = {"flash_attention": ("wgmma", "simt"),
                 "ssd_scan": ("wgmma", "simt"),
-                "grouped_matmul": ("wmma", "simt")}
+                "grouped_matmul": ("wgmma", "wmma", "simt")}
 
 
 def no_bwd(*names) -> dict:
@@ -2309,8 +2321,13 @@ def moe_runtime_round(dcfg) -> dict:
     full-width one would not fit beside it: PERF.md section 4): one
     client with one batch of B images, cut 250 of T=1000.  The round must
     complete (``round == 1``), move the server's parameters and leave its
-    moments finite, through the grouped matmul's backward kernel.
-    Returns the launches of the round."""
+    moments finite, through the grouped matmul's backward kernel in the
+    variant that ``choose_variant_backward`` picks at these widths
+    (``wgmma``).  The leaves that keep their bits must be the RMSNorm
+    scales (``*.scale``, all 1.0 at init), each with a nonzero first
+    moment: AdamW's first step moves a leaf by about the learning rate,
+    under half a bf16 ulp at 1.0 (2^-9 below it).  Returns the launches
+    of the round."""
     import torch
     from repro_torch.configs.base import get_arch, reduced
     from repro_torch.core import prng
@@ -2345,14 +2362,31 @@ def moe_runtime_round(dcfg) -> dict:
                 for n, p in rt.server_params.named_parameters())
     finite = all(torch.isfinite(v).all() for w in ("m", "v")
                  for v in rt.server_opt[w].values())
+    still = sorted(n for n, p in rt.server_params.named_parameters()
+                   if torch.equal(p, before[n]))
+    scales = sorted(n for n in before if n.endswith(".scale"))
+    first_m = {n: rt.server_opt["m"][n].float().abs().max().item()
+               for n in still}
+    E, D, F = small.n_experts, small.d_model, small.d_ff
+    variant = gkernel.choose_variant_backward(      # at the round's widths
+        *(torch.zeros(s, device="cuda", dtype=torch.bfloat16)
+          for s in ((E, B, D), (E, D, F), (E, B, F))))
     log(f"moe/runtime_round: TrainRuntime.run_round with reduced "
         f"{MOE_ARCH} DiTs (bf16): round {rt.round}, {moved} of "
         f"{len(before)} server parameters moved, moments finite {finite}, "
-        f"{wall:.2f} s (first call); launches {got}")
-    if rt.round != 1 or not moved or not finite or \
-            not got["grouped_matmul_bwd/wmma"]:
+        f"{wall:.2f} s (first call); the {len(still)} that kept their "
+        f"bits (lr {cfg.lr}, half a bf16 ulp below 1.0 is {2 ** -9}): "
+        f"{', '.join(f'{n} (max |m| {m:.3g})' for n, m in first_m.items())};"
+        f" backward variant {variant}; launches {got}")
+    if rt.round != 1 or not moved or not finite or variant != "wgmma" or \
+            not got[f"grouped_matmul_bwd/{variant}"]:
         raise AssertionError("moe: the MoE TrainRuntime round did not "
                              "train through the grouped matmul's backward")
+    if still != scales or not all(first_m.values()) or \
+            not cfg.lr < 2 ** -9:
+        raise AssertionError(f"moe: the round's unmoved leaves {first_m} "
+                             f"are not the RMSNorm scales {scales} with "
+                             "their gradients")
     del rt, before
     torch.cuda.empty_cache()
     return got
@@ -3801,21 +3835,27 @@ def gmm_faults() -> dict:
             "dX from the next expert": (0, lambda g: g.roll(1, dims=0))}
 
 
-def gmm_bwd_case(rn, E, D, F, what, C, broadcast, dtype):
+def gmm_bwd_case(rn, E, D, F, what, C, broadcast, dtype, misaligned=False):
     """(a) One case of the grouped matmul's backward at DBRX's expert
     shapes: the kernel against ``grouped_matmul_bwd_ref`` on the same
     inputs, each gradient within BWD_FP32_ROW or BWD_BF16_ROW
     (``row_gap``), planted faults beyond it, two launches bitwise and dX's
     first 64 rows equal to a launch over those rows alone; its time
     beside the plain version's, the ``torch.bmm`` pair's and the bound;
-    in bf16 also the forward at this C against its plain version, timed
-    beside ``torch.bmm``.  Returns the case's record."""
+    where the ``wgmma`` variant ran, also the older ``wmma`` design's time
+    (``wmma_ms``), of which it must take at most half from C =
+    GMM_BWD_HALF_FROM_C on; in bf16 also the forward at this C against
+    its plain version, timed beside ``torch.bmm``.  ``misaligned``: the
+    tokens start one element past a 16-byte boundary.  Returns the case's
+    record."""
     import torch
     from repro_torch.kernels.grouped_matmul import kernel as gkernel
     from repro_torch.kernels.grouped_matmul.ref import (
         grouped_matmul_bwd_ref, grouped_matmul_ref)
     tok = rn(C, D).to(dtype).unsqueeze(0).expand(E, -1, -1) if broadcast \
         else rn(E, C, D).to(dtype)
+    if misaligned:
+        tok = torch.cat([tok.new_zeros(1), tok.flatten()])[1:].view(E, C, D)
     w = (rn(E, D, F) * D ** -0.5).to(dtype)
     dy = rn(E, C, F).to(dtype)
     tag = f"grouped_matmul_bwd {what} {(E, C, D, F)} {str(dtype)[6:]}"
@@ -3851,19 +3891,33 @@ def gmm_bwd_case(rn, E, D, F, what, C, broadcast, dtype):
     lib = time_ms(lambda: (torch.bmm(dy, wt), torch.bmm(xs.transpose(1, 2),
                                                         dy)),
                   iters=iters, warmup=1)
+    wmma = None
+    if ran == "wgmma":
+        wmma = time_ms(lambda: gkernel.launch_backward(tok, w, dy,
+                                                       variant="wmma"),
+                       iters=iters, warmup=1)
     bnd, by = gmm_bwd_bound(E, C, D, F, w.element_size(), broadcast)
     rec = dict(what=what, shape=[E, C, D, F], broadcast=broadcast,
                dtype=str(dtype)[6:], variant=ran, max_abs_err=err,
                row_gap=max(gaps), row_limit=tol, faults=faults, ms=ms,
                plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by)
+    older = ""
+    if wmma is not None:
+        rec["wmma_ms"] = wmma
+        older = f" wmma {wmma:.4f} ms ({ms / wmma:.3f}x)"
     log(f"moe_train/{tag} ({ran}): dX/dW row gaps "
         f"{', '.join(f'{e:.3g}' for e in gaps)} (limit {tol}), max abs "
         f"{err:.3g}; planted faults (x{1 + FAULT}) "
         f"{', '.join(f'{f}: {g:.3g}' for f, g in faults.items())}; two "
-        f"launches and rows across C bitwise; kernel {ms:.4f} ms plain "
-        f"{plain:.4f} ms torch.bmm pair {lib:.4f} ms ({ms / lib:.2f}x) "
-        f"bound {bnd:.4f} ms ({by}): {100 * bnd / ms:.2f}% of the bound's "
-        f"rate, {4 * E * C * D * F / ms / 1e9:.1f} TFLOP/s")
+        f"launches and rows across C bitwise; kernel {ms:.4f} ms{older} "
+        f"plain {plain:.4f} ms torch.bmm pair {lib:.4f} ms "
+        f"({ms / lib:.2f}x) bound {bnd:.4f} ms ({by}): "
+        f"{100 * bnd / ms:.2f}% of the bound's rate, "
+        f"{4 * E * C * D * F / ms / 1e9:.1f} TFLOP/s")
+    if wmma is not None and C >= GMM_BWD_HALF_FROM_C and \
+            not ms <= 0.5 * wmma:
+        raise AssertionError(f"{tag}: wgmma {ms:.4f} ms is over half of "
+                             f"wmma's {wmma:.4f} ms")
     if dtype == torch.bfloat16:
         out = gkernel.launch(tok, w)
         ref = grouped_matmul_ref(tok, w)
@@ -3890,10 +3944,11 @@ def gmm_bwd_case(rn, E, D, F, what, C, broadcast, dtype):
 
 def gmm_bwd_checks(arch) -> dict:
     """(a) The grouped matmul's backward at every case of GMM_BWD_CASES,
-    bf16 (``wmma``) and float32 (``simt``): both variants must be
-    launched.  Returns the ``grouped_matmul_bwd`` record (its main numbers
-    the dense LM's bf16 case; ``shapes`` every case) and the forward's
-    numbers at the capacity-packed and dense LM's C."""
+    bf16 (``wgmma``) and float32 (``simt``), and at GMM_BWD_MISALIGNED
+    with a misaligned token pointer (bf16, ``wmma``): all three variants
+    must be launched.  Returns the ``grouped_matmul_bwd`` record (its main
+    numbers the dense LM's bf16 case; ``shapes`` every case) and the
+    forward's numbers at the capacity-packed and dense LM's C."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(23)
     rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
@@ -3901,19 +3956,26 @@ def gmm_bwd_checks(arch) -> dict:
     cases = [gmm_bwd_case(rn, E, D, F, what, C, bc, dtype)
              for dtype in (torch.bfloat16, torch.float32)
              for what, C, bc in GMM_BWD_CASES]
-    ran = sorted({c["variant"] for c in cases})
-    if ran != ["simt", "wmma"]:
-        raise AssertionError(f"grouped_matmul_bwd: the cases launched {ran}")
+    mE, mC, mD, mF = GMM_BWD_MISALIGNED
+    odd = gmm_bwd_case(rn, mE, mD, mF, "misaligned", mC, False,
+                       torch.bfloat16, misaligned=True)
+    ran = {c["variant"]: c["what"] for c in cases + [odd]}
+    if sorted(ran) != ["simt", "wgmma", "wmma"] or ran["wmma"] != \
+            "misaligned" or any(c["variant"] != "wgmma" for c in cases
+                                if c["dtype"] == "bfloat16"):
+        raise AssertionError(f"grouped_matmul_bwd: the cases launched "
+                             f"{[(c['what'], c['variant']) for c in cases]}"
+                             f" and {odd['variant']} misaligned")
     head = next(c for c in cases if c["what"] == "dense LM" and
                 c["dtype"] == "bfloat16")
     record = {k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "library_ms", "bound_ms", "bound_by",
                                    "faults")}
     record.update(shape=head["shape"], row_limit=BWD_BF16_ROW,
-                  row_gap=max(c["row_gap"] for c in cases
+                  row_gap=max(c["row_gap"] for c in cases + [odd]
                               if c["dtype"] == "bfloat16"),
                   shapes=[{k: v for k, v in c.items() if k != "forward"}
-                          for c in cases])
+                          for c in cases + [odd]])
     forward = [c["forward"] for c in cases
                if "forward" in c and c["shape"][1] != 256]
     return record, forward

@@ -438,7 +438,7 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tok_map,
                                         kBK * kRowBytes, kAtomBytes, 1);
 #pragma unroll
           for (int i = 0; i < 2; ++i)   // tokens: K-major, 32 bytes a k16
-            wgmma_m64n192k16_ss_t1(
+            wgmma_m64n192k16_ss<0, 1>(
                 acc[i],
                 make_desc(a + i * 64 * kRowBytes + k * 32, 0, kAtomBytes, 1),
                 db);

@@ -29,33 +29,92 @@
 //
 // Every output element is written by one block, every sum runs over its
 // depth in one fixed order (k-tiles in order, 16 at a time inside them),
-// and no tile or instruction shape depends on C, so a row of dX depends
-// only on its row of dout and the weights, whatever C is.
+// with no split-K, no stream-K and no atomics, and no tile or instruction
+// shape depends on C, so a row of dX depends only on its row of dout and
+// the weights, whatever C is; two launches are bitwise equal.
 //
-// Two variants, picked by kernel.py's ``choose_variant_backward`` from the
-// dtype alone:
+// Three variants; kernel.py's ``choose_variant_backward`` picks one from
+// dtype, shape, strides and alignment alone:
 //
-// * wmma (bf16): the forward's first design.  128 x 128 output tiles, 8
-//   warps of 64 x 32 on nvcuda::wmma 16x16x16 fragments with a float32
-//   accumulator, k-tiles of 32 through a 3-stage cp.async ring (16-byte
-//   copies when the strides are multiples of 8 elements and the pointers
-//   16-byte aligned, else plain masked loads).  wmma fragments take either
-//   major order, so W^T and X^T are read in place, with no transposed copy.
+// * wgmma (bf16; D and F multiples of 8 elements, token strides as the
+//   forward's wgmma variant takes them, all five pointers 16-byte aligned:
+//   every launch of the MoE paths).  Two launches of one kernel template,
+//   dX then dW, each a persistent grid of one block per SM walking its
+//   256 x 192 output tiles in the order (expert, N-tile, M-tile), M
+//   fastest.  Two launches and not one over both tile sets: the two
+//   products differ in their operands' major order, so a fused walk would
+//   branch per tile on the descriptors and the maps, and each launch
+//   alone already fills the card (dX has 512 to 8,192 tiles, dW 21,504).
+//   Each block is three warpgroups: one producer thread keeps TMA loads of
+//   64-deep k-tiles in flight into a 4-stage ring (a stage: A as four
+//   64 x 64 boxes, 32 KB; B as three, 24 KB; all 128-byte swizzled; 225
+//   KB in all) completed on ``full`` mbarriers; two consumer warpgroups
+//   (setmaxnreg 232, the producer's warpgroup drops to 40) each own 128
+//   output rows, issue two wgmma.m64n192k16 per 16 of depth straight from
+//   shared memory, keep one wgmma group in flight and hand each stage back
+//   on an ``empty`` mbarrier, all but the tile's last stage, which holds
+//   the epilogue: each warp rounds its 16 rows of an m64 block to bf16
+//   into its warpgroup's A boxes there, 96 columns at a time, and writes
+//   them back out as 16-byte stores, 32 of a warp covering whole 192-byte
+//   pieces of rows; then the stage goes back, while the producer has
+//   already been loading the block's next tile into the other three.
+//   (The forward's epilogue, four-byte stores straight from the
+//   registers, wrote dW at about 0.95 TB/s on an H100: 2.2 of 3.3 ms at
+//   C 80.  A staging tile of its own with TMA stores was tried first: its
+//   room cost the ring a stage, and in that build ptxas spilled the
+//   accumulators and serialised the wgmma.)
+//   - dX: M = C, N = D, K = F.  A = dout rows, K-major (map 3-D over
+//     (F, C, E)); B = W's rows d, whose F values are contiguous: K-major
+//     too (map 3-D over (F, D, E)), no transpose.  With C fastest the
+//     blocks in flight walk one W panel (192 rows d x all of F, 4.1 MB)
+//     together, so each panel crosses from device memory about once per
+//     group of C-tiles rather than once per tile: W[e] is 132 MB, more
+//     than the 50 MB L2.
+//   - dW: M = D, N = F, K = C.  A = X^T read as X's rows (MN-major,
+//     wgmma's A-transpose flag: map 2-D over (D, C) at the same
+//     coordinates for every expert when the expert stride is 0, 3-D over
+//     (D, C, E) at the tokens' strides otherwise); B = dout rows, MN-major
+//     as the forward's weights.  The sum over C runs inside one block in
+//     k-tiles in order.
+//   A boxes wholly past M and B boxes wholly past N are not loaded (at
+//   C = 80, dX's tile loads 2 of its 4 A boxes); the rows and columns
+//   they would feed are computed from stale shared memory and never
+//   stored.  Every wgmma is issued whatever M is: one guarded by a
+//   branch would be serialised by the compiler.
+// * wmma (bf16 otherwise: D or F not a multiple of 8, overlapping token
+//   rows, or a misaligned pointer): the first design, kept as it was.
+//   128 x 128 output tiles, 8 warps of 64 x 32 on nvcuda::wmma 16x16x16
+//   fragments with a float32 accumulator, k-tiles of 32 through a 3-stage
+//   cp.async ring (16-byte copies when the strides are multiples of 8
+//   elements and the pointers 16-byte aligned, else plain masked loads).
+//   wmma fragments take either major order, so W^T and X^T are read in
+//   place, with no transposed copy.
 // * simt (float32): 64 x 64 output tiles on the CUDA cores, 4 x 4 outputs
 //   a thread, one fmaf per product in the order of the depth.  No TF32.
 //
 // Bound on this card, DBRX-132B's expert shapes (E 16, D 6144, F 10752,
 // bf16): both products together read W and dout and the tokens once and
-// write dW and dX once, 4·E·C·D·F flops.  At C = 256 with broadcast tokens
-// that is 4.3 GB (W and dW are 2.11 GB each), 1.3 ms at 3.35 TB/s, against
-// 1.08 TFLOP, 1.1 ms at 989 TFLOP/s: bytes bind.  At C = 1,280 and 4,096
-// the operations bind (5.4 and 17.3 TFLOP).  This first design reaches
-// neither: wmma through mma.sync tops out well under wgmma's rate.  A
-// wgmma design (both products are plain wgmma shapes with one transposed
-// 16-bit operand, and TMA can read W and X as stored) is later work.
+// write dW and dX once, 4·E·C·D·F flops.  What binds the wgmma variant at
+// the four C the MoE paths feed it:
+// * C 80 (expert-parallel DiT, packed) and C 256 (dense DiT, broadcast):
+//   4.3 GB, 1.3 ms at 3.35 TB/s, against 0.34 and 1.08 TFLOP: bytes bind.
+//   dX streams W (2.1 GB) through 512 tiles of 168 k-tiles each and is
+//   held by that read; dW has only 2 or 4 k-tiles a tile and writes 2.1
+//   GB, so its epilogue is as long as its main loop and its write binds:
+//   the epilogue's stores are 16-byte and line-filling, and the three
+//   stages it leaves free hold the next tile's k-tiles meanwhile, so the
+//   loads keep streaming.
+// * C 1,280 (expert-parallel LM, packed) and C 4,096 (dense LM,
+//   broadcast): 5.4 and 17.3 TFLOP, 5.5 and 17.5 ms at 989 TFLOP/s: the
+//   operations bind, and both launches are long k-loops (dX 168 k-tiles,
+//   dW 20 and 64) at the forward's tile and ring, so the tensor cores'
+//   share of the time is what that design keeps.
+
+#include "hopper.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <mma.h>
 #include <stdint.h>
 
@@ -462,20 +521,259 @@ cudaError_t launch_dw(const void* t, const void* g, void* dw, int E, int C,
   return cudaGetLastError();
 }
 
+
+// ---- bfloat16: wgmma, TMA, warp-specialised, persistent --------------------
+namespace wg {
+
+constexpr int kBM = 256;                 // output rows per tile
+constexpr int kBN = 192;                 // output columns per tile
+constexpr int kBK = 64;                  // depth per stage: one 128-byte row
+constexpr int kBox = 64;                 // every map's box: 64 x 64 values
+constexpr int kBoxBytes = kBox * 128;    // 8 KB, 128-byte swizzled
+constexpr int kStages = 4;
+constexpr int kConsumers = 2;            // warpgroups of 128 output rows
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kABoxes = kBM / kBox, kBBoxes = kBN / kBox;
+constexpr int kABytes = kABoxes * kBoxBytes;              // 32 KB a stage
+constexpr int kStageBytes = kABytes + kBBoxes * kBoxBytes;  // + 24 KB
+constexpr size_t kSmem =
+    1024 + (size_t)kStages * kStageBytes + 2 * kStages * sizeof(uint64_t);
+static_assert(kSmem <= 232448, "over a block's shared memory");
+// the epilogue's staging, per consumer warp: its 16 rows x half of the 192
+// columns of an m64 block in bf16, rows padded by 16 bytes (conflict-free
+// writes), inside its warpgroup's own two A boxes of the tile's last stage
+constexpr int kHalf = kBN / 2;
+constexpr int kStageRow = kHalf * 2 + 16;
+constexpr int kWarpStage = 16 * kStageRow;
+static_assert(4 * kWarpStage <= 2 * kBoxBytes, "staging room");
+
+// kDw = false: dX[e] = dout[e] W[e]^T, M = C, N = D, K = F; A box j of a
+// stage holds dout rows m*kBM + 64j.. x 64 of F, B box j W's rows d
+// n*kBN + 64j.. x 64 of F: both K-major.  kDw = true: dW[e] = X[e]^T
+// dout[e], M = D, N = F, K = C; A box j holds 64 token rows (the depth) x
+// 64 values of d, B box j 64 token rows x 64 values of f: both MN-major.
+// ``a_rank`` 2: A's map has no expert axis (tokens broadcast to every
+// expert).  out: (E, M, N) contiguous.  ``tiles`` counts (expert, N-tile,
+// M-tile) with the M-tile fastest; block b takes tiles b, b + gridDim.x,
+// ...
+template <bool kDw>
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap a_map,
+                     const __grid_constant__ CUtensorMap b_map,
+                     bf16* __restrict__ out, int M, int N, int K,
+                     int tiles_m, int tiles_n, int tiles, int a_rank) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int k_tiles = (K + kBK - 1) / kBK;
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);                  // the producer's expect_tx
+      mbar_init(&empty[s], kConsumers * 4);   // every consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wgi == kConsumers) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == kConsumers * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m = t % tiles_m, n = (t / tiles_m) % tiles_n,
+                  e = t / (tiles_m * tiles_n);
+        // boxes wholly past M or N are not loaded
+        const int a_boxes = min(kABoxes, (M - m * kBM + kBox - 1) / kBox);
+        const int b_boxes = min(kBBoxes, (N - n * kBN + kBox - 1) / kBox);
+        for (int kt = 0; kt < k_tiles; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* a = smem + stage * kStageBytes;
+          unsigned char* b = a + kABytes;
+          mbar_expect_tx(&full[stage], (a_boxes + b_boxes) * kBoxBytes);
+          const int k0 = kt * kBK;
+          for (int j = 0; j < a_boxes; ++j) {
+            const int r = m * kBM + j * kBox;
+            if constexpr (!kDw)
+              tma_load_3d(a + j * kBoxBytes, &a_map, &full[stage], k0, r, e);
+            else if (a_rank == 3)
+              tma_load_3d(a + j * kBoxBytes, &a_map, &full[stage], r, k0, e);
+            else
+              tma_load_2d(a + j * kBoxBytes, &a_map, &full[stage], r, k0);
+          }
+          for (int j = 0; j < b_boxes; ++j) {
+            const int c = n * kBN + j * kBox;
+            if constexpr (kDw)
+              tma_load_3d(b + j * kBoxBytes, &b_map, &full[stage], c, k0, e);
+            else
+              tma_load_3d(b + j * kBoxBytes, &b_map, &full[stage], k0, c, e);
+          }
+          if (++stage == kStages) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 128 output rows each, two m64 blocks ----
+    setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    float acc[2][kBN / 2];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m = t % tiles_m, n = (t / tiles_m) % tiles_n,
+                e = t / (tiles_m * tiles_n);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int j = 0; j < kBN / 2; ++j) acc[i][j] = 0.f;
+        fence_regs(acc[i]);
+      }
+      int prev = 0;
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        mbar_wait(&full[stage], phase);
+        const unsigned char* a =
+            smem + stage * kStageBytes + wgi * 2 * kBoxBytes;
+        const unsigned char* b = smem + stage * kStageBytes + kABytes;
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < kBK / 16; ++k) {
+          if constexpr (kDw) {
+            // MN-major: 16 rows of depth further down each box, the next
+            // 64 columns (B) one box further on
+            const uint64_t db =
+                make_desc(b + k * 16 * 128, kBoxBytes, 1024, 1);
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              wgmma_m64n192k16_ss<1, 1>(
+                  acc[i],
+                  make_desc(a + i * kBoxBytes + k * 16 * 128, kBoxBytes, 1024,
+                            1),
+                  db);
+          } else {
+            // K-major: 32 bytes a k16; B's 192 rows are 24 eight-row atoms
+            // one after the other across its three boxes
+            const uint64_t db = make_desc(b + k * 32, 0, 1024, 1);
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              wgmma_m64n192k16_ss<0, 0>(
+                  acc[i], make_desc(a + i * kBoxBytes + k * 32, 0, 1024, 1),
+                  db);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<1>();                  // k-tile kt - 1 is consumed
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == kStages) { stage = 0; phase ^= 1; }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) fence_regs(acc[i]);
+      // a warp's wait covers its own share of its warpgroup's wgmma: no
+      // consumer warp may overwrite the stage before all have finished
+      named_barrier(1, kConsumers * 128);
+
+      // epilogue (fp32 -> bf16) in the tile's last stage, which this warp
+      // hands back only after it; the producer meanwhile loads the next
+      // tile into the other three.  Each warp stages its own 16 rows of an
+      // m64 block, 96 columns at a time, in its warpgroup's A boxes, and
+      // writes them out as 16-byte stores, a warp's 32 covering whole
+      // 192-byte pieces of rows,
+      // masked at the M and N edges (N % 8 == 0: a 16-byte chunk is inside
+      // or outside).  Rows of an m64 block whose A box was not loaded lie
+      // past M.
+      bf16* ob = out + (int64_t)e * M * N;
+      unsigned char* ws = smem + prev * kStageBytes + wgi * 2 * kBoxBytes +
+                          warp * kWarpStage;
+      const int q = lane % 4, r = lane / 4;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row0 = m * kBM + wgi * 128 + i * 64 + warp * 16;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          __syncwarp();                   // the last half's reads are done
+#pragma unroll
+          for (int j = 0; j < kHalf / 8; ++j) {
+            const int jj = h * (kHalf / 8) + j;
+            *reinterpret_cast<uint32_t*>(ws + r * kStageRow + 16 * j +
+                                         4 * q) =
+                pack_bf16(acc[i][4 * jj], acc[i][4 * jj + 1]);
+            *reinterpret_cast<uint32_t*>(ws + (r + 8) * kStageRow + 16 * j +
+                                         4 * q) =
+                pack_bf16(acc[i][4 * jj + 2], acc[i][4 * jj + 3]);
+          }
+          __syncwarp();
+#pragma unroll
+          for (int u = 0; u < 16 * kHalf / 8 / 32; ++u) {
+            const int idx = u * 32 + lane;  // chunk: row idx / 12, column
+            const int rr = idx / (kHalf / 8), cc = idx % (kHalf / 8);
+            const int row = row0 + rr, col = n * kBN + h * kHalf + 8 * cc;
+            const uint4 v = *reinterpret_cast<const uint4*>(
+                ws + rr * kStageRow + 16 * cc);
+            if (row < M && col < N)
+              *reinterpret_cast<uint4*>(ob + (int64_t)row * N + col) = v;
+          }
+        }
+      }
+      fence_proxy_async();                // before TMA writes the stage
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+    }
+  }
+}
+
+template <bool kDw>
+cudaError_t launch(const CUtensorMap& a_map, const CUtensorMap& b_map,
+                   void* out, int E, int M, int N, int K, int a_rank,
+                   cudaStream_t stream) {
+  static bool configured = false;        // one attribute set per product
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gmm_bwd_wgmma_kernel<kDw>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int tiles_m = (M + kBM - 1) / kBM, tiles_n = (N + kBN - 1) / kBN;
+  const long long tiles = (long long)E * tiles_m * tiles_n;
+  const int sms = hopper::sm_count();
+  if (tiles > INT_MAX) return cudaErrorInvalidValue;
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  gmm_bwd_wgmma_kernel<kDw><<<grid, kThreads, kSmem, stream>>>(
+      a_map, b_map, (bf16*)out, M, N, K, tiles_m, tiles_n, (int)tiles,
+      a_rank);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
 }  // namespace
 
-// variant: 0 = simt (float32), 1 = wmma (bfloat16).  tokens (E, C, D) at
-// element strides (stride_e, stride_c, 1); weights (E, D, F), dout
-// (E, C, F), dtokens (E, C, D) and dweights (E, D, F) contiguous.  Needs E
-// <= 65535 and the D- and F-tile counts (64 wide) <= 65535 (checked by the
-// Python wrapper).  Launches dX then dW on ``stream`` and returns the
-// cudaError_t of the launches (0 on success).
+// variant: 0 = simt (float32), 1 = wmma (bfloat16), 2 = wgmma
+// (bfloat16).  tokens (E, C, D) at element strides (stride_e, stride_c,
+// 1); weights (E, D, F), dout (E, C, F), dtokens (E, C, D) and dweights
+// (E, D, F) contiguous.  For wgmma, tok_map, w_map and dout_map are the
+// tensor maps' geometry (hopper.cuh ``encode_map``), computed by
+// kernel.py;
+// the other variants ignore it and need E <= 65535 and the D- and F-tile
+// counts (64 wide) <= 65535 (checked by the Python wrapper).  Launches dX
+// then dW on ``stream`` and returns the cudaError_t of the launches (0 on
+// success).
 extern "C" int grouped_matmul_bwd_launch(const void* tokens,
                                          const void* weights,
                                          const void* dout, void* dtokens,
                                          void* dweights, int E, int C, int D,
                                          int F, long long stride_e,
                                          long long stride_c, int variant,
+                                         const long long* tok_map,
+                                         const long long* w_map,
+                                         const long long* dout_map,
                                          void* stream) {
   if (E < 1 || C < 1 || D < 1 || F < 1 || stride_e < 0 || stride_c < 0)
     return (int)cudaErrorInvalidValue;
@@ -509,6 +807,24 @@ extern "C" int grouped_matmul_bwd_launch(const void* tokens,
              : launch_dw<false>(tokens, dout, dweights, E, C, D, F, stride_e,
                                 stride_c, s);
     return (int)err;
+  }
+  if (variant == 2) {
+    if (D % 8 || F % 8 || !aligned16(tokens) || !aligned16(weights) ||
+        !aligned16(dout) || !aligned16(dtokens) || !aligned16(dweights) ||
+        tok_map == nullptr || w_map == nullptr || dout_map == nullptr)
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap tm, wm, dm;
+    if (!hopper::encode_map(&tm, tokens, tok_map) ||
+        !hopper::encode_map(&wm, weights, w_map) ||
+        !hopper::encode_map(&dm, dout, dout_map))
+      return (int)cudaErrorInvalidValue;
+    // dX = dout W^T over (M, N, K) = (C, D, F), then dW = X^T dout over
+    // (D, F, C)
+    const cudaError_t err = wg::launch<false>(dm, wm, dtokens, E, C, D, F,
+                                              3, s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)wg::launch<true>(tm, dm, dweights, E, D, F, C,
+                                 (int)tok_map[0], s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -11,9 +11,12 @@ and persistent) wherever its loads can be described by tensor maps,
 tensor maps.
 
 ``launch_backward`` runs the backward's two products (dX = dY·Wᵀ and
-dW = Xᵀ·dY) in the variant that ``choose_variant_backward`` picks from
-the dtype: ``wmma`` (bf16 on the tensor cores) or ``simt`` (float32 on
-the CUDA cores).
+dW = Xᵀ·dY) in the variant that ``choose_variant_backward`` picks the
+same way: ``wgmma`` (bf16 through TMA and wgmma, warp-specialised and
+persistent) wherever tensor maps describe every load (and the pointers
+of the outputs it stores are 16-byte aligned), ``wmma`` for the other
+bf16 operands, ``simt`` for float32; ``bwd_tma_maps`` computes the
+wgmma variant's three tensor maps.
 
 ``COUNTS["grouped_matmul"]`` and the variant's
 ``COUNTS["grouped_matmul/<variant>"]`` are bumped only where a kernel is
@@ -25,7 +28,7 @@ ones.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -35,18 +38,21 @@ from repro_torch.kernels.tma import BF16_BYTES, TmaMap, as_ctypes
 SOURCE = "grouped_matmul.cu"
 BWD_SOURCE = "grouped_matmul_bwd.cu"
 VARIANTS = ("wgmma", "wmma", "simt")
-BWD_VARIANTS = ("wmma", "simt")
+BWD_VARIANTS = ("wgmma", "wmma", "simt")
 COUNTS: Dict[str, int] = {"grouped_matmul": 0,
                           **{f"grouped_matmul/{v}": 0 for v in VARIANTS},
                           "grouped_matmul_bwd": 0,
                           **{f"grouped_matmul_bwd/{v}": 0
                              for v in BWD_VARIANTS}}
 _VARIANT_CODES = {"simt": 0, "wmma": 1, "wgmma": 2}
-_BWD_CODES = {"simt": 0, "wmma": 1}
+_BWD_CODES = {"simt": 0, "wmma": 1, "wgmma": 2}
 # the wgmma variant's tile (csrc/grouped_matmul.cu, namespace wg): all of
 # C = 256 token rows, 64 of depth a stage, weights in boxes of 64 columns
 TILE_C, TILE_D, BOX_F = 256, 64, 64
 SWIZZLE = 128           # bytes: TILE_D and BOX_F bf16 make one swizzle row
+# the backward's wgmma variant (csrc/grouped_matmul_bwd.cu, namespace wg)
+# loads every operand in boxes of BWD_BOX x BWD_BOX values
+BWD_BOX = 64
 _MAX_GRID_YZ = 65535
 _TILE_F = 64            # the smaller of the older variants' F-tiles
 # tokens, weights, out, E, C, D, F, stride_e, stride_c, variant,
@@ -54,9 +60,9 @@ _TILE_F = 64            # the smaller of the older variants' F-tiles
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
     [ctypes.c_longlong] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3
 # tokens, weights, dout, dtokens, dweights, E, C, D, F, stride_e,
-# stride_c, variant, stream
+# stride_c, variant, tokens map, weights map, dout map, stream
 _BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
-    [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    [ctypes.c_longlong] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4
 
 
 def reset_counts() -> None:
@@ -175,22 +181,56 @@ def launch(tokens: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
 
 
 def choose_variant_backward(tokens: torch.Tensor, weights: torch.Tensor,
-                            dout: torch.Tensor) -> str:
-    """The backward kernel for these operands, from the dtype alone:
-    ``wmma`` for bfloat16, ``simt`` for float32 (the kernel itself picks
-    16-byte copies where strides and pointers allow)."""
-    return "wmma" if tokens.dtype == torch.bfloat16 else "simt"
+                            dout: torch.Tensor, *outputs: torch.Tensor
+                            ) -> str:
+    """The backward kernel for these operands, from dtype, shape, strides
+    and alignment alone: ``wgmma`` for bfloat16 where tensor maps can
+    describe every load (``choose_variant``'s rule for the tokens and
+    weights, ``dout`` 16-byte aligned) and the ``outputs`` given, dtokens
+    and dweights, are 16-byte aligned for its 16-byte stores; ``wmma``
+    for other bfloat16 operands; ``simt`` for float32."""
+    if tokens.dtype != torch.bfloat16:
+        return "simt"
+    if choose_variant(tokens, weights) == "wgmma" and \
+            all(t.data_ptr() % 16 == 0 for t in (dout, *outputs)):
+        return "wgmma"
+    return "wmma"
+
+
+def bwd_tma_maps(E: int, C: int, D: int, F: int, se: int,
+                 sc: int) -> Tuple[TmaMap, TmaMap, TmaMap]:
+    """(tokens, weights, dout) maps of the backward's wgmma variant,
+    every box BWD_BOX x BWD_BOX values.  Tokens, read along D as dW's
+    MN-major A: 3-D over (D, C, E) at their strides, or, with expert
+    stride 0, 2-D over (D, C), read at the same coordinates for every
+    expert.  Weights (dX's K-major B): 3-D over (F, D, E).  dout (dX's
+    K-major A, dW's MN-major B): 3-D over (F, C, E)."""
+    b = BWD_BOX
+    if se == 0:
+        tok = TmaMap((D, C), (sc * BF16_BYTES,), (b, b), SWIZZLE)
+    else:
+        tok = TmaMap((D, C, E), (sc * BF16_BYTES, se * BF16_BYTES),
+                     (b, b, 1), SWIZZLE)
+    per_expert = lambda inner, outer: TmaMap(
+        (inner, outer, E), (inner * BF16_BYTES, outer * inner * BF16_BYTES),
+        (b, b, 1), SWIZZLE)
+    return tok, per_expert(F, D), per_expert(F, C)
 
 
 def launch_backward(tokens: torch.Tensor, weights: torch.Tensor,
-                    dout: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                    dout: torch.Tensor, variant: Optional[str] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward kernels (csrc/grouped_matmul_bwd.cu) of ``launch``
     for the gradient ``dout`` (E, C, F) of its output: tokens and weights
     as for ``launch``, ``dout`` contiguous in their dtype.  Returns
     (dtokens, dweights): dY·Wᵀ as a new contiguous (E, C, D) tensor (one
     slab per expert, also for tokens broadcast with expert stride 0) and
     Xᵀ·dY as a new contiguous (E, D, F) tensor, in the inputs' dtype.
-    Shapes, types and strides are checked first, the device last."""
+    ``variant`` defaults to ``choose_variant_backward``'s; ``wmma`` may be
+    asked for at any bfloat16 input and ``simt`` at any float32 one (so
+    the older designs can be timed beside the chosen one), and any other
+    value is refused.  Shapes, types, strides and the variant are checked
+    first, the device last."""
     what = "grouped_matmul backward kernel"
     E, C, D, F = _check_operands(what, tokens, weights)
     if dout.shape != (E, C, F) or dout.dtype != tokens.dtype or \
@@ -201,17 +241,26 @@ def launch_backward(tokens: torch.Tensor, weights: torch.Tensor,
     if E > _MAX_GRID_YZ or -(-max(D, F) // _TILE_F) > _MAX_GRID_YZ:
         raise ValueError(f"{what}: grid over {_MAX_GRID_YZ} for E {E}, D "
                          f"{D}, F {F}")
+    if variant is not None and variant != (
+            "wmma" if tokens.dtype == torch.bfloat16 else "simt"):
+        raise ValueError(f"{what}: variant {variant!r} does not take "
+                         f"{tokens.dtype} (None, or wmma for bfloat16, simt "
+                         "for float32)")
     _check_device(what, dict(tokens=tokens, weights=weights, dout=dout))
-    variant = choose_variant_backward(tokens, weights, dout)
     dtok = torch.empty((E, C, D), dtype=tokens.dtype, device=tokens.device)
     dw = torch.empty((E, D, F), dtype=tokens.dtype, device=tokens.device)
     if dtok.numel() == 0 or dw.numel() == 0 or C == 0 or F == 0:
         return dtok.zero_(), dw.zero_()
+    if variant is None:
+        variant = choose_variant_backward(tokens, weights, dout, dtok, dw)
     se, sc = token_strides(tokens)
+    maps = [None] * 3
+    if variant == "wgmma":
+        maps = [as_ctypes(m) for m in bwd_tma_maps(E, C, D, F, se, sc)]
     rc = build.bind(BWD_SOURCE, "grouped_matmul_bwd_launch", _BWD_ARGTYPES)(
         tokens.data_ptr(), weights.data_ptr(), dout.data_ptr(),
         dtok.data_ptr(), dw.data_ptr(), E, C, D, F, se, sc,
-        _BWD_CODES[variant], raw_stream(tokens.device.index))
+        _BWD_CODES[variant], *maps, raw_stream(tokens.device.index))
     if rc != 0:
         raise RuntimeError(f"grouped_matmul backward kernel ({variant}) "
                            f"launch failed: cudaError {rc}")

@@ -129,7 +129,8 @@ def test_kernels_line_lists_every_kernel_with_every_key():
                      "ddpm_step/given": 0, "ddpm_step_batched/rowwise": 1,
                      "ddpm_step_batched/given": 0,
                      "flash_attention_bwd/simt": 6, "ssd_scan_bwd/simt": 7,
-                     "grouped_matmul_bwd/wmma": 8,
+                     "grouped_matmul_bwd/wgmma": 8,
+                     "grouped_matmul_bwd/wmma": 1,
                      "grouped_matmul_bwd/simt": 0})
     line = cs.kernels_line(records, launches)
     assert [k["name"] for k in line["kernels"]] == names
@@ -166,7 +167,8 @@ def test_kernels_line_lists_every_kernel_with_every_key():
     assert gbwd["source"] == "src/repro_torch/csrc/grouped_matmul_bwd.cu"
     assert gbwd["replaces"] == gmm["replaces"] == \
         "src/repro/kernels/grouped_matmul/kernel.py:39"
-    assert gbwd["launches_by_variant"] == {"wmma": 8, "simt": 0}
+    assert gbwd["launches_by_variant"] == {"wgmma": 8, "wmma": 1,
+                                           "simt": 0}
     assert gbwd["shapes"] == [dict(what="dense LM", ms=90.0)]
     assert "steps" not in gbwd
     assert gmm["capacity_shapes"] == [dict(ms=0.3)]
@@ -867,16 +869,88 @@ def test_with_backward_and_no_bwd_name_each_variant():
     per = {"grouped_matmul": 6, "flash_attention": 2}
     want = cs.with_backward(per, "grouped_matmul", "flash_attention")
     assert want == {**per, "grouped_matmul_bwd": 6,
-                    "grouped_matmul_bwd/wmma": 6,
+                    "grouped_matmul_bwd/wgmma": 6,
+                    "grouped_matmul_bwd/wmma": 0,
                     "grouped_matmul_bwd/simt": 0, "flash_attention_bwd": 2,
                     "flash_attention_bwd/wgmma": 2,
                     "flash_attention_bwd/simt": 0}
     assert cs.with_backward(per, "grouped_matmul", variant="simt") == {
-        **per, "grouped_matmul_bwd": 6, "grouped_matmul_bwd/wmma": 0,
-        "grouped_matmul_bwd/simt": 6}
+        **per, "grouped_matmul_bwd": 6, "grouped_matmul_bwd/wgmma": 0,
+        "grouped_matmul_bwd/wmma": 0, "grouped_matmul_bwd/simt": 6}
     assert cs.no_bwd("grouped_matmul") == {"grouped_matmul_bwd": 0,
+                                           "grouped_matmul_bwd/wgmma": 0,
                                            "grouped_matmul_bwd/wmma": 0,
                                            "grouped_matmul_bwd/simt": 0}
+
+
+def test_gmm_bwd_cases_reach_the_variants_they_must():
+    """Built as ``gmm_bwd_case`` builds them (meta tensors at DBRX's
+    expert shapes: the choice reads shapes, strides and pointers alone),
+    every bf16 case of GMM_BWD_CASES reaches ``wgmma``; the
+    GMM_BWD_MISALIGNED case, one element past a 16-byte boundary,
+    ``wmma``; float32 ``simt``."""
+    cs = _chip_smoke()
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.grouped_matmul import kernel as gkernel
+    arch = get_arch(cs.MOE_ARCH)
+    E, D, F = arch.n_experts, arch.d_model, arch.d_ff
+    for dtype, want in ((torch.bfloat16, "wgmma"), (torch.float32, "simt")):
+        for _, C, broadcast in cs.GMM_BWD_CASES:
+            meta = lambda *shape: torch.empty(shape, dtype=dtype,
+                                              device="meta")
+            tok = meta(C, D).unsqueeze(0).expand(E, -1, -1) if broadcast \
+                else meta(E, C, D)
+            assert gkernel.choose_variant_backward(
+                tok, meta(E, D, F), meta(E, C, F), meta(E, C, D),
+                meta(E, D, F)) == want
+    mE, mC, mD, mF = cs.GMM_BWD_MISALIGNED
+    tok = torch.zeros(mE, mC, mD, dtype=torch.bfloat16)
+    tok = torch.cat([tok.new_zeros(1), tok.flatten()])[1:].view(mE, mC, mD)
+    assert tok.data_ptr() % 16 and mD % 8 == 0 and mF % 8 == 0
+    assert gkernel.choose_variant_backward(
+        tok, torch.zeros(mE, mD, mF, dtype=torch.bfloat16),
+        torch.zeros(mE, mC, mF, dtype=torch.bfloat16)) == "wmma"
+    assert cs.GMM_BWD_HALF_FROM_C == 1280
+
+
+def test_reduced_moe_round_keeps_only_the_norm_scales_on_the_cpu():
+    """The round ``moe_runtime_round`` runs on the card (reduced DBRX-132B
+    DiTs in bf16, one client, one batch), here on the CPU port: the
+    leaves that keep their bits are exactly the RMSNorm scales, each
+    with a nonzero first moment (its gradient reached it), because
+    AdamW's first step of about the learning rate is under half a bf16
+    ulp at 1.0 (2^-9 below it)."""
+    import dataclasses
+    cs = _chip_smoke()
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.core import prng
+    from repro_torch.core.dit import DiTConfig, init_dit, make_dit_apply
+    from repro_torch.train import (ParticipationConfig, TrainConfig,
+                                   TrainRuntime)
+    dcfg = DiTConfig(image_size=cs.IMG[0], channels=cs.IMG[2], patch_size=4,
+                     n_classes=8)
+    small = dataclasses.replace(reduced(get_arch(cs.MOE_ARCH)),
+                                dtype="bfloat16")
+    cfg = TrainConfig(T=1000, t_cut=250, image_shape=cs.IMG,
+                      n_classes=dcfg.n_classes, batch_size=cs.B,
+                      batches_per_round=1,
+                      participation=ParticipationConfig(policy="full"))
+    rt = TrainRuntime(cfg, lambda k: init_dit(k, small, dcfg, "cpu"),
+                      make_dit_apply(small, dcfg), prng.PRNGKey(0),
+                      device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    rt.register_client(torch.randn((cs.B,) + cs.IMG, generator=gen),
+                       torch.eye(8)[torch.arange(cs.B) % 8])
+    before = {n: p.detach().clone()
+              for n, p in rt.server_params.named_parameters()}
+    rt.run_round()
+    still = sorted(n for n, p in rt.server_params.named_parameters()
+                   if torch.equal(p, before[n]))
+    assert still == sorted(n for n in before if n.endswith(".scale"))
+    assert len(still) == 5 and len(before) == 27
+    assert all(rt.server_opt["m"][n].abs().max() > 0 for n in still)
+    assert all(torch.all(before[n] == 1) for n in still)
+    assert cfg.lr < 2 ** -9
 
 
 def _gmm_grads():

@@ -10,19 +10,23 @@ its autograd route, and on the card its kernel.
   the vjp of the broadcast) and capacity-packed (the expert-parallel
   path's); float32 within TOL, bfloat16 within TOL_BF16.  The whole
   expert FFN's gradients (``_expert_ffn``) against ``jax.vjp`` of JAX's.
-* ``kernel.launch_backward``'s checks of shape, type and strides, each
-  reachable on the CPU because the device is checked last;
-  ``choose_variant_backward``; the counters.
+* ``kernel.launch_backward``'s checks of shape, type, strides and the
+  ``variant=`` rule, each reachable on the CPU because the device is
+  checked last; ``choose_variant_backward`` over dtype, D and F off a
+  multiple of 8, misaligned and overlapping operands; ``bwd_tma_maps``
+  against geometry worked out by hand; the counters.
 * ``ops.GroupedMatmulFn`` with its two launches swapped for the plain
   versions (a CPU stand-in for the kernels): the gradients of packed and
   broadcast tokens and of the weights equal autograd's of the plain
   version, so the Function's wiring (saved tensors, the broadcast's sum,
   ``needs_input_grad``) holds.
 * On the card (``cuda`` marker; skips without a device): the kernel in
-  both variants against ``grouped_matmul_bwd_ref`` on the same inputs,
-  with broadcast, packed and misaligned tokens, ragged shapes, rows of dX
-  bitwise across C and two launches bitwise; the op under grad against
-  the CPU's autograd.
+  every variant against ``grouped_matmul_bwd_ref`` on the same inputs,
+  with broadcast, packed and misaligned tokens, ragged shapes (C 1, 80
+  and 257, D and F off the wgmma tile), each case naming the variant it
+  must launch, rows of dX bitwise across C and two launches bitwise;
+  ``variant="wmma"`` beside the chosen ``wgmma``; the op under grad
+  against the CPU's autograd.
 """
 import jax
 import jax.numpy as jnp
@@ -166,12 +170,122 @@ def test_variants_and_counters():
                                                  dtype=torch.bfloat16)
     assert kernel.choose_variant_backward(t32, w32, None) == "simt"
     assert kernel.choose_variant_backward(t16, w16, None) == "wmma"
-    assert kernel.BWD_VARIANTS == ("wmma", "simt")
-    assert {"grouped_matmul_bwd", "grouped_matmul_bwd/wmma",
-            "grouped_matmul_bwd/simt"} <= set(kernel.COUNTS)
+    assert kernel.BWD_VARIANTS == ("wgmma", "wmma", "simt")
+    assert {k for k in kernel.COUNTS if k.startswith("grouped_matmul_bwd")} \
+        == {"grouped_matmul_bwd", "grouped_matmul_bwd/wgmma",
+            "grouped_matmul_bwd/wmma", "grouped_matmul_bwd/simt"}
     kernel.COUNTS["grouped_matmul_bwd/simt"] = 3
     kernel.reset_counts()
     assert not any(kernel.COUNTS.values())
+
+
+BF16 = torch.bfloat16
+
+
+def _bf16_operands(E=2, C=40, D=64, F=48, broadcast=False):
+    tok = torch.zeros(C, D, dtype=BF16).unsqueeze(0).expand(E, -1, -1) \
+        if broadcast else torch.zeros(E, C, D, dtype=BF16)
+    return tok, torch.zeros(E, D, F, dtype=BF16), \
+        torch.zeros(E, C, F, dtype=BF16)
+
+
+def _misaligned(*shape, dtype=BF16):
+    n = int(np.prod(shape))
+    return torch.zeros(n + 8, dtype=dtype).narrow(0, 1, n).view(*shape)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("float32", "simt"), ("broadcast", "wgmma"), ("packed", "wgmma"),
+    ("C 1", "wgmma"), ("C 257, D and F off the tile", "wgmma"),
+    ("D off a multiple of 8", "wmma"), ("F off a multiple of 8", "wmma"),
+    ("misaligned tokens", "wmma"), ("misaligned weights", "wmma"),
+    ("misaligned dout", "wmma"), ("misaligned dtokens", "wmma"),
+    ("misaligned dweights", "wmma"), ("overlapping rows", "wmma"),
+    ("overlapping experts", "wmma"), ("row stride off 8", "wmma"),
+    ("padded rows", "wgmma")])
+def test_choose_variant_backward(case, want):
+    """wgmma wherever tensor maps describe every load and store of the
+    bf16 backward; wmma for other bf16 operands; simt for float32."""
+    E, C, D, F = 2, 40, 64, 48
+    tok, w, dy = _bf16_operands(E, C, D, F, broadcast=case == "broadcast")
+    outs = [torch.zeros(E, C, D, dtype=BF16), torch.zeros(E, D, F,
+                                                           dtype=BF16)]
+    if case == "float32":
+        tok, w, dy = tok.float(), w.float(), dy.float()
+    elif case == "C 1":
+        tok, dy = torch.zeros(E, 1, D, dtype=BF16), torch.zeros(E, 1, F,
+                                                                dtype=BF16)
+    elif case.startswith("C 257"):
+        tok, w, dy = _bf16_operands(E, 257, 264, 200)
+    elif case.startswith("D off"):
+        tok, w, dy = _bf16_operands(E, C, 60, F)
+    elif case.startswith("F off"):
+        tok, w, dy = _bf16_operands(E, C, D, 44)
+    elif case == "misaligned tokens":
+        tok = _misaligned(E, C, D)
+    elif case == "misaligned weights":
+        w = _misaligned(E, D, F)
+    elif case == "misaligned dout":
+        dy = _misaligned(E, C, F)
+    elif case == "misaligned dtokens":
+        outs[0] = _misaligned(E, C, D)
+    elif case == "misaligned dweights":
+        outs[1] = _misaligned(E, D, F)
+    elif case == "overlapping rows":       # row stride under D
+        tok = torch.zeros(E * C * D, dtype=BF16).as_strided(
+            (E, C, D), (C * D, D // 2, 1))
+    elif case == "overlapping experts":    # expert stride under C rows
+        tok = torch.zeros(E * C * D, dtype=BF16).as_strided(
+            (E, C, D), (8 * D, D, 1))
+    elif case == "row stride off 8":
+        tok = torch.zeros(E, C, D + 4, dtype=BF16)[..., :D]
+    elif case == "padded rows":            # row stride D + 8: TMA takes it
+        tok = torch.zeros(E, C, D + 8, dtype=BF16)[..., :D]
+    assert kernel.choose_variant_backward(tok, w, dy, *outs) == want
+
+
+def test_bwd_tma_maps_by_hand():
+    """Broadcast tokens: a 2-D (D, C) map at the row stride; packed: 3-D
+    over (D, C, E) at both strides; weights (F, D, E) and dout (F, C, E),
+    contiguous; every box 64 x 64 (x 1) of bf16 with the 128-byte
+    swizzle; the packed words as the C side reads them."""
+    E, C, D, F = 16, 80, 6144, 10752
+    tok, w, dy = kernel.bwd_tma_maps(E, C, D, F, 0, D)
+    assert tok == kernel.TmaMap((6144, 80), (12288,), (64, 64), 128)
+    assert w == kernel.TmaMap((10752, 6144, 16), (21504, 132120576),
+                              (64, 64, 1), 128)
+    assert dy == kernel.TmaMap((10752, 80, 16), (21504, 1720320),
+                               (64, 64, 1), 128)
+    packed = kernel.bwd_tma_maps(E, C, D, F, 80 * 6144 + 64, 6144 + 8)
+    assert packed[0] == kernel.TmaMap((6144, 80, 16), (12304, 983168),
+                                      (64, 64, 1), 128)
+    assert packed[1:] == (w, dy)
+    assert tok.packed() == (2, 6144, 80, 1, 12288, 0, 64, 64, 1, 128)
+    assert w.packed() == (3, 10752, 6144, 16, 21504, 132120576, 64, 64, 1,
+                          128)
+    for m in packed:                       # TMA's limits
+        assert all(s % 16 == 0 for s in m.strides)
+        assert m.box[0] * 2 <= m.swizzle and max(m.box) <= 256
+
+
+@pytest.mark.parametrize("variant,dtype,match", [
+    ("wmma", BF16, "expected one CUDA device"),
+    ("simt", torch.float32, "expected one CUDA device"),
+    (None, BF16, "expected one CUDA device"),
+    ("wgmma", BF16, "variant 'wgmma'"), ("simt", BF16, "variant 'simt'"),
+    ("wmma", torch.float32, "variant 'wmma'"),
+    ("tf32", torch.float32, "variant 'tf32'"), ("", BF16, "variant ''")],
+    ids=["wmma-bf16", "simt-f32", "chosen", "wgmma-named", "simt-bf16",
+         "wmma-f32", "unknown", "empty"])
+def test_variant_rule_of_launch_backward(variant, dtype, match):
+    """wmma (bf16) and simt (float32) may be asked for and reach the
+    device check (CPU tensors: refused there); any other value is refused
+    before it; no counter moves."""
+    args = [a.to(dtype) for a in _bf16_operands()]
+    before = dict(kernel.COUNTS)
+    with pytest.raises(ValueError, match=match):
+        kernel.launch_backward(*args, variant=variant)
+    assert kernel.COUNTS == before
 
 
 @pytest.mark.parametrize("broadcast", [True, False])
@@ -230,10 +344,25 @@ def _card():
         pytest.skip("needs a CUDA device (run on the card with -m cuda)")
 
 
+# the card's cases: SHAPES, then the wgmma variant at C 1, 80 and 257 with
+# D and F off its 256 x 192 tile (and D past one 256-row M-tile of dW)
+CARD_SHAPES = SHAPES + [(2, 300, 136, 200), (3, 1, 72, 40),
+                        (2, 80, 200, 392), (2, 257, 264, 200)]
+
+
+def _card_variant(shape, how, dtype):
+    """The variant a case must launch, by the rule worked out by hand."""
+    if dtype == torch.float32:
+        return "simt"
+    _, _, D, F = shape
+    return "wgmma" if how != "misaligned" and D % 8 == 0 and F % 8 == 0 \
+        else "wmma"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("how", ["broadcast", "packed", "misaligned"])
-@pytest.mark.parametrize("shape", SHAPES + [(2, 300, 136, 200)])
+@pytest.mark.parametrize("shape", CARD_SHAPES)
 def test_kernel_matches_ref_on_the_card(shape, how, dtype):
     _card()
     E, C, D, F = shape
@@ -249,7 +378,8 @@ def test_kernel_matches_ref_on_the_card(shape, how, dtype):
     before = dict(kernel.COUNTS)
     dtok, dw = kernel.launch_backward(tok, w, dy)
     torch.cuda.synchronize()
-    variant = kernel.choose_variant_backward(tok, w, dy)
+    variant = _card_variant(shape, how, dtype)
+    assert kernel.choose_variant_backward(tok, w, dy) == variant
     assert kernel.COUNTS["grouped_matmul_bwd"] == \
         before["grouped_matmul_bwd"] + 1
     assert kernel.COUNTS[f"grouped_matmul_bwd/{variant}"] == \
@@ -265,6 +395,12 @@ def test_kernel_matches_ref_on_the_card(shape, how, dtype):
         part, _ = kernel.launch_backward(tok[:, :5], w,
                                          dy[:, :5].contiguous())
         assert torch.equal(part, dtok[:, :5])
+    if variant == "wgmma":                 # the older design, asked for
+        old = kernel.launch_backward(tok, w, dy, variant="wmma")
+        for a, b in zip(old, (r_tok, r_w)):
+            torch.testing.assert_close(a.float(), b.float(), **tol)
+        assert kernel.COUNTS["grouped_matmul_bwd/wmma"] == \
+            before["grouped_matmul_bwd/wmma"] + 1
 
 
 @pytest.mark.cuda
