@@ -204,8 +204,28 @@ package).  Phases, each of which fails the run on any error:
    train.py``'s ``main`` for 20 steps of 8 x 1,500 frames and 448 tokens,
    12 + 12 flash launches a step (backward all wgmma), the loss falling,
    a repeated step bitwise; (f) 2 + 2 layers against the CPU port;
-17. a ``kernels`` JSON line (eight kernels, ``launches_by_path`` over
-   the eleven paths), the card line again, and the result line.
+17. the port's examples (``phase_examples``): examples/torch_{quickstart,
+   cutpoint_sweep,dit_backbone,train_lm}.py at the reference's numbers
+   on the card, counters zeroed just before and read just after (path
+   ``examples``): the keyed DDPM step, the SSD scan's and flash
+   attention's forward and backward kernels each launched, outputs
+   finite;
+18. the dry runs (``phase_dryrun``), one after the other, each in a
+   process of its own on the CPU with no card visible (output in
+   experiments/dryrun_torch/): launch/dryrun.py ``--all`` on the fake
+   single-pod mesh, every pair that ``skip_reason`` runs ``OK`` and
+   every other ``SKIP`` with its reason, then launch/collab_dryrun.py at
+   COLLAB_DRYRUN_ARGS writing its six programs;
+19. the card check of the meta route (``phase_meta_check``): Zamba2-1.2B
+   at full width, B 1 x S 1,024, its parameter and AdamW bytes on the
+   card within META_BYTES_RTOL of ``dryrun.reckon``'s, one training
+   step's saved-tensor bytes and FLOPs (``FlopCounterMode`` plus
+   ``kernels.FLOPS``) equal to the meta run's; then one Alg.-1 step of
+   the collab dry run's U-Net at META_CHECK_UNET (group norm and the
+   cached output shapes of ``dryrun.StepCounters``), its saved bytes and
+   FLOPs on the card equal to the meta run's;
+20. a ``kernels`` JSON line (eight kernels, ``launches_by_path`` over
+   the twelve paths), the card line again, and the result line.
 
 Exits nonzero, printing no result line, without a CUDA device or outside
 a checkout.
@@ -223,6 +243,17 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
+    print("chip_smoke: src/repro_torch not found; run from the root of a "
+          "checkout", file=sys.stderr)
+    sys.exit(2)
+sys.path.insert(0, str(ROOT / "src"))
+# the card's rates and each kernel's work: one source, the package's
+from repro_torch.kernels.ddpm_step import cost as ddpm_cost  # noqa: E402
+from repro_torch.kernels.flash_attention import cost as fa_cost  # noqa: E402
+from repro_torch.kernels.grouped_matmul import cost as gmm_cost  # noqa: E402
+from repro_torch.kernels.ssd_scan import cost as ssd_cost  # noqa: E402
+from repro_torch.launch import mesh as card  # noqa: E402
 TOL_BF16 = dict(atol=5e-2, rtol=5e-2)   # the JAX package's kernel tolerance
 TOL_FLASH = dict(atol=2e-5, rtol=2e-3)  # tests/test_kernels.py TOL (fp32)
 TOL_SSD = dict(atol=1e-4, rtol=1e-3)    # tests/test_kernels.py ssd (fp32)
@@ -231,14 +262,14 @@ TOL_SSD = dict(atol=1e-4, rtol=1e-3)    # tests/test_kernels.py ssd (fp32)
 # grows with |y|; the kernel keeps them in float32.  TOL_BF16's atol scaled
 # to the output's range: max |kernel - plain| <= 5e-2 * max(1, max |plain|).
 SSD_BF16_RANGE = 5e-2
-BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor rate
+BF16_FLOPS_PER_S = card.PEAK_FLOPS_BF16
 FP32_ULPS = 1          # kernel vs plain in fp32 (the kernel forbids FMAs)
 # the keyed variants vs their plain composition in fp32: bitwise (the
 # draw is prng.py's threefry, erfinvf is the function torch.erfinv calls)
 KEYED_FP32_ULPS = 0
 UNET_RTOL = 1e-4       # card vs CPU forward, relative to max |output|
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
-FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+HBM_BYTES_PER_S = card.HBM_BW
+FP32_FLOPS_PER_S = card.PEAK_FLOPS_FP32
 # that rate counts an FMA as two flops: a single fmul or fadd (the DDPM
 # step forbids FMAs) runs at half of it, 128 results an SM a clock
 FP32_INSTR_PER_S = FP32_FLOPS_PER_S / 2
@@ -246,15 +277,6 @@ FP32_INSTR_PER_S = FP32_FLOPS_PER_S / 2
 # clock on compute capability 9.0 (CUDA C++ Programming Guide, table of
 # arithmetic instruction throughput), a quarter of the fp32 flop rate
 INT32_OPS_PER_S = FP32_FLOPS_PER_S / 4
-# the keyed DDPM step's draw (csrc/threefry.cuh): a Threefry-2x32 block
-# is 2 + 5 x (4 x 3) + 5 x 3 = 77 integer ops; an element takes one
-# block, its counter's split, the XOR of the words and the mantissa
-# (+5), and in float the uniform (4), erfinvf (~25: CUDA's
-# single-precision erfinvf is a log and a polynomial), the sqrt(2) scale
-# (1) and the step (5)
-THREEFRY_INT_OPS = 77
-DRAW_INT_OPS = THREEFRY_INT_OPS + 5
-DRAW_FLOAT_OPS = 4 + 25 + 1 + 5
 IMG = (32, 32, 3)
 B = 4
 MAIN_REQUESTS = 3           # the U-Net serve path's requests a pass
@@ -434,83 +456,27 @@ def _rate(dtype) -> float:
 
 
 def flash_bound(q, k, causal: bool, window: int):
-    """q, k, v read once, out written once; 4·dh flops per (query, key)
-    pair that the masks keep."""
-    Bq, H, S, dh = q.shape
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    flops = 4 * Bq * H * dh * keep_count(S, causal, window)
-    return _bound(nbytes, flops, _rate(q.dtype))
+    """Flash attention's forward (kernels/flash_attention/cost.py)."""
+    return _bound(*fa_cost.cost(q.shape, k.shape, causal, window,
+                                q.element_size()), _rate(q.dtype))
 
 
 def ssd_bound(x, Bm, chunk: int):
-    """x, dt, A, B, C read once, y and the float32 state written once; per
-    (batch, head, tile of q steps) the kernel's products: C·B and the
-    scores times dt·x on and below the diagonal, C·state and dt·xᵀB."""
-    b, s, h, p = x.shape
-    n = Bm.shape[-1]
-    q = min(chunk, 64)
-    tiles = -(-s // q)
-    it = x.element_size()
-    nbytes = (2 * x.numel() + 2 * Bm.numel()) * it + (b * s * h + h) * 4 + \
-        b * h * p * n * 4
-    flops = b * h * tiles * ((n + p) * q * (q + 1) + 4 * q * p * n)
-    return _bound(nbytes, flops, _rate(x.dtype))
+    """The SSD scan's forward (kernels/ssd_scan/cost.py)."""
+    return _bound(*ssd_cost.cost(x.shape, Bm.shape[-1], chunk,
+                                 x.element_size()), _rate(x.dtype))
 
 
 def flash_bwd_bound(q, k, causal: bool, window: int):
-    """q, k, v, out, dout and the float32 lse read once, dq, dk, dv
-    written once; 10·dh flops per kept (query, key) pair: the five
-    products S = q kᵀ, dP = dO vᵀ, dV, dK and dQ."""
-    import torch
-    Bq, H, S, dh = q.shape
-    keep = keep_count(S, causal, window)
-    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + \
-        Bq * H * S * 4
-    flops = 10 * Bq * H * dh * keep
-    return _bound(nbytes, flops, _rate(q.dtype))
-
-
-def keep_count(S: int, causal: bool, window: int) -> int:
-    """The (query, key) pairs that the masks keep at length S."""
-    import torch
-    i = torch.arange(S)[:, None]
-    j = torch.arange(S)[None, :]
-    keep = torch.ones(S, S, dtype=torch.bool)
-    if causal:
-        keep &= j <= i
-    if window > 0:
-        keep &= (i - j) < window
-    return int(keep.sum())
+    """Flash attention's backward (kernels/flash_attention/cost.py)."""
+    return _bound(*fa_cost.cost_backward(q.shape, k.shape, causal, window,
+                                         q.element_size()), _rate(q.dtype))
 
 
 def ssd_bwd_bound(x, Bm, chunk: int):
-    """x and dy read and dx written, B and C read and dB and dC written
-    (x's type), dt read and ddt written (float32), A read and dA
-    written; the products of the backward's algorithm done once: per
-    (batch, chunk) C·B over the q(q+1)/2 pairs on and below the diagonal
-    (shared by the heads), per head dy·dtx, d(dtx), dB and dC over those
-    pairs, and per step the two chunk sums, G B, Gᵀ dtx and hᵀ dy."""
-    b, s, h, p = x.shape
-    n = Bm.shape[-1]
-    q = min(chunk, s)
-    nc = -(-s // q)
-    pairs = q * (q + 1) // 2
-    it = x.element_size()
-    nbytes = (3 * x.numel() + 4 * Bm.numel()) * it + 2 * b * s * h * 4 + \
-        2 * h * 4
-    flops = b * nc * (pairs * 2 * n + h * (pairs * (4 * p + 4 * n) +
-                                           q * 10 * p * n))
-    return _bound(nbytes, flops, _rate(x.dtype))
-
-
-def gmm_work(E: int, C: int, D: int, F: int, itemsize: int,
-             shared_tokens: bool):
-    """(bytes, flops) of a grouped matmul (E, C, D) @ (E, D, F): the
-    tokens read once (one (C, D) set when they are broadcast to every
-    expert), the weights read once, the output written once; 2·E·C·D·F
-    flops."""
-    tokens = (1 if shared_tokens else E) * C * D
-    return (tokens + E * D * F + E * C * F) * itemsize, 2 * E * C * D * F
+    """The SSD scan's backward (kernels/ssd_scan/cost.py)."""
+    return _bound(*ssd_cost.cost_backward(x.shape, Bm.shape[-1], chunk,
+                                          x.element_size()), _rate(x.dtype))
 
 
 def gmm_bound(E: int, C: int, D: int, F: int, itemsize: int,
@@ -518,27 +484,16 @@ def gmm_bound(E: int, C: int, D: int, F: int, itemsize: int,
     """(least time in ms, what binds it) of a grouped matmul on this
     card; bf16 (itemsize 2) at the tensor rate, float32 at the CUDA-core
     rate."""
-    return _bound(*gmm_work(E, C, D, F, itemsize, shared_tokens),
+    return _bound(*gmm_cost.cost(E, C, D, F, itemsize, shared_tokens),
                   BF16_FLOPS_PER_S if itemsize == 2 else FP32_FLOPS_PER_S)
-
-
-def gmm_bwd_work(E: int, C: int, D: int, F: int, itemsize: int,
-                 shared_tokens: bool):
-    """(bytes, flops) of the grouped matmul's backward for dout (E, C,
-    F): the tokens (one (C, D) set when broadcast), the weights and dout
-    read once, dtokens (one (C, D) sum over the experts when the tokens
-    are broadcast) and dweights written once; 4·E·C·D·F flops (dY·Wᵀ and
-    Xᵀ·dY)."""
-    tokens = (1 if shared_tokens else E) * C * D
-    return (2 * tokens + 2 * E * D * F + E * C * F) * itemsize, \
-        4 * E * C * D * F
 
 
 def gmm_bwd_bound(E: int, C: int, D: int, F: int, itemsize: int,
                   shared_tokens: bool):
     """(least time in ms, what binds it) of the grouped matmul's backward
     on this card, rated as ``gmm_bound``."""
-    return _bound(*gmm_bwd_work(E, C, D, F, itemsize, shared_tokens),
+    return _bound(*gmm_cost.cost_backward(E, C, D, F, itemsize,
+                                          shared_tokens),
                   BF16_FLOPS_PER_S if itemsize == 2 else FP32_FLOPS_PER_S)
 
 
@@ -621,8 +576,7 @@ def phase_kernels():
         return err
 
     def bound_ms(K, per, itemsize):
-        return _bound(4 * K * per * itemsize + 12 * K, 5 * K * per,
-                      FP32_INSTR_PER_S)
+        return _bound(*ddpm_cost.cost(K, per, itemsize), FP32_INSTR_PER_S)
 
     for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
@@ -689,14 +643,15 @@ def keyed_bound(elements: int, itemsize: int, derivations: int,
     x and eps read and the output written for the ``elements`` that step,
     x read and written for the ``passed`` ones of masked slabs, plus keys,
     coefficients and mask (``extra_bytes``); against the draw's
-    operations: its integer ones (DRAW_INT_OPS an element and a Threefry
-    block per key ``derivations``) at INT32_OPS_PER_S, or all of them,
-    float ones (DRAW_FLOAT_OPS an element) included, at one a lane a
-    clock (FP32_INSTR_PER_S), whichever takes longer.  Counted in integer
+    operations (kernels/ddpm_step/cost.py): its integer ones
+    (``DRAW_INT_OPS`` an element and a Threefry block per key
+    ``derivations``) at INT32_OPS_PER_S, or all of them, float ones
+    (``DRAW_FLOAT_OPS`` an element) included, at one a lane a clock
+    (FP32_INSTR_PER_S), whichever takes longer.  Counted in integer
     slots: FP32_INSTR_PER_S is twice INT32_OPS_PER_S."""
-    nbytes = (3 * elements + 2 * passed) * itemsize + extra_bytes
-    int_ops = elements * DRAW_INT_OPS + derivations * THREEFRY_INT_OPS
-    all_ops = int_ops + elements * DRAW_FLOAT_OPS
+    nbytes, int_ops, flops = ddpm_cost.cost_keyed(
+        elements, itemsize, derivations, extra_bytes, passed)
+    all_ops = int_ops + flops
     slots = max(int_ops, all_ops * INT32_OPS_PER_S / FP32_INSTR_PER_S)
     return _bound(nbytes, slots, INT32_OPS_PER_S)
 
@@ -2649,8 +2604,8 @@ def phase_moe():
         plain = time_ms(lambda: grouped_matmul_ref(tok, w), iters=5,
                         warmup=1)
         lib = time_ms(lambda: torch.bmm(dense_tok, w), iters=20, warmup=3)
-        work.append(gmm_work(E, C, D, Fo, w.element_size(),
-                             tok.stride(0) == 0))
+        work.append(gmm_cost.cost(E, C, D, Fo, w.element_size(),
+                                  tok.stride(0) == 0))
         bnd, by = _bound(*work[-1], _rate(w.dtype))
         del dense_tok
         shapes.append(dict(name=name, shape=[E, C, D, Fo], max_abs_err=err,
@@ -2816,7 +2771,7 @@ WHISPER_FLASH_BWD = (((8, 8, 8, 1500, 64), False),
 WHISPER_CPU_LAYERS, WHISPER_GRAD_SEQ = 2, 333
 PATHS = ("serve", "train", "train_runtime", "eval", "dit", "moe",
          "moe_train", "lm_serve", "lm_train", "whisper_serve",
-         "whisper_train")
+         "whisper_train", "examples")
 
 
 def eval_scores(trained, data, key, n: int = EVAL_N) -> dict:
@@ -4668,13 +4623,270 @@ def phase_whisper():
     return records, launches, train_launches
 
 
+EXAMPLES = ("torch_quickstart", "torch_cutpoint_sweep", "torch_dit_backbone",
+            "torch_train_lm")
+# what each example's run() returns that must be finite
+EXAMPLE_OUTPUTS = {
+    "torch_quickstart": lambda o: [o["samples"], o["handoff"]],
+    "torch_cutpoint_sweep": lambda o: [
+        __import__("torch").tensor([r["fd_sample"] for r in o])],
+    "torch_dit_backbone": lambda o: [o["samples"]],
+    "torch_train_lm": lambda o: [__import__("torch").tensor(o["losses"])]}
+# the dry run's card check: zamba2-1.2b at full width, one sequence of
+# 1,024 tokens, on a one-device mesh (no process group: sizes alone)
+META_CHECK_ARCH = "zamba2-1.2b"
+META_CHECK_SHAPE = ("meta_check", 1024, 1, "train")
+META_BYTES_RTOL = 0.01
+# and one Alg.-1 step of the collab dry run's U-Net (image size, batch, T,
+# cut): the paper's 32 x 32 images, the cut of phase 7
+META_CHECK_UNET = (32, 16, 1000, 250)
+COLLAB_DRYRUN_ARGS = ["--image-size", "16", "--batch", "16", "--T", "10",
+                      "--t-cut", "2"]
+
+
+def phase_dryrun(timeout: float = 600.0) -> dict:
+    """The dry runs, one after the other, each in a process of its own on
+    the CPU with no card visible (output in experiments/dryrun_torch/
+    <name>.log, beside the records):
+    launch/dryrun.py ``--all`` on the single-pod fake mesh, where every
+    pair that ``skip_reason`` runs must come out OK and every other SKIP
+    with that reason, then launch/collab_dryrun.py at COLLAB_DRYRUN_ARGS,
+    which must write its six programs.  Returns their walls and counts."""
+    import os
+    import torch  # noqa: F401  (the package's configs need it)
+    from repro_torch.configs.base import ARCH_IDS, SHAPES, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import skip_reason
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out_dir = ROOT / dryrun.OUT_DIR
+    out_dir.mkdir(parents=True, exist_ok=True)
+    outs = {}
+    for name, argv in (("dryrun", ["--all"]),
+                       ("collab_dryrun", COLLAB_DRYRUN_ARGS)):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"repro_torch.launch.{name}", *argv],
+            cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, timeout=timeout)
+        outs[name] = (proc.stdout, time.perf_counter() - t0)
+        (out_dir / f"{name}.log").write_text(proc.stdout)
+        log(f"dryrun/{name}: rc {proc.returncode}, wall {outs[name][1]:.1f} s")
+        if proc.returncode != 0:
+            log(proc.stdout[-4000:])
+            raise AssertionError(f"dryrun/{name}: exit {proc.returncode}")
+    lines = outs["dryrun"][0].splitlines()
+    n_ok = n_skip = 0
+    for a in ARCH_IDS:
+        cfg = get_arch(a)
+        for sname, shape in SHAPES.items():
+            tag = f"{cfg.name}__{sname}__{dryrun.mesh_tag(False)}"
+            reason = skip_reason(cfg, shape)
+            want = f"OK   {tag}:" if reason is None else \
+                f"SKIP {tag}: {reason}"
+            if not any(line.startswith(want) for line in lines):
+                raise AssertionError(f"dryrun: no line {want!r}")
+            n_ok, n_skip = n_ok + (reason is None), n_skip + (
+                reason is not None)
+    rec = json.loads(Path(ROOT / dryrun.OUT_DIR /
+                          "granite-8b__train_4k__pod16x16.json").read_text())
+    log(f"dryrun/pairs: {n_ok} ok, {n_skip} skipped with the reference's "
+        f"reasons; granite-8b train_4k: flops {rec['flops']:.6g}, "
+        f"bytes/device {rec['bytes_per_device']['total']}, saved/device "
+        f"{rec['saved_activation_bytes']['per_device']}, trace "
+        f"{rec['trace_s']} s")
+    for line in lines:
+        if line.startswith("OK"):
+            log(f"  {line}")
+    collab = json.loads(Path(ROOT / dryrun.OUT_DIR /
+                             "collafuse_unet__pod16x16.json").read_text())
+    progs = collab["results"]
+    if set(progs) != {"collab_train_step", "server_denoise",
+                      "vectorized_round", "ragged_round", "train_runtime",
+                      "vectorized_sample"}:
+        raise AssertionError(f"collab_dryrun: programs {sorted(progs)}")
+    for name, r in progs.items():
+        log(f"collab_dryrun/{name}: flops {r['flops']:.6g} bytes/device "
+            f"{r['bytes_per_device']['total']} saved "
+            f"{r['saved_activation_bytes']} trace {r['trace_s']} s")
+    return {"pairs_ok": n_ok, "pairs_skip": n_skip,
+            "dryrun_wall_s": outs["dryrun"][1],
+            "collab_dryrun_wall_s": outs["collab_dryrun"][1]}
+
+
+def phase_meta_check() -> dict:
+    """The dry run's reckoning (``dryrun.reckon``) held against the card
+    for META_CHECK_ARCH at full width and META_CHECK_SHAPE on a one-device
+    mesh: (1) the parameter and AdamW bytes the card allocates within
+    META_BYTES_RTOL of the reckoned bytes; (2) the saved-tensor bytes of
+    one training step (activations and parameters) equal to the meta
+    count; (3) ``FlopCounterMode``'s total plus the kernels' counts
+    (``kernels.FLOPS``) equal to the meta FLOPs; then (2) and (3) for one
+    Alg.-1 step of the collab dry run's U-Net at META_CHECK_UNET
+    (``unet_meta_check``)."""
+    import types
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import kernels
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.core import prng
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import make_train_step
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import init_opt_state
+    t0 = time.perf_counter()
+    cfg = get_arch(META_CHECK_ARCH)
+    shape = ShapeConfig(*META_CHECK_SHAPE)
+    one = types.SimpleNamespace(shape={"data": 1, "model": 1})
+    meta = dryrun.reckon(cfg, shape, one)
+    meta_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    key = prng.PRNGKey(0, device="cuda")
+    params = api.init_params(key, cfg, "cuda")
+    opt = init_opt_state(params)
+    card_bytes = torch.cuda.memory_allocated() - before
+    b = lm_batch(prng.fold_in(key, 0), shape.global_batch, shape.seq_len,
+                 cfg.vocab_size)
+    batch = {k: v.int() for k, v in b.items()}       # the meta's int32
+    step = make_train_step(cfg)
+    step(params, opt, batch)                          # warm: builds, maps
+    torch.cuda.synchronize()
+    kernels.reset_flops()
+    with FlopCounterMode(display=False) as fc, \
+            dryrun.SavedBytes() as saved, torch.no_grad():
+        step(params, opt, batch)
+    torch.cuda.synchronize()
+    card_flops = fc.get_total_flops() + kernels.total_flops()
+    reckoned = meta["bytes_per_device"]["params"] + \
+        meta["bytes_per_device"]["opt_state"]
+    gap = abs(card_bytes - reckoned) / reckoned
+    rec = dict(arch=cfg.name, shape=list(META_CHECK_SHAPE[1:3]),
+               card_param_opt_bytes=card_bytes,
+               meta_param_opt_bytes=reckoned, bytes_gap=gap,
+               card_saved=[saved.activation_bytes, saved.param_bytes],
+               meta_saved=[meta["saved_activation_bytes"]["per_device"],
+                           meta["saved_param_bytes"]],
+               card_flops=card_flops, card_aten_flops=fc.get_total_flops(),
+               card_kernel_flops=dict(kernels.FLOPS), meta_flops=meta["flops"],
+               meta_kernel_flops=meta["kernel_flops"],
+               meta_trace_s=meta["trace_s"], meta_s=meta_s,
+               phase_s=time.perf_counter() - t0)
+    log(f"meta_check/{cfg.name} B{shape.global_batch} x S{shape.seq_len}: "
+        f"params + AdamW card {card_bytes} B vs reckoned {reckoned} B (gap "
+        f"{gap:.3g}, limit {META_BYTES_RTOL}); saved activations card "
+        f"{saved.activation_bytes} meta {rec['meta_saved'][0]}, saved "
+        f"parameters card {saved.param_bytes} meta {rec['meta_saved'][1]}; "
+        f"flops card {card_flops} (aten {fc.get_total_flops()}) meta "
+        f"{meta['flops']} (aten {meta['aten_flops']}); reckoning "
+        f"{meta_s:.1f} s")
+    log(f"meta_check/kernel_flops: card {dict(kernels.FLOPS)} meta "
+        f"{meta['kernel_flops']}")
+    if gap > META_BYTES_RTOL:
+        raise AssertionError(f"meta_check: parameter and AdamW bytes off by "
+                             f"{gap:.3g}")
+    if rec["card_saved"] != rec["meta_saved"]:
+        raise AssertionError(f"meta_check: saved bytes card "
+                             f"{rec['card_saved']} != meta "
+                             f"{rec['meta_saved']}")
+    if card_flops != meta["flops"]:
+        raise AssertionError(f"meta_check: flops card {card_flops} != meta "
+                             f"{meta['flops']}")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["unet"] = unet_meta_check()
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
+def unet_meta_check() -> dict:
+    """One Alg.-1 step of the collab dry run's U-Net at META_CHECK_UNET
+    (``collab_dryrun.collab_step_program``): its saved-tensor bytes and
+    FLOPs on the card equal to the meta run's under ``dryrun.measure``."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import kernels
+    from repro_torch.launch import collab_dryrun, dryrun
+    fn, args = collab_dryrun.collab_step_program(*META_CHECK_UNET, "meta")
+    meta = dryrun.measure(fn, args)
+    fn, args = collab_dryrun.collab_step_program(*META_CHECK_UNET, "cuda")
+    fn(*args)                                         # warm
+    torch.cuda.synchronize()
+    kernels.reset_flops()
+    with FlopCounterMode(display=False) as fc, \
+            dryrun.SavedBytes() as saved, torch.no_grad():
+        fn(*args)
+    torch.cuda.synchronize()
+    rec = dict(config=list(META_CHECK_UNET),
+               card_saved=[saved.activation_bytes, saved.param_bytes],
+               meta_saved=[meta["saved_activation_bytes"],
+                           meta["saved_param_bytes"]],
+               card_flops=fc.get_total_flops() + kernels.total_flops(),
+               meta_flops=meta["flops"], meta_trace_s=meta["trace_s"])
+    log(f"meta_check/unet {META_CHECK_UNET}: saved activations card "
+        f"{rec['card_saved'][0]} meta {rec['meta_saved'][0]}, saved "
+        f"parameters card {rec['card_saved'][1]} meta {rec['meta_saved'][1]}"
+        f"; flops card {rec['card_flops']} meta {rec['meta_flops']}; meta "
+        f"step {meta['trace_s']} s")
+    if rec["card_saved"] != rec["meta_saved"]:
+        raise AssertionError(f"meta_check/unet: saved bytes card "
+                             f"{rec['card_saved']} != meta "
+                             f"{rec['meta_saved']}")
+    if rec["card_flops"] != rec["meta_flops"]:
+        raise AssertionError(f"meta_check/unet: flops card "
+                             f"{rec['card_flops']} != meta {rec['meta_flops']}")
+    del fn, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_examples():
+    """The four port examples (examples/torch_*.py) on the card at the
+    reference's numbers, every launch counter zeroed just before and read
+    just after: the keyed DDPM step (three diffusion examples' samples),
+    the SSD scan's forward and backward (the reduced mamba2-2.7b DiT) and
+    flash attention's forward and backward (the reduced granite-8b LM)
+    must each be launched; outputs finite.  Returns the path's launches
+    and per-example walls."""
+    import importlib.util
+    import torch
+    from repro_torch.kernels.ddpm_step import kernel as dkernel
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.grouped_matmul import kernel as gkernel
+    from repro_torch.kernels.ssd_scan import kernel as skernel
+    kmods = (dkernel, fkernel, skernel, gkernel)
+    mods = {}
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    walls = {}
+    for kmod in kmods:                          # --- examples path starts
+        kmod.reset_counts()
+    for name, mod in mods.items():
+        t0 = time.perf_counter()
+        out = mod.run(device="cuda")
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        if not all(torch.isfinite(t).all().item()
+                   for t in EXAMPLE_OUTPUTS[name](out)):
+            raise AssertionError(f"examples/{name}: non-finite output")
+        log(f"examples/{name}: wall {walls[name]:.1f} s")
+    launches = lm_counts(*kmods)                # --- examples path ends
+    log(f"examples/launches: {launches}")
+    for name in ("ddpm_step/keyed", "ssd_scan", "ssd_scan_bwd",
+                 "flash_attention", "flash_attention_bwd"):
+        if launches[name] <= 0:
+            raise AssertionError(f"examples: {name} never launched")
+    return launches, walls
+
+
 def main() -> int:
-    src = ROOT / "src"
-    if not (src / "repro_torch" / "__init__.py").is_file():
-        print("chip_smoke: src/repro_torch not found; run from the root of "
-              "a checkout", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(src))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4684,8 +4896,7 @@ def main() -> int:
     # refusal checks enable grad where they need it
     torch.set_grad_enabled(False)
     t_start = time.perf_counter()
-    card = card_line()
-    log(card)
+    log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     phase_build()
@@ -4706,6 +4917,11 @@ def main() -> int:
     train_records, lm_train_launches = phase_lm_train()
     whisper_records, whisper_launches, whisper_train_launches = \
         phase_whisper()
+    t_new = time.perf_counter()
+    examples_launches, _ = phase_examples()
+    phase_dryrun()
+    phase_meta_check()
+    log(f"examples_dryrun_meta/phase_s: {time.perf_counter() - t_new:.1f}")
     records["ddpm_step"]["card_ms"] = ddpm_card_ms
     records["ddpm_step_batched"]["card_ms"] = batched_card_ms
     records.update(dit_records)
@@ -4728,13 +4944,13 @@ def main() -> int:
     records["grouped_matmul"]["capacity_shapes"] = \
         moe_train_records["capacity_shapes"]
     records["grouped_matmul_bwd"] = moe_train_records["grouped_matmul_bwd"]
-    # launches of the eleven main paths (each counted from zero just
+    # launches of the twelve main paths (each counted from zero just
     # before it)
     by_path = dict(zip(PATHS, (launches, train_launches, runtime_launches,
                                eval_launches, dit_launches, moe_launches,
                                moe_train_launches, lm_launches,
                                lm_train_launches, whisper_launches,
-                               whisper_train_launches)))
+                               whisper_train_launches, examples_launches)))
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in set().union(*by_path.values())}
     log(f"total_s: {time.perf_counter() - t_start:.1f}")

@@ -86,11 +86,15 @@ def to_torch(tree, device=None):
 
 
 # A leaf's layout: as it is, an HWIO conv kernel (the port's OIHW), or a
-# dense (in, out) weight (nn.Linear's (out, in)).
-_TO_PORT = {"as_is": lambda a: a, "hwio": lambda a: a.transpose(3, 2, 0, 1),
-            "dense": lambda a: a.T}
-_TO_JAX = {"as_is": lambda a: a, "hwio": lambda a: a.transpose(2, 3, 1, 0),
-           "dense": lambda a: a.T}
+# dense (in, out) weight (nn.Linear's (out, in)).  PERM[layout][i] is the
+# JAX dim that the port's dim i holds: the copy transposes by it, and
+# sharding/specs.py permutes a JAX spec by it.
+PERM = {"as_is": None, "hwio": (3, 2, 0, 1), "dense": (1, 0)}
+_TO_PORT = {k: (lambda a, p=p: a if p is None else a.transpose(p))
+            for k, p in PERM.items()}
+_TO_JAX = {k: (lambda a, p=p: a if p is None else
+               a.transpose(tuple(np.argsort(p))))
+           for k, p in PERM.items()}
 
 
 def _copy(param: torch.Tensor, value: np.ndarray, layout: str,
@@ -103,6 +107,53 @@ def _copy(param: torch.Tensor, value: np.ndarray, layout: str,
                          f"params {value.shape}")
     with torch.no_grad():
         param.copy_(torch.from_numpy(value))
+
+
+# the stacked layer axes of core/dit.py, the LMs and the encoder-decoder
+STACKS = ("mamba", "layers", "enc_layers", "dec_layers")
+
+
+def is_stacked(path) -> bool:
+    """Whether a JAX parameter path lies in a stacked layer subtree."""
+    return any(n in STACKS for n in path[:-1]) or \
+        (bool(path) and path[0] in STACKS)
+
+
+def param_layouts(model: nn.Module) -> dict:
+    """{parameter name: (JAX path, layout)} of a module, by the rules of
+    ``_walk``: an ``nn.Linear``'s weight is its JAX dense leaf, an
+    ``nn.Embedding``'s its (V, D) leaf as it is, a bias-free ``nn.Conv2d``
+    its HWIO kernel, a biased one ``{w, b}``, a GroupNorm's ``weight`` /
+    ``bias`` JAX's ``scale`` / ``bias``, a bare parameter its own name.
+    The path holds JAX's dict keys and "[i]" for a list entry; the entries
+    of a stacked layer list (``STACKS``) share their stack's path, as JAX
+    stacks them on a leading axis."""
+    out = {}
+
+    def visit(module, path, prefix):
+        if isinstance(module, nn.Embedding):
+            out[prefix + "weight"] = (path, "as_is")
+        elif isinstance(module, nn.Linear):
+            out[prefix + "weight"] = (path, "dense")
+        elif isinstance(module, nn.Conv2d) and module.bias is None:
+            out[prefix + "weight"] = (path, "hwio")
+        elif isinstance(module, nn.Conv2d):
+            out[prefix + "weight"] = (path + ("w",), "hwio")
+            out[prefix + "bias"] = (path + ("b",), "as_is")
+        else:
+            for n, _ in module.named_parameters(recurse=False):
+                key = "scale" if n == "weight" else n
+                out[prefix + n] = (path + (key,), "as_is")
+            for n, child in module.named_children():
+                if n.isdigit():
+                    sub = path if path and path[-1] in STACKS \
+                        else path + (f"[{n}]",)
+                else:
+                    sub = path + (n,)
+                visit(child, sub, prefix + n + ".")
+
+    visit(model, (), "")
+    return out
 
 
 def _walk(module, tree, name: str, leaf):
@@ -144,17 +195,13 @@ def _walk(module, tree, name: str, leaf):
                     f"{type(module).__name__}")
 
 
-# the stacked layer axes of core/dit.py, the LMs and the encoder-decoder
-_STACKS = ("mamba", "layers", "enc_layers", "dec_layers")
-
-
 def _unstack_layers(params):
     """A DiT tree with its layer stacks (a leading layer axis in JAX,
     ``stacked_init``) split into lists; any other tree as it is."""
     if not isinstance(params, dict):
         return params
     tree = dict(params)
-    for stack in _STACKS:
+    for stack in STACKS:
         if stack in tree:
             tree[stack] = unstack(tree[stack])
     return tree
@@ -178,7 +225,7 @@ def _restack_layers(tree):
     if not isinstance(tree, dict):
         return tree
     tree = dict(tree)
-    for stack in _STACKS:
+    for stack in STACKS:
         if stack in tree:
             tree[stack] = _stack(tree[stack])
     return tree
@@ -261,7 +308,7 @@ def load_dit(model: nn.Module, params) -> nn.Module:
     """Copy a JAX-layout DiT parameter tree (core/dit.init_dit, numpy
     leaves) into a ``core.dit.DiT`` in place, or a language model's
     (models/api.init_params) into its module.  The layer stacks
-    (``_STACKS``) carry a leading layer axis in JAX
+    (``STACKS``) carry a leading layer axis in JAX
     (``stacked_init``); they are unstacked into the module's layer lists.
     Every parameter of the module must be covered."""
     return load_params(model, _unstack_layers(params))

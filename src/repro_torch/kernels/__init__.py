@@ -1,7 +1,34 @@
-"""Hand-written CUDA kernels of the port, one package per kernel family."""
+"""Hand-written CUDA kernels of the port, one package per kernel family.
+
+Each family's ``cost.py`` gives a launch's bytes and operations from its
+shapes.  Every launch adds its floating-point operations to ``FLOPS``
+under its kernel's name: on the card where the kernel runs, and on the
+``meta`` device, where a launch computes nothing and returns empty
+outputs of the card's shapes and types (the dry run,
+launch/dryrun.py).  ``torch.utils.flop_counter.FlopCounterMode`` sees
+aten's products but not a ctypes launch, so a step's FLOPs are the aten
+count plus ``total_flops()``, on the card and on meta alike.
+"""
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
+
+FLOPS: Dict[str, int] = {}
+
+
+def add_flops(kernel: str, flops: int) -> None:
+    """Count a launch's floating-point operations under ``kernel``."""
+    FLOPS[kernel] = FLOPS.get(kernel, 0) + int(flops)
+
+
+def reset_flops() -> None:
+    FLOPS.clear()
+
+
+def total_flops() -> int:
+    return sum(FLOPS.values())
 
 
 def raw_stream(device_index: int) -> int:
@@ -13,8 +40,6 @@ def raw_stream(device_index: int) -> int:
     ``chip_smoke.py`` phase 3 checks that again on a side stream, so a
     torch that drops or changes it fails there."""
     return torch._C._cuda_getCurrentRawStream(device_index)
-
-
 def refuse_grad(kernel: str, *tensors) -> None:
     """Raise if autograd would need a gradient through a raw ``launch``:
     an output filled through ctypes carries no ``grad_fn``, so a loss on

@@ -26,7 +26,8 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import build, raw_stream, refuse_grad
+from repro_torch.kernels import add_flops, build, raw_stream, refuse_grad
+from repro_torch.kernels.ddpm_step import cost
 
 SOURCE = "ddpm_step.cu"
 VARIANTS = {"ddpm_step": ("given", "keyed"),
@@ -51,6 +52,13 @@ def reset_counts() -> None:
 def _count(entry: str, variant_key: str) -> None:
     COUNTS[entry] += 1
     COUNTS[variant_key] += 1
+
+
+def _meta_step(x_t: torch.Tensor, entry: str, flops: int) -> torch.Tensor:
+    """The meta route (the dry run): count the launch's operations and
+    return an empty output of the card's shape and type."""
+    add_flops(entry, flops)
+    return torch.empty_like(x_t)
 
 
 def _check_operands(x_t: torch.Tensor, eps_pred: torch.Tensor) -> None:
@@ -112,10 +120,13 @@ def launch(x_t: torch.Tensor, eps_pred: torch.Tensor, noise: torch.Tensor,
             x_t.numel() % K:
         raise ValueError(f"ddpm_step kernel: coef {tuple(coef.shape)} "
                          f"{coef.dtype} does not fit x_t {tuple(x_t.shape)}")
+    per = x_t.numel() // K
+    flops = cost.cost(K, per, x_t.element_size())[1]
+    if x_t.is_meta:
+        return _meta_step(x_t, entry, flops)
     dev = _check_device(("x_t", "eps_pred", "noise", "coef"), x_t, eps_pred,
                         noise, coef)
     out = torch.empty_like(x_t)
-    per = x_t.numel() // K
     if per == 0:
         return out
     rc = build.bind(SOURCE, "ddpm_step_launch", _ARGTYPES)(
@@ -125,6 +136,7 @@ def launch(x_t: torch.Tensor, eps_pred: torch.Tensor, noise: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"ddpm_step kernel launch failed: cudaError {rc}")
     _count(entry, _GIVEN[entry])
+    add_flops(entry, flops)
     return out
 
 
@@ -140,6 +152,9 @@ def launch_keyed(x_t: torch.Tensor, eps_pred: torch.Tensor,
     _check_operands(x_t, eps_pred)
     _check_key("key", key, (2,))
     _check_key("key_out", key_out, (2,))
+    flops = x_t.numel() * cost.DRAW_FLOAT_OPS
+    if x_t.is_meta:
+        return _meta_step(x_t, "ddpm_step", flops)
     if abs(key.data_ptr() - key_out.data_ptr()) < 16:
         raise ValueError("ddpm_step kernel: key_out overlaps key (the "
                          "sampler alternates two key buffers)")
@@ -158,6 +173,7 @@ def launch_keyed(x_t: torch.Tensor, eps_pred: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"ddpm_step kernel launch failed: cudaError {rc}")
     _count("ddpm_step", "ddpm_step/keyed")
+    add_flops("ddpm_step", flops)
     return out
 
 
@@ -187,6 +203,9 @@ def launch_rowwise(x_t: torch.Tensor, eps_pred: torch.Tensor,
     if active.dtype != torch.float32 or tuple(active.shape) != (K,):
         raise ValueError(f"ddpm_step kernel: active {tuple(active.shape)} "
                          f"{active.dtype} is not a ({K},) float32 mask")
+    flops = x_t.numel() * cost.DRAW_FLOAT_OPS    # the mask is not read
+    if x_t.is_meta:
+        return _meta_step(x_t, "ddpm_step_batched", flops)
     dev = _check_device(("x_t", "eps_pred", "keys", "coef", "active"), x_t,
                         eps_pred, keys, coef, active)
     out = torch.empty_like(x_t)
@@ -198,4 +217,5 @@ def launch_rowwise(x_t: torch.Tensor, eps_pred: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"ddpm_step kernel launch failed: cudaError {rc}")
     _count("ddpm_step_batched", "ddpm_step_batched/rowwise")
+    add_flops("ddpm_step_batched", flops)
     return out

@@ -15,6 +15,12 @@ stage.  Their plain versions (ref.py) are the composition they replace,
 op for op (``prng.split`` / ``prng.normal`` or the row-keyed draw,
 ``ddpm_step_ref``, ``torch.where``), so a CPU run gives the same bits as
 before the kernel drew its own noise.
+
+A meta tensor (the dry run, launch/dryrun.py) takes the same route as a
+CUDA one, through the same ``torch.autograd.Function``; the launch then
+computes nothing and returns empty outputs of the card path's shapes and
+types (its operations counted in ``kernels.FLOPS``), so autograd saves
+on meta exactly the tensors it saves on the card.
 """
 from __future__ import annotations
 
@@ -53,12 +59,14 @@ def step_coefficient_table(sched: DiffusionSchedule, t, t_prev=None):
 
 
 def _route(x_t):
-    """True for a CUDA tensor, False for a CPU one (by the tensor's flags:
-    this runs at every denoising step)."""
-    if x_t.is_cuda:
+    """True for a CUDA or meta tensor (the kernel, or on meta its shapes
+    alone), False for a CPU one (by the tensor's flags: this runs at
+    every denoising step)."""
+    if x_t.is_cuda or x_t.is_meta:
         return True
     if not x_t.is_cpu:
-        raise ValueError(f"ddpm_step runs on cpu or cuda, not {x_t.device}")
+        raise ValueError(f"ddpm_step runs on cpu, cuda or meta, not "
+                         f"{x_t.device}")
     return False
 
 

@@ -30,7 +30,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, raw_stream, refuse_grad
+from repro_torch.kernels import add_flops, build, raw_stream, refuse_grad
+from repro_torch.kernels.flash_attention import cost
 from repro_torch.kernels.tma import BF16_BYTES, TmaMap, as_ctypes
 
 SOURCE = "flash_attention.cu"
@@ -171,6 +172,10 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse is not None:
         _check_lse(what, lse, q)
         tensors["lse"] = lse
+    flops = cost.cost(q.shape, k.shape, causal, window, q.element_size())[1]
+    if q.is_meta:               # the dry run: shapes alone, nothing computed
+        add_flops("flash_attention", flops)
+        return torch.empty_like(q)
     dev = _check_device(what, tensors)
     B, H, S, dh = q.shape
     Hkv = k.shape[1]
@@ -193,6 +198,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"failed: cudaError {rc}")
     COUNTS["flash_attention"] += 1
     COUNTS[f"flash_attention/{variant}"] += 1
+    add_flops("flash_attention", flops)
     return out
 
 
@@ -222,6 +228,11 @@ def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if variant not in (chosen, "simt"):
         raise ValueError(f"{what}: variant {variant!r} does not take these "
                          f"inputs (choice: {chosen!r})")
+    flops = cost.cost_backward(q.shape, k.shape, causal, window,
+                               q.element_size())[1]
+    if q.is_meta:
+        add_flops("flash_attention_bwd", flops)
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dev = _check_device(what, dict(q=q, k=k, v=v, out=out, dout=dout,
                                    lse=lse))
     B, H, S, dh = q.shape
@@ -246,4 +257,5 @@ def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"launch failed: cudaError {rc}")
     COUNTS["flash_attention_bwd"] += 1
     COUNTS[f"flash_attention_bwd/{variant}"] += 1
+    add_flops("flash_attention_bwd", flops)
     return dq, dk, dv

@@ -9,6 +9,12 @@ and, in the backward, the backward kernel (csrc/flash_attention_bwd.cu);
 otherwise (serving, under ``no_grad``) the forward kernel alone.  Same
 contract as the JAX package's ``kernels/flash_attention/ops.
 flash_attention``: ``window`` applies whether or not ``causal`` is set.
+
+A meta tensor (the dry run, launch/dryrun.py) takes the same route as a
+CUDA one, through the same ``torch.autograd.Function``; the launch then
+computes nothing and returns empty outputs of the card path's shapes and
+types (its operations counted in ``kernels.FLOPS``), so autograd saves
+on meta exactly the tensors it saves on the card.
 """
 from __future__ import annotations
 
@@ -44,8 +50,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q's type."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cpu, cuda or meta, not "
                          f"{q.device}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

@@ -32,7 +32,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, raw_stream, refuse_grad
+from repro_torch.kernels import add_flops, build, raw_stream, refuse_grad
+from repro_torch.kernels.grouped_matmul import cost
 from repro_torch.kernels.tma import BF16_BYTES, TmaMap, as_ctypes
 
 SOURCE = "grouped_matmul.cu"
@@ -158,6 +159,11 @@ def launch(tokens: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     if E > _MAX_GRID_YZ or -(-F // _TILE_F) > _MAX_GRID_YZ:
         raise ValueError(f"grouped_matmul kernel: grid over "
                          f"{_MAX_GRID_YZ} for E {E}, F {F}")
+    flops = cost.cost(E, C, D, F, tokens.element_size(),
+                      token_strides(tokens)[0] == 0)[1]
+    if tokens.is_meta:          # the dry run: shapes alone, nothing computed
+        add_flops("grouped_matmul", flops)
+        return torch.empty((E, C, F), dtype=tokens.dtype, device="meta")
     _check_device("grouped_matmul kernel", dict(tokens=tokens,
                                                 weights=weights))
     out = torch.empty((E, C, F), dtype=tokens.dtype, device=tokens.device)
@@ -177,6 +183,7 @@ def launch(tokens: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
                            f"failed: cudaError {rc}")
     COUNTS["grouped_matmul"] += 1
     COUNTS[f"grouped_matmul/{variant}"] += 1
+    add_flops("grouped_matmul", flops)
     return out
 
 
@@ -246,6 +253,12 @@ def launch_backward(tokens: torch.Tensor, weights: torch.Tensor,
         raise ValueError(f"{what}: variant {variant!r} does not take "
                          f"{tokens.dtype} (None, or wmma for bfloat16, simt "
                          "for float32)")
+    flops = cost.cost_backward(E, C, D, F, tokens.element_size(),
+                               token_strides(tokens)[0] == 0)[1]
+    if tokens.is_meta:
+        add_flops("grouped_matmul_bwd", flops)
+        return (torch.empty((E, C, D), dtype=tokens.dtype, device="meta"),
+                torch.empty((E, D, F), dtype=tokens.dtype, device="meta"))
     _check_device(what, dict(tokens=tokens, weights=weights, dout=dout))
     dtok = torch.empty((E, C, D), dtype=tokens.dtype, device=tokens.device)
     dw = torch.empty((E, D, F), dtype=tokens.dtype, device=tokens.device)
@@ -266,4 +279,5 @@ def launch_backward(tokens: torch.Tensor, weights: torch.Tensor,
                            f"launch failed: cudaError {rc}")
     COUNTS["grouped_matmul_bwd"] += 1
     COUNTS[f"grouped_matmul_bwd/{variant}"] += 1
+    add_flops("grouped_matmul_bwd", flops)
     return dtok, dw

@@ -11,6 +11,12 @@ backward kernel (csrc/grouped_matmul_bwd.cu); otherwise (serving, under
 (an ``expand`` with expert stride 0) reach the kernels as they are,
 without a copy; their gradient comes back one slab per expert and the
 ``expand``'s own backward sums it.
+
+A meta tensor (the dry run, launch/dryrun.py) takes the same route as a
+CUDA one, through the same ``torch.autograd.Function``; the launch then
+computes nothing and returns empty outputs of the card path's shapes and
+types (its operations counted in ``kernels.FLOPS``), so autograd saves
+on meta exactly the tensors it saves on the card.
 """
 from __future__ import annotations
 
@@ -43,8 +49,8 @@ def grouped_matmul(tokens: torch.Tensor,
     type."""
     if tokens.device.type == "cpu":
         return grouped_matmul_ref(tokens, weights)
-    if tokens.device.type != "cuda":
-        raise ValueError(f"grouped_matmul runs on cpu or cuda, not "
+    if tokens.device.type not in ("cuda", "meta"):
+        raise ValueError(f"grouped_matmul runs on cpu, cuda or meta, not "
                          f"{tokens.device}")
     if tokens.ndim == 3 and tokens.stride(-1) != 1:
         tokens = tokens.contiguous()

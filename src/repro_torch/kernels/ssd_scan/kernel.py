@@ -28,7 +28,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, raw_stream, refuse_grad
+from repro_torch.kernels import add_flops, build, raw_stream, refuse_grad
+from repro_torch.kernels.ssd_scan import cost
 from repro_torch.kernels.tma import BF16_BYTES, TmaMap, as_ctypes
 
 SOURCE = "ssd_scan.cu"
@@ -230,6 +231,12 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if b > _MAX_GRID_Y or (variant == "simt" and h > _MAX_GRID_Y):
         raise ValueError(f"{what}: grid (., {b}) or {h} heads "
                          f"over {_MAX_GRID_Y}")
+    flops = cost.cost(x.shape, n, chunk, x.element_size())[1]
+    if x.is_meta:               # the dry run: shapes alone, nothing computed
+        add_flops("ssd_scan", flops)
+        return torch.empty_like(x), torch.empty((b, h, p, n),
+                                                dtype=torch.float32,
+                                                device="meta")
     dev = _check_device(what, {"x": x, "dt": dt, "A": A, "B": B, "C": C})
     y = torch.empty_like(x)
     fs = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
@@ -249,6 +256,7 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                            f"cudaError {rc}")
     COUNTS["ssd_scan"] += 1
     COUNTS[f"ssd_scan/{variant}"] += 1
+    add_flops("ssd_scan", flops)
     return y, fs
 
 
@@ -290,6 +298,10 @@ def launch_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if variant not in (chosen, "simt"):
         raise ValueError(f"{what}: variant {variant!r} does not take these "
                          f"inputs (choice: {chosen!r})")
+    flops = cost.cost_backward(x.shape, n, chunk, x.element_size())[1]
+    if x.is_meta:
+        add_flops("ssd_scan_bwd", flops)
+        return tuple(torch.empty_like(t) for t in (x, dt, A, B, C))
     dev = _check_device(what, {"x": x, "dt": dt, "A": A, "B": B, "C": C,
                                **more})
     dx, dB, dC = (torch.empty_like(t) for t in (x, B, C))
@@ -324,4 +336,5 @@ def launch_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                            f"{tile})")
     COUNTS["ssd_scan_bwd"] += 1
     COUNTS[f"ssd_scan_bwd/{variant}"] += 1
+    add_flops("ssd_scan_bwd", flops)
     return dx, ddt, dA, dB, dC

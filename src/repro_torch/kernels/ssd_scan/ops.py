@@ -8,6 +8,12 @@ gradient of any input, ``SsdScanFn`` (after the casts, which autograd
 differentiates) runs the forward kernel and, in the backward, the
 backward kernel (csrc/ssd_scan_bwd.cu); otherwise (serving, under
 ``no_grad``) the forward kernel alone.
+
+A meta tensor (the dry run, launch/dryrun.py) takes the same route as a
+CUDA one, through the same ``torch.autograd.Function``; the launch then
+computes nothing and returns empty outputs of the card path's shapes and
+types (its operations counted in ``kernels.FLOPS``), so autograd saves
+on meta exactly the tensors it saves on the card.
 """
 from __future__ import annotations
 
@@ -45,8 +51,9 @@ def ssd_scan(x, dt, A, B, C, chunk: int):
     (y (b, s, h, p) in x's type, final_state (b, h, p, n) float32)."""
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, A, B, C, chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd_scan runs on cpu, cuda or meta, not "
+                         f"{x.device}")
     f32 = torch.float32
     args = (x.contiguous(), dt.to(f32).contiguous(), A.to(f32).contiguous(),
             B.to(x.dtype).contiguous(), C.to(x.dtype).contiguous())

@@ -80,8 +80,10 @@ from repro_torch.core.collab import CollabConfig, build_denoiser
 from repro_torch.data.synthetic import SyntheticConfig, make_client_datasets
 from repro_torch.device import resolve_device
 from repro_torch.obs import ObsConfig
+from repro_torch.sharding.specs import make_client_mesh
 from repro_torch.train import (ParticipationConfig, PrivacyConfig,
                                TrainConfig, TrainRuntime)
+from repro_torch.train.rounds import participation_tier
 
 
 def obs_from_args(args):
@@ -141,6 +143,15 @@ def make_data(args, key, device):
     return make_client_datasets(key, dcfg, args.clients, args.n_per_client,
                                 non_iid=not args.iid, sizes=sizes,
                                 device=device)
+
+
+def make_mesh(args):
+    """A 1-D ``("clients",)`` mesh sized to the pow2 tier menu
+    (sharding/specs.py ``make_client_mesh``), so a sharded cohort axis
+    divides every tier: one rank where no process group exists.  The
+    runtime takes no mesh yet; the layout is there for a sharded one."""
+    return make_client_mesh(participation_tier(args.clients),
+                            device=args.device)
 
 
 def fresh_runtime(args, key, init_one, apply_fn, data,

@@ -7,10 +7,18 @@ inference layout, ``moe_ep2d``), ``make_train_step`` (value and grad of
 ``api.loss_fn``, then AdamW), ``make_prefill_step``, ``make_decode_step``,
 ``step_fn`` and ``skip_reason``.  Each step builder takes the
 ``runtime`` as its last argument, defaulting to ``CPU`` (no mesh, MoE
-dense), where JAX's takes it second.  The ``ShapeDtypeStruct`` stand-ins
-and shardings of the dry-run (``input_specs`` and the ``abstract_*``
-builders) are not ported: they serve a compile-only pass over a
-512-device mesh (ROADMAP.md queue 1, layout and dryrun).
+dense), where JAX's takes it second.
+
+The dry run's stand-ins (``input_specs`` and the ``abstract_*``
+builders, launch/dryrun.py) are meta tensors.  ``abstract_params``
+builds the model on the ``meta`` device without drawing its weights
+(``api.empty_params``) and attaches each parameter's sanitized spec
+(sharding/specs.py) as ``.spec``; the other operands come from
+``specs.with_sharding``: meta tensors of the global shapes, each with
+its ``.spec``.  The port does not partition the dense families, so no
+step takes a sharded tensor: the dry run cuts rank 0's operands from
+these shapes and specs (launch/dryrun.py).  Token ids are int32, as in JAX's stand-ins.  A decode step's
+position is a host int, as the port's decode steps take it.
 
 Shape semantics (the JAX package's DESIGN.md §6):
   train_4k    -> train_step(params, opt, batch) (fwd + bwd + AdamW)
@@ -22,7 +30,7 @@ Shape semantics (the JAX package's DESIGN.md §6):
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -40,11 +48,16 @@ def make_runtime(mesh, moe_mode: str = "ep") -> Runtime:
                    moe_mode=moe_mode)
 
 
-def runtime_for(cfg: ArchConfig, shape_name: str, mesh) -> Runtime:
+def shape_of(shape) -> ShapeConfig:
+    """A ``ShapeConfig`` from its name, or the config itself."""
+    return get_shape(shape) if isinstance(shape, str) else shape
+
+
+def runtime_for(cfg: ArchConfig, shape_name, mesh) -> Runtime:
     """Decode steps of MoE archs use the 2-D inference layout (weights
     stationary, tokens move: ``moe_ep2d``); training and prefill
     ``moe_ep``."""
-    kind = get_shape(shape_name).kind
+    kind = shape_of(shape_name).kind
     mode = "ep2d" if (cfg.n_experts and kind == "decode") else "ep"
     return make_runtime(mesh, moe_mode=mode)
 
@@ -59,6 +72,94 @@ def skip_reason(cfg: ArchConfig, shape: ShapeConfig) -> Optional[str]:
         return (f"{cfg.name}: enc-dec audio model; 500k-token decode is "
                 "semantically undefined (max_decoder_len=448)")
     return None
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs (meta tensors with their specs)
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def abstract_params(cfg: ArchConfig, mesh, inference: bool = False):
+    """The model of ``cfg`` on the meta device, not drawn, each parameter
+    carrying its sanitized spec as ``.spec``."""
+    model = api.empty_params(cfg, "meta")
+    specs = S.param_specs(model, inference)
+    for name, p in model.named_parameters():
+        p.spec = S.sanitize_spec(specs[name], p.shape, mesh)
+    return model
+
+
+def abstract_opt_state(cfg: ArchConfig, mesh, abs_params) -> Dict:
+    """The AdamW state of ``abs_params`` (optim/adamw.init_opt_state:
+    float32 moments, a 0-dim int32 host step) with the parameters' specs
+    (the training layout)."""
+    del cfg
+    specs = S.param_specs(abs_params)
+    moments = {n: _meta(p.shape, torch.float32)
+               for n, p in abs_params.named_parameters()}
+    out = S.with_sharding({"m": moments, "v": moments},
+                          {"m": specs, "v": specs}, mesh)
+    out["step"] = torch.zeros((), dtype=torch.int32)
+    out["step"].spec = ()
+    return out
+
+
+def abstract_batch(cfg: ArchConfig, shape: ShapeConfig, mesh) -> Dict:
+    """Training / prefill batch stand-ins: audio frames with the decoder
+    tokens cut to ``max_decoder_len``; a VLM's text and vision
+    embeddings."""
+    B, Sq = shape.global_batch, shape.seq_len
+    bs = lambda trailing: S.batch_spec_for(mesh, B, trailing)
+    i32, dt = torch.int32, cfg.torch_dtype
+    if cfg.family == "audio":
+        dec = min(cfg.max_decoder_len, Sq)
+        tree = {"frames": _meta((B, Sq, cfg.d_model), dt),
+                "tokens": _meta((B, dec), i32),
+                "labels": _meta((B, dec), i32)}
+        specs = {"frames": bs(2), "tokens": bs(1), "labels": bs(1)}
+    elif cfg.family == "vlm":
+        text = Sq - cfg.n_vision_tokens
+        tree = {"tokens": _meta((B, text), i32),
+                "labels": _meta((B, text), i32),
+                "vision_embeds": _meta((B, cfg.n_vision_tokens,
+                                        cfg.d_model), dt)}
+        specs = {"tokens": bs(1), "labels": bs(1), "vision_embeds": bs(2)}
+    else:
+        tree = {"tokens": _meta((B, Sq), i32), "labels": _meta((B, Sq), i32)}
+        specs = {"tokens": bs(1), "labels": bs(1)}
+    return S.with_sharding(tree, specs, mesh)
+
+
+def abstract_decode_state(cfg: ArchConfig, shape: ShapeConfig, mesh):
+    """The decode state of ``shape`` (the port's per-layer lists) with
+    the cache and state specs."""
+    B, Sq = shape.global_batch, shape.seq_len
+    st = api.init_decode_state(cfg, B, Sq, device="meta")
+    return S.with_sharding(st, S.decode_state_specs(mesh, cfg, B, st), mesh)
+
+
+def input_specs(cfg: ArchConfig, shape_name, mesh) -> Tuple[Any, ...]:
+    """Abstract arguments of the pair's step function (``step_fn``):
+    train (params, opt_state, batch); prefill (params, batch); decode
+    (params in the inference layout, token, state, pos).  ``shape_name``
+    names a ``ShapeConfig`` or is one."""
+    shape = shape_of(shape_name)
+    if shape.kind == "train":
+        params = abstract_params(cfg, mesh)
+        return (params, abstract_opt_state(cfg, mesh, params),
+                abstract_batch(cfg, shape, mesh))
+    if shape.kind == "prefill":
+        return (abstract_params(cfg, mesh), abstract_batch(cfg, shape, mesh))
+    B = shape.global_batch
+    params = abstract_params(cfg, mesh, inference=True)
+    token = S.with_sharding(_meta((B, 1), torch.int32),
+                            S.batch_spec_for(mesh, B, 1), mesh)
+    return (params, token, abstract_decode_state(cfg, shape, mesh),
+            shape.seq_len - 1)
 
 
 def loss_and_grads(params, batch, cfg: ArchConfig, runtime: Runtime = CPU):
@@ -101,8 +202,8 @@ def make_decode_step(cfg: ArchConfig, runtime: Runtime = CPU):
     return serve_step
 
 
-def step_fn(cfg: ArchConfig, shape_name: str, runtime: Runtime = CPU):
-    kind = get_shape(shape_name).kind
+def step_fn(cfg: ArchConfig, shape_name, runtime: Runtime = CPU):
+    kind = shape_of(shape_name).kind
     if kind == "train":
         return make_train_step(cfg, runtime=runtime)
     if kind == "prefill":

@@ -3,6 +3,7 @@
 The port of the JAX package's ``models/api.py``:
 
   init_params(key, cfg, device)                 -> the model's module
+  empty_params(cfg, device)                     -> the module, not drawn
   loss_fn(params, batch, cfg, runtime)          -> scalar loss (train_4k)
   prefill_fn(params, batch, cfg, runtime, cache_len) -> (logits, state)
   init_decode_state(cfg, batch, seq, dtype, device) -> state
@@ -45,6 +46,18 @@ def init_params(key: torch.Tensor, cfg: ArchConfig, device=None):
     if cfg.family == "audio":
         return encdec.init_encdec_params(key, cfg)
     return transformer.init_lm_params(key, cfg)
+
+
+def empty_params(cfg: ArchConfig, device=None):
+    """The module of ``cfg``'s family on ``device``, its weights not drawn
+    (uninitialised; ``device="meta"`` gives the shapes and dtypes alone,
+    as the dry run needs them)."""
+    dev = resolve_device(device)
+    if cfg.family in SSM_FAMILIES:
+        return hybrid.HybridLM(cfg, dev)
+    if cfg.family == "audio":
+        return encdec.EncDec(cfg, dev)
+    return transformer.LM(cfg, dev)
 
 
 def loss_fn(params, batch: Dict, cfg: ArchConfig, runtime: Runtime = CPU):

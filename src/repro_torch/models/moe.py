@@ -27,8 +27,9 @@ gives each device its shard; gradients reach the full tensors through
 the slices.  JAX's collectives become ``torch.distributed.nn.functional``
 ones on the mesh's process groups (launch/mesh.py), which autograd
 differentiates: ``all_to_all`` → ``all_to_all_single`` over ``model``,
-``all_gather`` over the batch axes → ``all_gather`` over ``data``,
-``psum`` → ``all_reduce``, ``axis_index`` → the rank in ``data``.  They
+``all_gather`` over the batch axes → ``all_gather`` over ``data`` (over
+("pod", "data") flattened, pod-major, on a multi-pod mesh), ``psum`` →
+``all_reduce``, ``axis_index`` → the rank in the batch axes.  They
 run at one rank too.  The aux loss is the mean over the batch shards, the
 same value on every rank.
 
@@ -110,9 +111,11 @@ def _router(params: MoE, x: torch.Tensor, top_k: int):
 
 def _aux_loss(probs: torch.Tensor, topk_idx: torch.Tensor,
               n_experts: int) -> torch.Tensor:
-    """Switch-style load-balance loss: E * sum_e f_e * P_e."""
-    counts = torch.bincount(topk_idx.reshape(-1),
-                            minlength=n_experts).float()
+    """Switch-style load-balance loss: E * sum_e f_e * P_e.  The counts
+    are a compare-and-sum over the E experts (``bincount``'s values,
+    whose output size a meta tensor cannot know)."""
+    experts = torch.arange(n_experts, device=topk_idx.device)
+    counts = (topk_idx.reshape(-1, 1) == experts).sum(dim=0).float()
     f = counts / torch.clamp(counts.sum(), min=1.0)
     p = probs.mean(dim=0)
     return n_experts * torch.sum(f * p)
@@ -180,7 +183,7 @@ def _axis(mesh, axes) -> str:
     """The one mesh dimension named by ``axes`` (a name or a 1-tuple)."""
     names = (axes,) if isinstance(axes, str) else tuple(axes)
     if len(names) != 1 or names[0] not in mesh.mesh_dim_names:
-        raise ValueError(f"moe: batch/model axes {axes} must name one "
+        raise ValueError(f"moe: model axis {axes} must name one "
                          f"dimension of the mesh {mesh.mesh_dim_names}")
     return names[0]
 
@@ -190,11 +193,24 @@ def _axis_size(mesh, axes) -> int:
     return mesh.size(mesh.mesh_dim_names.index(name))
 
 
+def _batch_mesh(mesh, batch_axes):
+    """The 1-D mesh of the batch axes: one dimension of ``mesh``, or
+    several flattened in order, major first (JAX's tiled collectives over
+    a tuple of axes), as ``DeviceMesh._flatten`` lays them (cached by
+    torch)."""
+    names = (batch_axes,) if isinstance(batch_axes, str) else \
+        tuple(batch_axes)
+    if not names or any(n not in mesh.mesh_dim_names for n in names):
+        raise ValueError(f"moe: batch axes {batch_axes} must name "
+                         f"dimensions of the mesh {mesh.mesh_dim_names}")
+    return mesh[names[0]] if len(names) == 1 else mesh[names]._flatten()
+
+
 def _batch_mean(aux: torch.Tensor, mesh, batch_axes) -> torch.Tensor:
     """The mean over the batch shards of each shard's aux loss (JAX's
     ``jnp.mean`` over the batch-sharded ``aux[None]``)."""
-    axis = _axis(mesh, batch_axes)
-    return _all_reduce(aux, mesh.get_group(axis)) / _axis_size(mesh, axis)
+    batch = _batch_mesh(mesh, batch_axes)
+    return _all_reduce(aux, batch.get_group()) / batch.size()
 
 
 def _capacity(cfg: ArchConfig, N: int) -> int:
@@ -319,11 +335,11 @@ def moe_ep2d(params: MoE, x: torch.Tensor, cfg: ArchConfig, mesh,
     f_loc = cfg.d_ff // fp
     r = mesh.get_local_rank(data_axis)
     fs = slice(r * f_loc, (r + 1) * f_loc)
-    batch_axis = _axis(mesh, batch_axes)
+    batch = _batch_mesh(mesh, batch_axes)
     B, S, D = x.shape
     xt = x.reshape(-1, D)
     n_loc = xt.shape[0]
-    xt_all = _all_gather(xt, mesh.get_group(batch_axis))
+    xt_all = _all_gather(xt, batch.get_group())
     N = xt_all.shape[0]
     probs, topk_w, topk_idx = _router(params, xt_all, cfg.top_k)
     aux = _aux_loss(probs, topk_idx, cfg.n_experts)
@@ -335,7 +351,7 @@ def moe_ep2d(params: MoE, x: torch.Tensor, cfg: ArchConfig, mesh,
         params.w_down[es, fs, :], mesh.get_group(model_axis), ep, e_loc,
         capacity, reduce_group=mesh.get_group(data_axis))
     y_all = _combine_local(out, meta, N)
-    shard = mesh.get_local_rank(batch_axis)
+    shard = batch.get_local_rank()
     y = y_all[shard * n_loc:(shard + 1) * n_loc]
     return y.reshape(B, S, D).to(x.dtype), _batch_mean(aux, mesh, batch_axes)
 

@@ -1,28 +1,404 @@
-"""The batch axes of a mesh.
+"""Partition rules: parameter, optimizer, input and state specs.
 
-The port of two helpers of the JAX package's ``sharding/specs.py``,
-``mesh_batch_axes`` and ``batch_axis_size``, over a
-``torch.distributed.device_mesh.DeviceMesh``: its ``mesh_dim_names``
-and ``size(dim)``.  The batch shards over ``("pod", "data")``, the
-experts over ``"model"``.  The partition rules of the rest of that file
-(parameter, optimizer and activation specs) serve the dry-run's 512-device
-layout and are not ported (ROADMAP.md queue 1, layout and dryrun).
+The port of the JAX package's ``sharding/specs.py``.  A spec is a tuple
+with one entry per tensor dim, each entry as in JAX's ``PartitionSpec``:
+``None`` (replicated), a mesh axis name, or a tuple of names (the dim
+cut over several axes, major first).
+
+Mesh axes (launch/mesh.py): ``("data", "model")`` single pod (16 × 16)
+or ``("pod", "data", "model")`` multi-pod (2 × 16 × 16).  The batch
+shards over ("pod", "data"); tensor-parallel weights over "model"; FSDP
+(ZeRO-style) weight and optimizer sharding over "data".  A mesh is a
+``DeviceMesh`` or anything whose ``.shape`` is a dict of axis sizes (the
+reference tests' ``FakeMesh``), so per-device bytes can be reckoned with
+no process group at all (``axis_sizes``).
+
+The rules are JAX's, by name and rank over JAX's parameter tree:
+
+  embed (V,D)          -> ("model", None)        vocab-parallel
+  unembed (D,V)        -> (None, "model")
+  wq/wk/wv (D,H·dh)    -> ("data", "model")      Megatron in-proj + FSDP
+  wo (H·dh, D)         -> ("model", "data")      Megatron out-proj + FSDP
+  w_gate/w_up (D,F)    -> ("data", "model")
+  w_down (F,D)         -> ("model", "data")
+  MoE experts (E,D,F)  -> ("model", "data", None) expert-parallel + FSDP
+  MoE w_down (E,F,D)   -> ("model", None, "data")
+  router (D,E)         -> replicated (fp32)
+  mamba z/x/dt_proj    -> ("data", "model")      heads/channels over model
+  mamba bc_proj (D,2N) -> ("data", None)         B,C shared across heads
+  mamba out_proj (di,D)-> ("model", "data")      partial-sum + all-reduce
+  norms / scalars      -> replicated
+
+A port parameter's spec comes from JAX's rule through the bridge's own
+per-parameter layout (``bridge.param_layouts``, the table the copy
+uses): JAX's stacked layer axis (``layers``, ``mamba``, ``enc_layers``,
+``dec_layers``) is unstacked into per-layer modules, so its leading
+``None`` is dropped, and the dims are permuted as the bridge permutes
+them (``nn.Linear`` stores JAX's (in, out) as (out, in); conv kernels
+HWIO as OIHW).  Decode-state leaves are per layer in the port, so their
+specs are JAX's without the leading stack entries.  Optimizer moments
+inherit the parameter specs.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch import bridge
+
+Spec = Tuple[Any, ...]
+
+# leaf-name -> spec for 2D weights (non-stacked form, JAX's layout)
+_RULES_2D = {
+    "wq": ("data", "model"), "wk": ("data", "model"),
+    "wv": ("data", "model"), "wo": ("model", "data"),
+    "w_gate": ("data", "model"), "w_up": ("data", "model"),
+    "w_down": ("model", "data"),
+    "w1": ("data", "model"), "w2": ("model", "data"),
+    "z_proj": ("data", "model"), "x_proj": ("data", "model"),
+    "dt_proj": ("data", "model"), "bc_proj": ("data", None),
+    "out_proj": ("model", "data"),
+    "time": (None, None),
+}
+
+_RULES_3D_MOE = {
+    "w_gate": ("model", "data", None), "w_up": ("model", "data", None),
+    "w_down": ("model", None, "data"),
+}
+
+# inference layout (moe_ep2d): expert FFN dim over "data" so decode never
+# all-gathers expert weights — see models/moe.moe_ep2d.
+_RULES_3D_MOE_INFER = {
+    "w_gate": ("model", None, "data"), "w_up": ("model", None, "data"),
+    "w_down": ("model", "data", None),
+}
+
+
+def _entry(axes: Tuple[str, ...]):
+    """A spec entry naming ``axes``: None, a name, or a tuple of two or
+    more (as ``PartitionSpec`` normalises a 1-tuple to its name)."""
+    return None if not axes else axes[0] if len(axes) == 1 else tuple(axes)
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh`` or of a mesh whose ``.shape``
+    is such a dict."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, tuple(mesh.shape)))
+    return dict(mesh.shape)
+
+
+def _drop_data(spec: Spec) -> Spec:
+    """Inference layout: weights tensor-parallel only — drop the FSDP
+    "data" factor (at decode the per-layer weight all-gather dwarfs the
+    few tokens of useful traffic)."""
+    out = []
+    for e in spec:
+        if e == "data":
+            out.append(None)
+        elif isinstance(e, tuple):
+            out.append(_entry(tuple(a for a in e if a != "data")))
+        else:
+            out.append(e)
+    return tuple(out)
+
+
+def param_spec_for(names: Tuple[str, ...], ndim: int,
+                   inference: bool = False) -> Spec:
+    """JAX's spec of the leaf at path ``names`` (its dict keys, "[i]" for
+    a list entry) of JAX's rank ``ndim`` (the stacked axis counted)."""
+    name = names[-1] if names else ""
+    stacked = bridge.is_stacked(names)
+    base_nd = ndim - 1 if stacked else ndim
+
+    if name in ("embed", "tok_embed"):
+        return ("model", None)
+    if name == "unembed":
+        return (None, "model")
+    if name == "router":
+        return (None, None, None) if stacked else (None, None)
+
+    spec = None
+    if base_nd == 3 and name in _RULES_3D_MOE:
+        spec = (_RULES_3D_MOE_INFER if inference else _RULES_3D_MOE)[name]
+    elif base_nd == 2 and name in _RULES_2D:
+        spec = _RULES_2D[name]
+        if inference:
+            spec = _drop_data(spec)
+    if spec is None:
+        spec = (None,) * base_nd
+    if stacked:
+        spec = (None,) + spec
+    if len(spec) != ndim:
+        raise ValueError(f"{names}: spec {spec} for rank {ndim}")
+    return spec
+
+
+def port_spec(jax_spec: Spec, stacked: bool, layout: str) -> Spec:
+    """A JAX parameter spec in the port's layout: the stacked layer
+    entry dropped, the dims permuted as ``bridge.PERM[layout]``."""
+    spec = tuple(jax_spec[1:] if stacked else jax_spec)
+    perm = bridge.PERM[layout]
+    return spec if perm is None else tuple(spec[i] for i in perm)
+
+
+def param_specs(model, inference: bool = False) -> Dict[str, Spec]:
+    """{parameter name: spec} of a module (``named_parameters()``
+    order)."""
+    layouts = bridge.param_layouts(model)
+    out = {}
+    for name, p in model.named_parameters():
+        path, layout = layouts[name]
+        stacked = bridge.is_stacked(path)
+        jax_spec = param_spec_for(path, p.ndim + stacked, inference)
+        out[name] = port_spec(jax_spec, stacked, layout)
+    return out
+
+
+def opt_state_specs(model) -> Dict[str, Any]:
+    ps = param_specs(model)
+    return {"m": ps, "v": ps, "step": ()}
+
+
+# ---------------------------------------------------------------------------
+# Stacked-client axis (the vectorized CollaFuse engine, core/collab.py)
+# ---------------------------------------------------------------------------
+
+CLIENT_AXIS = "clients"
+
+
+def client_stacked_specs(stacked_params, inference: bool = False,
+                         client_axis: str = CLIENT_AXIS):
+    """Specs for a client-stacked parameter tree (a leading (n_clients,)
+    axis on every leaf): shard ONLY the stack axis — k identical-shape
+    models train as pure model parallelism over clients."""
+    del inference
+    return bridge.tree_map(
+        lambda leaf: (client_axis,) + (None,) * (leaf.ndim - 1),
+        stacked_params)
+
+
+def client_opt_specs(stacked_params, client_axis: str = CLIENT_AXIS):
+    """AdamW moments follow the stacked parameter specs; the per-client
+    ``step`` is a (n_clients,) vector sharded over the client axis."""
+    ps = client_stacked_specs(stacked_params, client_axis=client_axis)
+    return {"m": ps, "v": ps, "step": (client_axis,)}
+
+
+def client_batch_spec(ndim: int, client_axis: str = CLIENT_AXIS) -> Spec:
+    """Round inputs xs / ys / mask are (n_batches, n_clients, B, ...):
+    shard the client axis (dim 1), replicate the batch loop's dim."""
+    return (None, client_axis) + (None,) * (ndim - 2)
+
+
+def cohort_uid_spec(client_axis: str = CLIENT_AXIS) -> Spec:
+    """The (tier,) registry-uid vector of an identity-keyed cohort round:
+    one id per cohort slot, so it shards with the slot axis."""
+    return (client_axis,)
+
+
+def sample_stack_spec(ndim: int, lead_axis: str = CLIENT_AXIS,
+                      batch_axis: str = "data") -> Spec:
+    """Sampling-engine stacks are (G|R, B, ...): the group/request lead
+    axis over "clients", the request batch over "data"."""
+    return (lead_axis, batch_axis) + (None,) * (ndim - 2)
+
+
+def sample_plan_specs(tables):
+    """Specs of a ``sample_plan.PlanTables``, as the same NamedTuple."""
+    return type(tables)(
+        group_y=sample_stack_spec(tables.group_y.ndim),
+        group_t=(CLIENT_AXIS, None),
+        group_t_prev=(CLIENT_AXIS, None),
+        group_active=(CLIENT_AXIS, None),
+        group_seed=(CLIENT_AXIS,),
+        request_group=(CLIENT_AXIS,),
+        request_client=(CLIENT_AXIS,),
+        request_seed=(CLIENT_AXIS,),
+        client_t=(CLIENT_AXIS, None),
+        client_t_prev=(CLIENT_AXIS, None),
+        client_active=(CLIENT_AXIS, None))
+
+
+def inject_specs(inject):
+    """Specs of a ``sample_plan.InjectTables`` (cache-hit handoffs
+    entering the engine): laid out like the scanned stacks."""
+    return type(inject)(x=sample_stack_spec(inject.x.ndim),
+                        y=sample_stack_spec(inject.y.ndim))
+
+
+def handoff_spec(ndim: int, batch_axis: str = "data") -> Spec:
+    """One cached server handoff (B, ...): batch over "data"."""
+    return (batch_axis,) + (None,) * (ndim - 1)
+
+
+def make_client_mesh(n_clients: int, device=None):
+    """A 1-D ``("clients",)`` ``DeviceMesh`` over the first ranks of the
+    process group, as many as the largest count that divides
+    ``n_clients`` (one rank, set up as ``launch.mesh.make_debug_mesh``
+    does, where no group exists), on ``device``'s type (CUDA unless asked
+    otherwise)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.launch.mesh import ensure_group
+    dev = ensure_group(device)
+    use = max(d for d in range(1, dist.get_world_size() + 1)
+              if n_clients % d == 0)
+    return DeviceMesh(dev.type, torch.arange(use),
+                      mesh_dim_names=(CLIENT_AXIS,))
+
+
+# ---------------------------------------------------------------------------
+# Activations / inputs
+# ---------------------------------------------------------------------------
 
 
 def mesh_batch_axes(mesh) -> Tuple[str, ...]:
     """The mesh's batch axes, of ``("pod", "data")``, in that order."""
-    names = mesh.mesh_dim_names or ()
-    return tuple(a for a in ("pod", "data") if a in names)
+    sizes = axis_sizes(mesh)
+    return tuple(a for a in ("pod", "data") if a in sizes)
 
 
 def batch_axis_size(mesh) -> int:
     """How many shards the batch is cut into: the product of the batch
     axes' sizes."""
+    sizes = axis_sizes(mesh)
+    return math.prod(sizes[a] for a in mesh_batch_axes(mesh))
+
+
+def batch_spec_for(mesh, global_batch: int, trailing: int) -> Spec:
+    """Shard the leading batch dim over ("pod", "data") when divisible,
+    else replicate (long_500k has global_batch = 1)."""
+    if global_batch % batch_axis_size(mesh) == 0:
+        return (_entry(mesh_batch_axes(mesh)),) + (None,) * trailing
+    return (None,) * (trailing + 1)
+
+
+def _batch_entry(mesh, global_batch: int):
+    return _entry(mesh_batch_axes(mesh)) \
+        if global_batch % batch_axis_size(mesh) == 0 else None
+
+
+def _heads_ok(cfg, mesh) -> bool:
+    return bool(cfg.n_kv_heads) and \
+        cfg.n_kv_heads % axis_sizes(mesh)["model"] == 0
+
+
+def kv_cache_spec(mesh, cfg, global_batch: int) -> Spec:
+    """One layer's cache (B, Hkv, C, dh) (JAX stacks a leading layer
+    axis).  Heads over "model" when divisible, else the sequence dim over
+    "model"; batch over ("pod", "data") when divisible."""
+    b = _batch_entry(mesh, global_batch)
+    if _heads_ok(cfg, mesh):
+        return (b, "model", None, None)
+    return (b, None, "model", None)
+
+
+def ssm_state_specs(mesh, cfg, global_batch: int, state_tree) -> Any:
+    """The hybrid/SSM decode state (per-layer lists): each Mamba2 layer's
+    ``ssm`` (B, H, P, N) with heads over "model" when divisible and
+    ``conv`` (B, K, C), and the shared block's ring caches ``k`` / ``v``
+    as ``kv_cache_spec``; batch over ("pod", "data") when divisible."""
+    b = _batch_entry(mesh, global_batch)
+    model = axis_sizes(mesh)["model"]
+
+    def rule(name, leaf):
+        if name == "ssm":
+            h_ok = cfg.ssm_n_heads % model == 0
+            return (b, "model" if h_ok else None, None, None)
+        if name == "conv":
+            return (b, None, None)
+        if name in ("k", "v"):
+            return kv_cache_spec(mesh, cfg, global_batch)
+        return (None,) * leaf.ndim
+
+    return _map_named(rule, state_tree)
+
+
+def decode_state_specs(mesh, cfg, global_batch: int, state_tree) -> Any:
+    """Specs of a decode state: ``ssm_state_specs`` for the SSM families,
+    else every cache (``k`` / ``v``, the encoder-decoder's ``cross_k`` /
+    ``cross_v``) as ``kv_cache_spec``."""
+    if cfg.family in ("ssm", "hybrid"):
+        return ssm_state_specs(mesh, cfg, global_batch, state_tree)
+    kv = kv_cache_spec(mesh, cfg, global_batch)
+    return _map_named(lambda name, leaf: kv if name in (
+        "k", "v", "cross_k", "cross_v") else (None,) * leaf.ndim,
+        state_tree)
+
+
+def _map_named(fn, tree, name: str = ""):
+    """``fn(dict key of the leaf, leaf)`` over nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, v, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_named(fn, v, name) for v in tree)
+    return fn(name, tree)
+
+
+def sanitize_spec(spec: Spec, shape, mesh) -> Spec:
+    """Drop mesh axes from dims they don't evenly divide (e.g. vocab
+    51,865 on a 16-way axis) and axes the mesh doesn't have (a
+    clients-only mesh has no "data" / "model")."""
+    sizes = axis_sizes(mesh)
+    out = []
+    for i, entry in enumerate(spec):
+        if entry is None:
+            out.append(None)
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        kept = tuple(a for a in axes if a in sizes)
+        if not kept or shape[i] % math.prod(sizes[a] for a in kept):
+            out.append(None)
+        else:
+            out.append(_entry(kept))
+    return tuple(out)
+
+
+def shards(spec: Spec, mesh, axes=None) -> int:
+    """Into how many pieces a (sanitized) spec cuts its tensor: the
+    product of the sizes of the axes it names (of ``axes`` only, when
+    given)."""
+    sizes = axis_sizes(mesh)
     n = 1
-    for a in mesh_batch_axes(mesh):
-        n *= mesh.size(mesh.mesh_dim_names.index(a))
+    for entry in spec:
+        for a in (() if entry is None else
+                  entry if isinstance(entry, tuple) else (entry,)):
+            if axes is None or a in axes:
+                n *= sizes[a]
     return n
+
+
+def local_shape(shape, spec: Spec, mesh, axes) -> Tuple[int, ...]:
+    """The shape of one shard of a tensor laid out by ``spec`` and cut
+    over the mesh axes ``axes`` only."""
+    return tuple(d // shards((e,), mesh, axes) for d, e in zip(shape, spec))
+
+
+def with_sharding(tree, spec_tree, mesh):
+    """Meta stand-ins for the tensors of ``tree`` laid out by
+    ``spec_tree`` on ``mesh``: meta tensors of the global shapes, each
+    with its spec sanitized against its shape attached as ``.spec``."""
+    def one(leaf, spec):
+        out = torch.empty(leaf.shape, dtype=leaf.dtype, device="meta")
+        out.spec = sanitize_spec(spec, leaf.shape, mesh)
+        return out
+    return zip_map(one, tree, spec_tree)
+
+
+def zip_map(fn, tree, spec_tree):
+    """``fn(leaf, spec)`` over a tree (dicts, lists, NamedTuples) and its
+    spec tree; ``None`` stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: zip_map(fn, v, spec_tree[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(zip_map(fn, v, s)
+                            for v, s in zip(tree, spec_tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(zip_map(fn, v, s) for v, s in zip(tree, spec_tree))
+    return fn(tree, spec_tree)

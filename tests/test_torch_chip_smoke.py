@@ -71,7 +71,7 @@ def test_gmm_bound_counts_bytes_and_flops_of_the_moe_path():
     bytes bind on the H100."""
     cs = _chip_smoke()
     E, C, D, F = 16, 256, 6144, 10752
-    nbytes, flops = cs.gmm_work(E, C, D, F, 2, True)
+    nbytes, flops = cs.gmm_cost.cost(E, C, D, F, 2, True)
     assert nbytes == 2 * (C * D + E * D * F + E * C * F)
     assert flops == 2 * E * C * D * F == 541_165_879_296
     ms, by = cs.gmm_bound(E, C, D, F, 2, True)
@@ -79,7 +79,7 @@ def test_gmm_bound_counts_bytes_and_flops_of_the_moe_path():
     assert ms == nbytes / cs.HBM_BYTES_PER_S * 1e3
     assert 0.65 < ms < 0.67
     # without the broadcast every expert's tokens are read
-    unshared, _ = cs.gmm_work(E, C, D, F, 2, False)
+    unshared, _ = cs.gmm_cost.cost(E, C, D, F, 2, False)
     assert unshared - nbytes == 2 * (E - 1) * C * D
     # float32 at the CUDA-core rate: operations bind
     ms32, by32 = cs.gmm_bound(E, C, D, F, 4, True)
@@ -214,11 +214,12 @@ def test_keyed_bound_counts_bytes_and_the_draws_operations():
     n = 4 * 32 * 32 * 3
     ms, by = cs.keyed_bound(n, 4, 2, 44)
     t_bytes = (3 * n * 4 + 44) / cs.HBM_BYTES_PER_S * 1e3
-    int_ops = n * cs.DRAW_INT_OPS + 2 * cs.THREEFRY_INT_OPS
+    int_ops = n * cs.ddpm_cost.DRAW_INT_OPS + \
+        2 * cs.ddpm_cost.THREEFRY_INT_OPS
     assert round(t_bytes * 1e3, 3) == 0.044
     assert by == "operations" and ms == int_ops / cs.INT32_OPS_PER_S * 1e3
     assert round(ms * 1e3, 3) == 0.060
-    all_ops = int_ops + n * cs.DRAW_FLOAT_OPS
+    all_ops = int_ops + n * cs.ddpm_cost.DRAW_FLOAT_OPS
     assert all_ops / cs.FP32_INSTR_PER_S * 1e3 < ms
     msb, byb = cs.keyed_bound(4 * n, 4, 4 + 16, 4 * 32)
     assert byb == "operations" and round(msb * 1e3, 3) == 0.241
@@ -229,7 +230,7 @@ def test_keyed_bound_counts_bytes_and_the_draws_operations():
     # of a slab that is masked off but for it
     _, by_masked = cs.keyed_bound(1, 4, 2, 44, passed=n)
     assert by_masked == "bytes"
-    assert cs.THREEFRY_INT_OPS == 2 + 5 * 4 * 3 + 5 * 3
+    assert cs.ddpm_cost.THREEFRY_INT_OPS == 2 + 5 * 4 * 3 + 5 * 3
 
 
 def test_check_ddpm_launches_wants_only_the_keyed_variants():
@@ -416,7 +417,8 @@ def test_main_runs_every_phase_in_order():
     """The phases main() drives, in order: the evaluation scores what the
     training runtime trained, the MoE training path follows the MoE
     DiT's, the LM serving path runs after the DiT's and the MoE's kernel
-    shapes, and the encoder-decoder last."""
+    shapes, the encoder-decoder after them, then the examples, the dry
+    runs and the card check of the meta route."""
     import inspect
     import re
     cs = _chip_smoke()
@@ -426,17 +428,19 @@ def test_main_runs_every_phase_in_order():
                      "phase_contracts", "phase_train", "phase_train_runtime",
                      "phase_eval", "phase_dit", "phase_grouped_matmul",
                      "phase_moe", "phase_moe_train", "phase_lm_serve",
-                     "phase_lm_train", "phase_whisper"]
+                     "phase_lm_train", "phase_whisper", "phase_examples",
+                     "phase_dryrun", "phase_meta_check"]
     assert cs.PATHS == ("serve", "train", "train_runtime", "eval", "dit",
                         "moe", "moe_train", "lm_serve", "lm_train",
-                        "whisper_serve", "whisper_train")
+                        "whisper_serve", "whisper_train", "examples")
     for name in calls:
         assert callable(getattr(cs, name))
 
 
 def test_kernels_line_carries_the_new_paths_and_lm_shapes():
     """``launches_by_path`` has an entry for every path of PATHS (eval,
-    lm_serve, lm_train and whisper's two included); flash and the SSD
+    lm_serve, lm_train, whisper's two and the examples included); flash
+    and the SSD
     scan carry their numbers at the LM prefill's shapes, flash and its
     backward theirs at whisper's encoder and decoder shapes."""
     cs = _chip_smoke()
@@ -460,7 +464,10 @@ def test_kernels_line_carries_the_new_paths_and_lm_shapes():
                         "ssd_scan": 760, "ssd_scan_bwd": 760},
            "whisper_serve": {"flash_attention": 12},
            "whisper_train": {"flash_attention": 240,
-                             "flash_attention_bwd": 240}}
+                             "flash_attention_bwd": 240},
+           "examples": {"ddpm_step": 150, "ssd_scan": 80,
+                        "ssd_scan_bwd": 40, "flash_attention": 90,
+                        "flash_attention_bwd": 60}}
     enc = dict(shape=[4, 8, 1500, 64], causal=False, ms=0.05)
     bwd = dict(shape=[8, 8, 1500, 64], causal=False, ms=0.3, simt_ms=9.0)
     records["flash_attention"]["whisper_encoder"] = enc
@@ -473,6 +480,7 @@ def test_kernels_line_carries_the_new_paths_and_lm_shapes():
         assert list(k["launches_by_path"]) == list(cs.PATHS)
     assert line[1]["launches_by_path"]["eval"] == 1250
     assert line[2]["launches_by_path"]["lm_serve"] == 6
+    assert line[3]["launches_by_path"]["examples"] == 80
     assert line[3]["launches_by_path"]["lm_serve"] == 38
     assert line[5]["launches_by_path"]["lm_train"] == 120
     assert line[6]["launches_by_path"]["lm_train"] == 760
@@ -650,10 +658,10 @@ def test_backward_bounds_and_the_lm_train_helpers():
     cs = _chip_smoke()
     q = torch.empty(4, 32, 1024, 64, dtype=torch.bfloat16, device="meta")
     keep = 1024 * 1025 // 2
-    assert cs.keep_count(1024, True, 8192) == keep
-    assert cs.keep_count(10, False, 3) == sum(
+    assert cs.fa_cost.keep_count(1024, True, 8192) == keep
+    assert cs.fa_cost.keep_count(10, False, 3) == sum(
         1 for i in range(10) for j in range(10) if i - j < 3)
-    assert cs.keep_count(10, True, 3) == sum(
+    assert cs.fa_cost.keep_count(10, True, 3) == sum(
         1 for i in range(10) for j in range(10) if 0 <= i - j < 3)
     ms, by = cs.flash_bwd_bound(q, q, True, 8192)
     assert by == "operations"
@@ -808,7 +816,7 @@ def test_gmm_bwd_bound_counts_both_products(what, C, broadcast):
     cs = _chip_smoke()
     E, D, F = 16, 6144, 10752
     tok = (1 if broadcast else E) * C * D
-    nbytes, flops = cs.gmm_bwd_work(E, C, D, F, 2, broadcast)
+    nbytes, flops = cs.gmm_cost.cost_backward(E, C, D, F, 2, broadcast)
     assert nbytes == 2 * (2 * tok + 2 * E * D * F + E * C * F)
     assert flops == 4 * E * C * D * F
     ms, by = cs.gmm_bwd_bound(E, C, D, F, 2, broadcast)

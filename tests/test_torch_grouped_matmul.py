@@ -105,10 +105,13 @@ def test_kernel_wrapper_refuses_what_it_cannot_run():
     with pytest.raises(ValueError, match="contiguous"):
         kernel.launch(t, w.transpose(1, 2).contiguous().transpose(1, 2))
     assert kernel.COUNTS["grouped_matmul"] == before
+    # a meta tensor takes the dry run's route: the card's output shape,
+    # nothing computed and no launch counted
     meta = dict(device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        ops.grouped_matmul(torch.empty(2, 5, 8, **meta),
-                           torch.empty(2, 8, 6, **meta))
+    out = ops.grouped_matmul(torch.empty(2, 5, 8, **meta),
+                             torch.empty(2, 8, 6, **meta))
+    assert out.is_meta and out.shape == (2, 5, 6)
+    assert kernel.COUNTS["grouped_matmul"] == before
 
 
 @pytest.mark.cuda

@@ -1,8 +1,8 @@
-"""The port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports JAX, the JAX package, ``msgpack`` or
-``ml_dtypes`` (the card's machine has neither), and its entry points
-run on CUDA unless the caller asks for the CPU — without a card they
-raise instead of falling back."""
+"""The port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py`` and not the port's examples (``examples/torch_*.py``)
+imports JAX, the JAX package, ``msgpack`` or ``ml_dtypes`` (the card's
+machine has neither), and its entry points run on CUDA unless the caller
+asks for the CPU — without a card they raise instead of falling back."""
 import pkgutil
 import re
 import subprocess
@@ -40,6 +40,10 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+import importlib.util, pathlib
+for path in sorted(pathlib.Path({root!r}, "examples").glob("torch_*.py")):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 assert not any(m.split(".")[0] in ("jax", "repro", "msgpack", "ml_dtypes")
                for m in sys.modules
                if sys.modules[m] is not None), "jax/repro/msgpack imported"
@@ -48,7 +52,8 @@ print(len(names))
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+        sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def test_every_module_imports_with_jax_blocked():
