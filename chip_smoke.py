@@ -60,6 +60,20 @@ package).  Phases, each of which fails the run on any error:
    counters zeroed just before, one Alg.-2 sample from the EMA server
    (``sampling_server_params``) and client 0: exactly 1,000 keyed
    launches;
+8b. the clients mesh (``phase_clients_mesh``): on a one-rank NCCL
+   ``("clients",)`` mesh (``make_client_mesh``), the same six CONFIG
+   U-Nets, data and participation: CM_ROUNDS ``TrainRuntime`` rounds
+   with ``mesh=`` bitwise equal to as many without (the cohort placed by
+   ``shard_cohort_round``, the server's gradient all-reduced, each real
+   slot broadcast from its owner), a ``make_sample_engine`` pass of
+   CM_REQUESTS requests on tables placed by ``shard_sample_plan``
+   bitwise equal to the unplaced pass, and one keyed per-request sample
+   from bf16 CONFIG U-Nets bitwise across two runs, both at T=100, cut
+   25; counters zeroed just before: 200 rowwise and 200 keyed
+   launches.  The walls (events) and device ms (profiler) of the
+   sharded and unsharded rounds, the bytes each round handed to the
+   all-reduce, the broadcasts and the all-gathers, and those bytes
+   reckoned per rank at 2, 4 and 8 ranks with their NVLINK_BW time;
 9. the evaluation (eval/) of the models phase 8 trained: one
    shared-handoff pass of EVAL_N samples for clients 0 and 1 on client
    1's labels (750 server + 2 x 250 client steps: exactly 1,250 keyed
@@ -225,7 +239,7 @@ package).  Phases, each of which fails the run on any error:
    cached output shapes of ``dryrun.StepCounters``), its saved bytes and
    FLOPs on the card equal to the meta run's;
 20. a ``kernels`` JSON line (eight kernels, ``launches_by_path`` over
-   the twelve paths), the card line again, and the result line.
+   the thirteen paths), the card line again, and the result line.
 
 Exits nonzero, printing no result line, without a CUDA device or outside
 a checkout.
@@ -1795,6 +1809,222 @@ def phase_train_runtime():
     return launches, trained
 
 
+# the clients mesh (phase_clients_mesh): the runtime's six CONFIG U-Nets
+# for CM_ROUNDS rounds on a one-rank NCCL ("clients",) mesh and without
+# one; an engine pass of CM_REQUESTS requests (one label: one server
+# group) and the bf16 U-Net's per-request sample at T = CM_SAMPLE_T, cut
+# CM_SAMPLE_CUT (the training cut's quarter of T; at T=1000 the phase
+# took 220 s on a slow host, 1,500 eager U-Net calls a pass); the
+# collective bytes reckoned per rank for the mesh sizes CM_WORLDS
+CM_ROUNDS, CM_REQUESTS, CM_WORLDS = 2, 3, (2, 4, 8)
+CM_SAMPLE_T, CM_SAMPLE_CUT = 100, 25
+
+
+def collective_reckoning(nbytes: dict, worlds=CM_WORLDS) -> dict:
+    """Per-rank link bytes and their NVLINK_BW time at each world size W
+    for one round's collectives (``nbytes``: the bytes each kind was
+    handed, sharding/specs.py ``COMM_BYTES``): a ring all-reduce sends and
+    receives 2(W-1)/W of its buffer, a broadcast or all-gather brings a
+    rank the (W-1)/W of the slots it does not own."""
+    out = {}
+    for w in worlds:
+        per_rank = 2 * (w - 1) / w * nbytes.get("all_reduce", 0) + \
+            (w - 1) / w * (nbytes.get("broadcast", 0) +
+                           nbytes.get("all_gather", 0))
+        out[w] = dict(bytes=per_rank, bound_ms=1e3 * per_rank /
+                      card.NVLINK_BW)
+    return out
+
+
+def phase_clients_mesh():
+    """The federated round, the train runtime and the sample engine on a
+    one-rank NCCL ``("clients",)`` mesh (sharding/specs.py
+    ``make_client_mesh``; the process group is this phase's and is torn
+    down at its end), with the runtime phase's six CONFIG U-Nets (T=1000,
+    cut 250): CM_ROUNDS sharded rounds bitwise equal to as many unsharded
+    ones, a sharded ``make_sample_engine`` pass of CM_REQUESTS requests
+    bitwise equal to the unsharded pass, and one keyed per-request sample
+    from a bf16 CONFIG U-Net bitwise across two runs (both at
+    CM_SAMPLE_T, cut CM_SAMPLE_CUT).  Returns the path's DDPM-step
+    launches, counted from zero just before it."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.ddpm_unet import CONFIG
+    from repro_torch.core import prng
+    from repro_torch.core import sample_plan as tsp
+    from repro_torch.core.collab import CollabConfig, build_denoiser
+    from repro_torch.core.sampler import (collaborative_sample,
+                                          make_sample_engine)
+    from repro_torch.core.schedules import DiffusionSchedule
+    from repro_torch.core.splitting import CutPoint
+    from repro_torch.core.unet import init_unet, unet_apply
+    from repro_torch.data.synthetic import (SyntheticConfig,
+                                            make_client_datasets)
+    from repro_torch.device import deterministic_cuda
+    from repro_torch.kernels.ddpm_step import kernel as dkernel
+    from repro_torch.sharding import specs
+    from repro_torch.train import (ParticipationConfig, TrainConfig,
+                                   TrainRuntime)
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    deterministic_cuda()
+    if dist.is_initialized():
+        raise AssertionError("clients_mesh: a process group is left over "
+                             "from an earlier phase")
+    mesh = specs.make_client_mesh(8, device="cuda")
+    try:
+        if (dist.get_backend(), mesh.mesh_dim_names, mesh.size()) != \
+                ("nccl", ("clients",), 1):
+            raise AssertionError(f"clients_mesh: mesh {mesh} on "
+                                 f"{dist.get_backend()}")
+        cfg = TrainConfig(
+            T=1000, t_cut=TRAIN_CUT, image_shape=IMG,
+            n_classes=CONFIG.n_classes, batch_size=TRAIN_BATCH,
+            batches_per_round=TRAIN_BATCHES, lr=1e-3,
+            participation=ParticipationConfig(policy="bernoulli", p=RT_P,
+                                              drop_p=RT_DROP),
+            fedavg_every=RT_FEDAVG, ema_decay=RT_EMA)
+        ccfg = CollabConfig(n_clients=TRAIN_CLIENTS, T=cfg.T,
+                            t_cut=cfg.t_cut, image_size=IMG[0],
+                            channels=IMG[2], n_classes=CONFIG.n_classes,
+                            batch_size=TRAIN_BATCH, unet=CONFIG)
+        init_one, apply_fn = build_denoiser(None, ccfg, "cuda")
+        data = make_client_datasets(
+            prng.PRNGKey(1), SyntheticConfig(image_size=IMG[0],
+                                             channels=IMG[2],
+                                             n_attrs=CONFIG.n_classes),
+            TRAIN_CLIENTS, TRAIN_BATCH * TRAIN_BATCHES, non_iid=True,
+            device="cuda")
+        runs, walls, dev_ms, nbytes = {}, {}, {}, []
+        dkernel.reset_counts()                   # --- clients_mesh starts
+        for tag, m in (("unsharded", None), ("sharded", mesh)):
+            rt = TrainRuntime(cfg, init_one, apply_fn,
+                              prng.PRNGKey(RT_SEED), mesh=m, device="cuda")
+            for x, y in data:
+                rt.register_client(x, y)
+            walls[tag] = []
+            for r in range(CM_ROUNDS):
+                specs.COMM_BYTES.clear()
+                start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+                if r == CM_ROUNDS - 1:
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        start.record()
+                        rep = rt.run_round()
+                        end.record()
+                        torch.cuda.synchronize()
+                    rows = device_rows(prof.key_averages())
+                    dev_ms[tag] = sum(e.self_device_time_total
+                                      for e in rows) / 1e3 or None
+                else:
+                    start.record()
+                    rep = rt.run_round()
+                    end.record()
+                end.synchronize()
+                walls[tag].append(start.elapsed_time(end))
+                if m is not None:
+                    nbytes.append(dict(specs.COMM_BYTES, tier=rep["tier"]))
+            runs[tag] = rt
+        assert_runtime_bitwise("sharded vs unsharded rounds",
+                               runs["sharded"], runs["unsharded"])
+        if not all(b.get("all_reduce") and b.get("broadcast")
+                   for b in nbytes):
+            raise AssertionError(f"clients_mesh: a sharded round issued no "
+                                 f"all_reduce or broadcast: {nbytes}")
+        log(f"clients_mesh/rounds: {CM_ROUNDS} rounds on the one-rank "
+            "NCCL mesh bitwise equal to the unsharded runtime's (params, "
+            "moments, steps, EMA, registry counters)")
+
+        rt = runs["sharded"]
+        sp = rt.sampling_server_params()
+        cps = [rt.registry.get(u).params for u in rt.registry.uids()]
+        eye = np.eye(cfg.n_classes, dtype=np.float32)
+        y0 = np.broadcast_to(eye[0], (B, cfg.n_classes)).copy()
+        sched = DiffusionSchedule.linear(CM_SAMPLE_T, device="cuda")
+        cut = CutPoint(CM_SAMPLE_T, CM_SAMPLE_CUT)
+        plan = tsp.plan_requests(
+            [tsp.SampleRequest(c, cut.t_cut, y0)
+             for c in range(CM_REQUESTS)], cut.T,
+            n_clients=TRAIN_CLIENTS, request_seeds=[11, 12, 13])
+        tables = tsp.tables_to_device(plan.tables, "cuda")
+        engine = make_sample_engine(sched, apply_fn, IMG)
+        key = prng.fold_in(prng.PRNGKey(RT_SEED), 9).cuda()
+        t0 = time.perf_counter()
+        plain = engine(sp, cps, key, tables)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        placed = engine(sp, cps, key, specs.shard_sample_plan(mesh, tables))
+        torch.cuda.synchronize()
+        placed_s = time.perf_counter() - t0
+        for a, b in zip(plain, placed):
+            if not torch.equal(a, b):
+                raise AssertionError("clients_mesh: the sharded engine pass "
+                                     "differs from the unsharded pass")
+        if tuple(placed[0].shape) != (CM_REQUESTS, B) + IMG or \
+                not torch.isfinite(placed[0]).all():
+            raise AssertionError(f"clients_mesh: samples "
+                                 f"{tuple(placed[0].shape)} not finite")
+        log(f"clients_mesh/engine: {CM_REQUESTS} requests at cut "
+            f"{cut.t_cut} of T={cut.T} ({len(plan.group_t_cut)} server "
+            f"group), sharded pass bitwise the unsharded pass; wall_s "
+            f"unsharded {plain_s:.3f}, sharded {placed_s:.3f}")
+
+        bcfg = dataclasses.replace(CONFIG, dtype="bfloat16")
+        bserver = init_unet(prng.PRNGKey(3), bcfg, "cuda")
+        bclient = init_unet(prng.PRNGKey(4), bcfg, "cuda")
+        if {p.dtype for p in bserver.parameters()} != {torch.bfloat16}:
+            raise AssertionError("clients_mesh: the bf16 U-Net is not bf16")
+        yb = torch.from_numpy(y0).cuda()
+        bkey = prng.fold_in(prng.PRNGKey(RT_SEED), 10).cuda()
+        t0 = time.perf_counter()
+        bf = [collaborative_sample(bserver, bclient, bkey, yb, (B,) + IMG,
+                                   sched, cut, unet_apply)
+              for _ in range(2)]
+        torch.cuda.synchronize()
+        bf_s = (time.perf_counter() - t0) / 2
+        if not torch.equal(bf[0], bf[1]) or bf[0].dtype != torch.float32 \
+                or not torch.isfinite(bf[0]).all():
+            raise AssertionError("clients_mesh: the bf16 U-Net's sample is "
+                                 "not bitwise across two runs, or not "
+                                 "finite float32")
+        launches = dict(dkernel.COUNTS)          # --- clients_mesh ends
+        # two engine passes of T - t_cut server and t_cut client steps,
+        # two per-request samples of T steps
+        check_ddpm_launches("clients_mesh", launches, 2 * cut.T, 2 * cut.T)
+        log(f"clients_mesh/bf16_sample: T={cut.T} cut {cut.t_cut} batch {B} "
+            f"from bf16 CONFIG U-Nets, bitwise across two runs, wall_s "
+            f"{bf_s:.3f} a sample; launches {launches}")
+        reck = collective_reckoning(nbytes[-1])
+        log("clients_mesh/round: wall ms (events) unsharded "
+            + ", ".join(f"{w:.3f}" for w in walls["unsharded"])
+            + "; sharded " + ", ".join(f"{w:.3f}" for w in walls["sharded"])
+            + f"; device ms (profiler, round {CM_ROUNDS}) unsharded "
+            f"{fmt_ms(dev_ms['unsharded'])}, sharded "
+            f"{fmt_ms(dev_ms['sharded'])}; bytes a round handed to the "
+            "collectives on the one-rank mesh (nothing crosses a link): "
+            + "; ".join(f"round {i + 1} (tier {b['tier']}): all_reduce "
+                        f"{b.get('all_reduce', 0)}, broadcast "
+                        f"{b.get('broadcast', 0)}, all_gather "
+                        f"{b.get('all_gather', 0)}"
+                        for i, b in enumerate(nbytes))
+            + "; reckoned per rank for the last round at "
+            + ", ".join(f"{w} ranks {v['bytes']:.0f} B, "
+                        f"{v['bound_ms']:.4f} ms at NVLINK_BW"
+                        for w, v in reck.items())
+            + f"; card {card}")
+    finally:
+        dist.destroy_process_group()
+    del runs, rt, bserver, bclient
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"clients_mesh/phase_s: {time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
 def ssd_range_check(out, ref, what: str) -> float:
     """max |out - ref| over max(1, max |ref|), which must stay within
     SSD_BF16_RANGE (bf16 SSD outputs at p = 64, where |y| reaches ~100)."""
@@ -2771,7 +3001,7 @@ WHISPER_FLASH_BWD = (((8, 8, 8, 1500, 64), False),
 WHISPER_CPU_LAYERS, WHISPER_GRAD_SEQ = 2, 333
 PATHS = ("serve", "train", "train_runtime", "eval", "dit", "moe",
          "moe_train", "lm_serve", "lm_train", "whisper_serve",
-         "whisper_train", "examples")
+         "whisper_train", "examples", "clients_mesh")
 
 
 def eval_scores(trained, data, key, n: int = EVAL_N) -> dict:
@@ -4907,6 +5137,7 @@ def main() -> int:
     phase_contracts()
     train_launches, ddpm_card_ms = phase_train()
     runtime_launches, trained = phase_train_runtime()
+    mesh_launches = phase_clients_mesh()
     eval_launches = phase_eval(trained)
     del trained
     dit_records, dit_launches = phase_dit()
@@ -4944,13 +5175,14 @@ def main() -> int:
     records["grouped_matmul"]["capacity_shapes"] = \
         moe_train_records["capacity_shapes"]
     records["grouped_matmul_bwd"] = moe_train_records["grouped_matmul_bwd"]
-    # launches of the twelve main paths (each counted from zero just
+    # launches of the thirteen main paths (each counted from zero just
     # before it)
     by_path = dict(zip(PATHS, (launches, train_launches, runtime_launches,
                                eval_launches, dit_launches, moe_launches,
                                moe_train_launches, lm_launches,
                                lm_train_launches, whisper_launches,
-                               whisper_train_launches, examples_launches)))
+                               whisper_train_launches, examples_launches,
+                               mesh_launches), strict=True))
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in set().union(*by_path.values())}
     log(f"total_s: {time.perf_counter() - t_start:.1f}")

@@ -65,7 +65,9 @@ from repro_torch.core.splitting import CutPoint
 from repro_torch.core.unet import init_unet, unet_apply
 from repro_torch.device import resolve_device
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, \
-    init_opt_state
+    init_opt_state, named
+from repro_torch.sharding.specs import count_bytes, gather, local_part, \
+    shard_round_batches, whole
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,12 +182,16 @@ def train_round(state: CollabState, step_fn, batches_per_client, key):
 class VectorizedCollabState:
     """``CollabState`` for the vectorized engine: the same fields, with
     ``client_params`` / ``client_opt`` one model and one AdamW state a
-    client (``stack_clients`` gives the JAX package's stacked view)."""
+    client (``stack_clients`` gives the JAX package's stacked view).
+    ``mesh`` and ``owners`` (each slot's rank, None when replicated) are
+    set by sharding/specs.py ``shard_vectorized_state``."""
     server_params: Any
     server_opt: Dict
     client_params: List[Any]
     client_opt: List[Dict]
     step: int = 0
+    mesh: Any = None
+    owners: Optional[List[int]] = None
 
     @property
     def n_clients(self) -> int:
@@ -332,6 +338,55 @@ def _zero(device) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=device)
 
 
+def _flat(tensors, name: str, collective) -> List[torch.Tensor]:
+    """Run ``collective(buffer)`` on one flat buffer per dtype that holds
+    ``tensors`` and return the buffer's pieces, shaped as the tensors (one
+    launch a dtype instead of one a tensor); counts the bytes under
+    ``name`` (sharding/specs.py ``COMM_BYTES``)."""
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        buf = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
+        collective(buf)
+        count_bytes(name, buf)
+        for i, piece in zip(idx, buf.split([tensors[i].numel()
+                                            for i in idx])):
+            out[i] = piece.view(tensors[i].shape)
+    return out
+
+
+def _all_reduce(tensors, group) -> List[torch.Tensor]:
+    """The sums over ``group``'s ranks of ``tensors``, as new tensors of
+    their own storage (a gradient laid out as the unsharded one is)."""
+    import torch.distributed as dist
+    return [t.clone() for t in _flat(
+        tensors, "all_reduce", lambda b: dist.all_reduce(b, group=group))]
+
+
+@torch.no_grad()
+def broadcast_slots(client_params, client_opt, mesh, slots, owners) -> None:
+    """Send each slot of ``slots`` (its model's parameters and its AdamW
+    moments and step) from the clients-axis rank that owns it
+    (``owners[c]``) to every rank of ``mesh``, in place: after a sharded
+    round only the owner's copy of a slot is current."""
+    import torch.distributed as dist
+    group = mesh.get_group()
+    for c in slots:
+        opt = client_opt[c]
+        tensors = trees.leaves(client_params[c]) + \
+            trees.leaves(opt["m"]) + trees.leaves(opt["v"])
+        # the step travels in the float32 buffer: exact below 2^24
+        step = opt["step"].to(device=tensors[0].device, dtype=torch.float32)
+        src = dist.get_process_group_ranks(group)[owners[c]]
+        got = _flat(tensors + [step.reshape(1)], "broadcast",
+                    lambda b: dist.broadcast(b, src=src, group=group))
+        for t, g in zip(tensors, got):
+            t.copy_(g)
+        opt["step"] = got[-1].reshape(()).cpu().to(torch.int32)
+
+
 def make_vectorized_round(sched: DiffusionSchedule, cut: CutPoint, apply_fn,
                           opt_cfg: AdamWConfig, masked: bool = True,
                           identity_keyed: bool = False):
@@ -363,6 +418,21 @@ def make_vectorized_round(sched: DiffusionSchedule, cut: CutPoint, apply_fn,
     ``fold_in(batch_key, uids[c])`` instead of ``fold_in(batch_key, c)``:
     a client's randomness depends on its identity, never on its seat, so
     a cohort padded to a participation tier is bitwise the unpadded run.
+
+    Operands placed on a ``("clients",)`` mesh (sharding/specs.py
+    ``shard_round_batches`` / ``shard_cohort_round``) are followed as
+    ``jit`` follows input shardings in the reference.  Where the mesh
+    cuts the slot axis, a rank runs the client updates of its own slots
+    only (the other slots' objects are left as they were: see
+    ``broadcast_slots``), builds its part of each server batch from its
+    slots' rows, takes the server loss's gradient over the global weight
+    total (the mask is whole on every rank) and sums it over the ranks
+    (``all_reduce``); every rank then takes the same clipped AdamW step
+    on its copy of the server.  The per-slot metrics are gathered, so
+    every rank returns the whole (n_batches, k) arrays, and the server
+    loss is the whole batch's.  An unmasked round cut over ranks divides
+    by the batch's row count.  Where the mesh does not divide the slots
+    (replicated), every rank runs every slot and nothing is summed.
     """
     train_client = cut.t_cut > 0
     train_server = cut.t_cut < cut.T
@@ -372,7 +442,13 @@ def make_vectorized_round(sched: DiffusionSchedule, cut: CutPoint, apply_fn,
 
     def run(client_params, client_opt, server_params, server_opt, xs, ys,
             mask, uids, key):
-        nb, k, B = xs.shape[0], xs.shape[1], xs.shape[2]
+        k = xs.shape[1]                 # the whole slot axis
+        xs, mesh, cut_dim = local_part(xs)
+        ys = local_part(ys)[0]
+        mask, uids = whole(mask), whole(uids)
+        nb, k_loc, B = xs.shape[0], xs.shape[1], xs.shape[2]
+        group = None if cut_dim is None else mesh.get_group()
+        lo = 0 if group is None else mesh.get_local_rank() * k_loc
         dev = xs.device
         m_host = None if mask is None else _host_mask(mask)
         m_dev = None if m_host is None else torch.from_numpy(m_host).to(dev)
@@ -385,15 +461,15 @@ def make_vectorized_round(sched: DiffusionSchedule, cut: CutPoint, apply_fn,
             bkey = prng.fold_in(key, b)
             ckeys = client_keys(bkey, ids)
             rows, wrows = [], []
-            for c in range(k):
+            for c in range(lo, lo + k_loc):
                 w = None if m_dev is None else m_dev[b, c]
                 active = m_host is None or bool(m_host[b, c].any())
                 loss_c, g = _zero(dev), None
                 if active:
                     with torch.enable_grad():
                         loss_c, payload = client_losses(
-                            client_params[c], xs[b, c], ys[b, c], ckeys[c],
-                            sched, cut, apply_fn, weights=w)
+                            client_params[c], xs[b, c - lo], ys[b, c - lo],
+                            ckeys[c], sched, cut, apply_fn, weights=w)
                         if train_client:
                             g = _grads(loss_c, client_params[c])
                     if m_host is not None:
@@ -413,24 +489,56 @@ def make_vectorized_round(sched: DiffusionSchedule, cut: CutPoint, apply_fn,
             if not train_server:
                 out["server_loss"].append(_zero(dev))
                 continue
-            loss_s, g = _zero(dev), None
-            if rows:                # else every slot is padding
-                flat = ServerPayload(*(torch.cat(ts) for ts in zip(*rows)))
-                with torch.enable_grad():
-                    loss_s = server_loss(server_params, flat, sched,
-                                         apply_fn,
-                                         torch.cat(wrows) if wrows else None)
-                    g = _grads(loss_s, server_params)
+            if group is None:
+                loss_s, g, active = _server_grads(server_params, rows,
+                                                  wrows)
+            else:
+                total = float(k * B) if m_host is None else \
+                    float(m_host[b].sum())
+                loss_s, g, active = _server_grads_cut(
+                    server_params, rows, wrows, total, group)
             _, _, gns = _masked_adamw(server_params, g, server_opt, opt_cfg,
-                                      bool(rows))
+                                      active)
             out["server_loss"].append(loss_s.detach())
             out["server_grad_norm"].append(gns)
         metrics = {n: torch.stack(v) for n, v in out.items() if v}
         for n in ("client_loss", "client_grad_norm"):
             if n in metrics:
-                metrics[n] = metrics[n].reshape(nb, k)
+                metrics[n] = metrics[n].reshape(nb, k_loc)
+                if group is not None:
+                    metrics[n] = gather(metrics[n], mesh, 1)
         return client_params, client_opt, server_params, server_opt, \
             metrics
+
+    def _server_grads(server_params, rows, wrows, norm=None):
+        """(loss, gradient or None, whether any row is real) of the
+        server batch made of ``rows``."""
+        if not rows:                    # every slot is padding
+            return _zero(trees.leaves(server_params)[0].device), None, False
+        flat = ServerPayload(*(torch.cat(ts) for ts in zip(*rows)))
+        with torch.enable_grad():
+            loss_s = server_loss(server_params, flat, sched, apply_fn,
+                                 torch.cat(wrows) if wrows else None,
+                                 norm=norm)
+            g = _grads(loss_s, server_params)
+        return loss_s, g, True
+
+    def _server_grads_cut(server_params, rows, wrows, total, group):
+        """The server batch cut over the ranks of ``group``: this rank's
+        part of the loss over the whole batch's weight ``total``, its
+        gradient, and both summed over the ranks."""
+        dev = trees.leaves(server_params)[0].device
+        if total == 0.0:                # every slot of every rank padding
+            return _zero(dev), None, False
+        norm = torch.tensor(total, dtype=torch.float32, device=dev)
+        loss_s, g, _ = _server_grads(server_params, rows, wrows, norm)
+        names = list(named(server_params))
+        if g is None:                   # this rank holds no real row
+            g = {n: torch.zeros_like(p)
+                 for n, p in named(server_params).items()}
+        *summed, loss_s = _all_reduce([g[n] for n in names] +
+                                      [loss_s.detach().reshape(1)], group)
+        return loss_s.reshape(()), dict(zip(names, summed)), True
 
     if identity_keyed:
         def round_fn(client_params, client_opt, server_params, server_opt,
@@ -477,14 +585,22 @@ def train_round_vectorized(state: VectorizedCollabState, round_fn, xs, ys,
     (server entries are the round's shared values; ``{}`` for a client
     whose mask is all padding; ``{}`` for an empty round).
     ``mask=None`` means every sample is real.  ``state.step`` counts only
-    real (client, batch) cells."""
+    real (client, batch) cells.  A state laid on a mesh
+    (``shard_vectorized_state``) gets its operands placed on it, and
+    after the round each real slot goes from its owner to every rank."""
     if xs is None or xs.shape[0] == 0:
         return {}
     mask_np = np.ones(tuple(xs.shape[:3]), np.float32) if mask is None \
         else _host_mask(mask)
+    args = (xs, ys, mask_np) if state.mesh is None else \
+        shard_round_batches(state.mesh, xs, ys, mask_np)
     (_, _, state.server_params, state.server_opt, metrics) = round_fn(
         state.client_params, state.client_opt, state.server_params,
-        state.server_opt, xs, ys, mask_np, key)
+        state.server_opt, *args, key)
+    if state.owners is not None:
+        broadcast_slots(state.client_params, state.client_opt, state.mesh,
+                        np.flatnonzero(mask_np.any(axis=(0, 2))),
+                        state.owners)
     n_clients = xs.shape[1]
     valid = mask_np.any(axis=2)                    # (n_batches, k)
     state.step += int(valid.sum())

@@ -63,14 +63,21 @@ class ServerPayload(NamedTuple):
         return sum(int(t.numel() * t.element_size()) for t in self)
 
 
-def mse_eps_loss(apply_fn, params, x_t, t, y, eps, weights=None):
+def mse_eps_loss(apply_fn, params, x_t, t, y, eps, weights=None,
+                 norm=None):
     """ω_t ≡ 1 MSE.  ``weights`` (B,) — typically a 0/1 validity mask over
     a padded batch — gives the weighted mean sum(per·w) / max(sum(w), 1):
     padded rows contribute zero gradient, and all-ones weights equal the
-    unweighted mean."""
+    unweighted mean.  ``norm`` (a 0-dim float32 tensor) divides in place
+    of the rows' own weight total: a rank's part of a batch cut over
+    ranks, whose parts then sum to the whole batch's loss."""
     pred = apply_fn(params, x_t, t, y)
     per = torch.mean(torch.square(pred.float() - eps.float()),
                      dim=tuple(range(1, eps.ndim)))
+    if norm is not None:
+        num = torch.sum(per) if weights is None else \
+            torch.sum(per * weights.float())
+        return num / torch.clamp(norm, min=1.0)
     if weights is None:
         return torch.mean(per)
     w = weights.float()
@@ -126,9 +133,9 @@ def client_losses(client_params, x0, y, key, sched: DiffusionSchedule,
 
 def server_loss(server_params, payload: ServerPayload,
                 sched: DiffusionSchedule, apply_fn,
-                weights=None) -> torch.Tensor:
+                weights=None, norm=None) -> torch.Tensor:
     return mse_eps_loss(apply_fn, server_params, payload.x_ts, payload.t_s,
-                        payload.y, payload.eps_s, weights=weights)
+                        payload.y, payload.eps_s, weights=weights, norm=norm)
 
 
 def _grads(loss: torch.Tensor, params) -> Dict[str, torch.Tensor]:

@@ -66,6 +66,7 @@ from repro_torch.core.sample_plan import (InjectTables, PlanTables,
                                           SamplePlan, strided_server_table)
 from repro_torch.core.schedules import DiffusionSchedule
 from repro_torch.core.splitting import CutPoint
+from repro_torch.sharding.specs import gather, local_part, whole
 from repro_torch.kernels.ddpm_step.ops import (ddpm_step as fused_ddpm_step,
                                                ddpm_step_keyed,
                                                ddpm_step_rowwise,
@@ -103,7 +104,8 @@ def server_denoise(server_params, key, y, shape, sched: DiffusionSchedule,
     for i in range(cut.n_server_steps):
         t = t_list[i]
         eps = apply_fn(server_params, x, _full(t, x.shape[0]), y)
-        x = ddpm_step_keyed(x, eps, keys[i % 2], coefs[i], keys[1 - i % 2])
+        x = ddpm_step_keyed(x, eps.float(), keys[i % 2], coefs[i],
+                            keys[1 - i % 2])
     return x
 
 
@@ -121,7 +123,8 @@ def client_denoise(client_params, key, x_cut, y, sched: DiffusionSchedule,
     x = x_cut
     for i in range(cut.n_client_steps):
         eps = apply_fn(client_params, x, _full(t_list[i], x.shape[0]), y)
-        x = ddpm_step_keyed(x, eps, keys[i % 2], coefs[i], keys[1 - i % 2])
+        x = ddpm_step_keyed(x, eps.float(), keys[i % 2], coefs[i],
+                            keys[1 - i % 2])
     return x
 
 
@@ -182,12 +185,23 @@ def make_sample_engine(sched: DiffusionSchedule, apply_fn,
         server_stage(server_params, key, tables) -> handoffs
         client_stage(client_params, key, tables, handoffs, inject=None)
             -> samples
+
+    Tables and inject placed on a ``("clients",)`` mesh
+    (sharding/specs.py ``shard_sample_plan`` / ``shard_inject``) are
+    followed: where the mesh cuts the group axis a rank steps only its
+    groups (one rowwise launch a step over its rows) and the handoffs
+    are gathered, since a request may read another rank's group; where
+    it cuts the request axis a rank steps only its requests and the
+    samples are gathered in request order.  Every row is keyed by its own
+    seed and the kernel's rows are bitwise across K, so the outputs are
+    the unplaced engine's, bit for bit, at any world size.
     """
     shape_of = lambda B: (B,) + tuple(image_shape)
 
     @torch.no_grad()
     def server_stage(server_params, key, tables: PlanTables):
-        gy, gt, gtp, ga, gseed = tables[:5]
+        gy, mesh, cut_dim = local_part(tables.group_y)
+        gt, gtp, ga, gseed = (local_part(t)[0] for t in tables[1:5])
         G, B = gy.shape[0], gy.shape[1]
         shape = shape_of(B)
         skey, _ = prng.split(key)
@@ -205,22 +219,24 @@ def make_sample_engine(sched: DiffusionSchedule, apply_fn,
                                      _lead(gtp[:, s], x.ndim))
                 x = torch.where(_lead(active, x.ndim) > 0, xn, x)
             else:
-                x = ddpm_step_rowwise(x, eps, gkeys, 1 + s, coefs[:, s],
-                                      active)
-        return x
+                x = ddpm_step_rowwise(x, eps.float(), gkeys, 1 + s,
+                                      coefs[:, s], active)
+        return x if cut_dim is None else gather(x, mesh, 0)
 
     @torch.no_grad()
     def client_stage(client_params, key, tables: PlanTables, handoff,
                      inject: InjectTables = None):
-        (gy, _gt, _gtp, _ga, _gseed, rgroup, rclient, rseed, ct, ctp,
-         ca) = tables
+        gy, handoff = whole(tables.group_y), whole(handoff)
+        rgroup, mesh, cut_dim = local_part(tables.request_group)
+        rclient, rseed, ct, ctp, ca = (local_part(t)[0]
+                                       for t in tables[6:])
         B = gy.shape[1]
         _, ckey = prng.split(key)
         models = client_list(client_params)
         params_r = [models[int(c)] for c in rclient]
         if inject is not None:
-            handoff_all = torch.cat([handoff, inject.x], dim=0)
-            y_all = torch.cat([gy, inject.y], dim=0)
+            handoff_all = torch.cat([handoff, whole(inject.x)], dim=0)
+            y_all = torch.cat([gy, whole(inject.y)], dim=0)
         else:
             handoff_all, y_all = handoff, gy
         y_r = y_all[rgroup.long()]                           # (R, B, nc)
@@ -233,8 +249,9 @@ def make_sample_engine(sched: DiffusionSchedule, apply_fn,
             eps = torch.stack([
                 apply_fn(params_r[r], x[r], _full(t[r], B), y_r[r])
                 for r in range(R)])
-            x = ddpm_step_rowwise(x, eps, rkeys, c, coefs[:, c], ca[:, c])
-        return x
+            x = ddpm_step_rowwise(x, eps.float(), rkeys, c, coefs[:, c],
+                                  ca[:, c])
+        return x if cut_dim is None else gather(x, mesh, 0)
 
     def engine(server_params, client_params, key, tables: PlanTables,
                inject=None):
@@ -273,7 +290,8 @@ def sample_plan_reference(server_params, client_params_list, key,
                 x = sched.ddim_step(x, eps, tt, tp)
             else:
                 noise = _rowwise_normal(prng.fold_in(gk, 1 + s), shape)
-                x = fused_ddpm_step(x, eps, noise, sched, tt, t_prev=tp)
+                x = fused_ddpm_step(x, eps.float(), noise, sched, tt,
+                                    t_prev=tp)
         handoffs.append(x)
     inj = plan.inject
     combined = handoffs + ([inj.x[h].to(key.device)
@@ -293,7 +311,7 @@ def sample_plan_reference(server_params, client_params_list, key,
             eps = apply_fn(cp, x, torch.full((B,), tt, device=key.device),
                            y_all[g])
             noise = _rowwise_normal(prng.fold_in(rk, c), shape)
-            x = fused_ddpm_step(x, eps, noise, sched, tt, t_prev=tp)
+            x = fused_ddpm_step(x, eps.float(), noise, sched, tt, t_prev=tp)
         outs.append(x)
     return torch.stack(outs), (torch.stack(handoffs) if handoffs else
                                torch.zeros((0,) + shape, device=key.device))

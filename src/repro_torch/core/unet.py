@@ -14,6 +14,13 @@ biased variance and eps 1e-5, with the group count lowered until it
 divides C; attention as matmul + softmax over fp32 logits; 2× nearest
 upsampling; XLA's ``SAME`` padding, which for the stride-2 downsampling
 conv of an even input puts the one padded row and column at the end.
+
+The parameters are in ``cfg.dtype``, drawn in float32, scaled, then
+cast, as the reference draws them, and the forward runs in that dtype:
+x is cast to it on entry (the reference's convolution takes its input
+in the weights' dtype), the time embedding takes x's dtype, GroupNorm
+runs in float32 and casts back, and ε̂ comes out in ``cfg.dtype`` (the
+samplers cast it to float32 for the DDPM-step kernels).
 """
 from __future__ import annotations
 
@@ -202,12 +209,14 @@ class UNet(nn.Module):
                 res *= 2
             up.append(Level(blocks, attns, up=uconv))
         self.up = nn.ModuleList(up)
+        self.to(getattr(torch, cfg.dtype))
 
     def forward(self, x, t, y):
         """x: (B,H,W,C); t: (B,) real-valued timesteps; y: (B, n_classes)
         multi-hot conditioning (zeros = unconditional).  Returns ε̂ (NHWC,
         contiguous)."""
         td = self.cfg.time_dim
+        x = x.to(self.stem.weight.dtype)
         temb = sinusoidal_embedding(t, td).to(x.dtype)
         tm = self.time_mlp
         emb = tm["w2"](F.silu(tm["w1"](temb)))
@@ -258,10 +267,17 @@ def unet_param_count(model: nn.Module) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _conv_init(key, kh, kw, cin, cout, scale=None) -> Dict:
+def _np(t: torch.Tensor, dtype: torch.dtype) -> np.ndarray:
+    """``t`` rounded to ``dtype``, as float32 numpy (exact: numpy has no
+    bfloat16)."""
+    return t.to(dtype).float().cpu().numpy()
+
+
+def _conv_init(key, kh, kw, cin, cout, dtype=torch.float32,
+               scale=None) -> Dict:
     scale = scale if scale is not None else 1.0 / math.sqrt(kh * kw * cin)
     w = prng.normal(key, (kh, kw, cin, cout)) * scale      # HWIO
-    return {"w": w.cpu().numpy(), "b": np.zeros((cout,), np.float32)}
+    return {"w": _np(w, dtype), "b": np.zeros((cout,), np.float32)}
 
 
 def _gn_init(c) -> Dict:
@@ -269,44 +285,47 @@ def _gn_init(c) -> Dict:
             "bias": np.zeros((c,), np.float32)}
 
 
-def _dense_np(key, d_in, d_out, scale=None) -> np.ndarray:
-    return dense_init(key, d_in, d_out, scale=scale).cpu().numpy()
+def _dense_np(key, d_in, d_out, dtype=torch.float32,
+              scale=None) -> np.ndarray:
+    return _np(dense_init(key, d_in, d_out, scale=scale), dtype)
 
 
-def _res_block_init(key, cin, cout, time_dim) -> Dict:
+def _res_block_init(key, cin, cout, time_dim, dtype) -> Dict:
     k1, k2, k3, k4 = prng.split(key, 4)
-    p = {"gn1": _gn_init(cin), "conv1": _conv_init(k1, 3, 3, cin, cout),
-         "time": _dense_np(k2, time_dim, cout), "gn2": _gn_init(cout),
-         "conv2": _conv_init(k3, 3, 3, cout, cout, scale=1e-3)}
+    p = {"gn1": _gn_init(cin),
+         "conv1": _conv_init(k1, 3, 3, cin, cout, dtype),
+         "time": _dense_np(k2, time_dim, cout, dtype), "gn2": _gn_init(cout),
+         "conv2": _conv_init(k3, 3, 3, cout, cout, dtype, scale=1e-3)}
     if cin != cout:
-        p["skip"] = _conv_init(k4, 1, 1, cin, cout)
+        p["skip"] = _conv_init(k4, 1, 1, cin, cout, dtype)
     return p
 
 
-def _attn_block_init(key, c) -> Dict:
+def _attn_block_init(key, c, dtype) -> Dict:
     kq, kk, kv, ko = prng.split(key, 4)
-    return {"gn": _gn_init(c), "wq": _dense_np(kq, c, c),
-            "wk": _dense_np(kk, c, c), "wv": _dense_np(kv, c, c),
-            "wo": _dense_np(ko, c, c, scale=1e-3)}
+    return {"gn": _gn_init(c), "wq": _dense_np(kq, c, c, dtype),
+            "wk": _dense_np(kk, c, c, dtype),
+            "wv": _dense_np(kv, c, c, dtype),
+            "wo": _dense_np(ko, c, c, dtype, scale=1e-3)}
 
 
 def init_params(key: torch.Tensor, cfg: UNetConfig) -> Dict:
     """The JAX package's ``init_unet`` parameter tree (numpy, HWIO convs,
     (in, out) dense weights), drawn with the port's threefry in the same
-    key order.  Draws run on ``key``'s device."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError(f"UNet dtype {cfg.dtype}: only float32")
+    key order, each weight rounded to ``cfg.dtype`` (held as float32
+    numpy).  Draws run on ``key``'s device."""
+    dt = getattr(torch, cfg.dtype)
     widths = _level_widths(cfg)
     keys = iter(prng.split(key, 1024))
     nk = lambda: next(keys)
     td = cfg.time_dim
     params: Dict = {
-        "time_mlp": {"w1": _dense_np(nk(), td, td),
-                     "w2": _dense_np(nk(), td, td)},
-        "label_proj": _dense_np(nk(), cfg.n_classes, td),
-        "stem": _conv_init(nk(), 3, 3, cfg.channels, widths[0]),
+        "time_mlp": {"w1": _dense_np(nk(), td, td, dt),
+                     "w2": _dense_np(nk(), td, td, dt)},
+        "label_proj": _dense_np(nk(), cfg.n_classes, td, dt),
+        "stem": _conv_init(nk(), 3, 3, cfg.channels, widths[0], dt),
         "out_gn": _gn_init(widths[0]),
-        "out_conv": _conv_init(nk(), 3, 3, widths[0], cfg.channels,
+        "out_conv": _conv_init(nk(), 3, 3, widths[0], cfg.channels, dt,
                                scale=1e-3),
     }
     res = cfg.image_size
@@ -315,31 +334,31 @@ def init_params(key: torch.Tensor, cfg: UNetConfig) -> Dict:
     for i, w in enumerate(widths):
         level = {"res": [], "attn": []}
         for _ in range(cfg.n_res_blocks):
-            level["res"].append(_res_block_init(nk(), cin, w, td))
-            level["attn"].append(_attn_block_init(nk(), w)
+            level["res"].append(_res_block_init(nk(), cin, w, td, dt))
+            level["attn"].append(_attn_block_init(nk(), w, dt)
                                  if res in cfg.attn_resolutions else None)
             cin = w
             skips_c.append(w)
         if i < len(widths) - 1:
-            level["down"] = _conv_init(nk(), 3, 3, w, w)
+            level["down"] = _conv_init(nk(), 3, 3, w, w, dt)
             skips_c.append(w)
             res //= 2
         down.append(level)
     params["down"] = down
-    params["mid"] = {"res1": _res_block_init(nk(), cin, cin, td),
-                     "attn": _attn_block_init(nk(), cin),
-                     "res2": _res_block_init(nk(), cin, cin, td)}
+    params["mid"] = {"res1": _res_block_init(nk(), cin, cin, td, dt),
+                     "attn": _attn_block_init(nk(), cin, dt),
+                     "res2": _res_block_init(nk(), cin, cin, td, dt)}
     up = []
     for i, w in reversed(list(enumerate(widths))):
         level = {"res": [], "attn": []}
         for _ in range(cfg.n_res_blocks + 1):
             sc = skips_c.pop()
-            level["res"].append(_res_block_init(nk(), cin + sc, w, td))
-            level["attn"].append(_attn_block_init(nk(), w)
+            level["res"].append(_res_block_init(nk(), cin + sc, w, td, dt))
+            level["attn"].append(_attn_block_init(nk(), w, dt)
                                  if res in cfg.attn_resolutions else None)
             cin = w
         if i > 0:
-            level["up"] = _conv_init(nk(), 3, 3, w, w)
+            level["up"] = _conv_init(nk(), 3, 3, w, w, dt)
             res *= 2
         up.append(level)
     params["up"] = up

@@ -10,6 +10,11 @@ its smoke, plus ``--device`` (CUDA unless ``--device cpu`` is given).
         --p 0.8 --drop-p 0.1 --fedavg-every 4 --ema 0.99 \
         --checkpoint runs/collafuse.msgpack --checkpoint-every 2 [--resume]
 
+The runtime runs on a 1-D ``("clients",)`` mesh (``make_mesh``), as the
+reference's does: over the caller's process group, or torchrun's when
+``WORLD_SIZE`` is set, one rank's otherwise; a group the CLI made itself
+is torn down before ``main`` returns, and only rank 0 prints.
+
 All the training machinery lives in ``repro_torch.train`` (client registry
 → participation sampler → shape-stable cohort round plan → identity-
 keyed masked engine → FedAvg/EMA aggregation → checkpoint loop) — this
@@ -79,6 +84,7 @@ from repro_torch.core import prng, trees
 from repro_torch.core.collab import CollabConfig, build_denoiser
 from repro_torch.data.synthetic import SyntheticConfig, make_client_datasets
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import ensure_group
 from repro_torch.obs import ObsConfig
 from repro_torch.sharding.specs import make_client_mesh
 from repro_torch.train import (ParticipationConfig, PrivacyConfig,
@@ -148,23 +154,48 @@ def make_data(args, key, device):
 def make_mesh(args):
     """A 1-D ``("clients",)`` mesh sized to the pow2 tier menu
     (sharding/specs.py ``make_client_mesh``), so a sharded cohort axis
-    divides every tier: one rank where no process group exists.  The
-    runtime takes no mesh yet; the layout is there for a sharded one."""
+    divides every tier, laid over the process group: one rank where no
+    group exists (``main`` then sets one up for the run and tears it
+    down)."""
     return make_client_mesh(participation_tier(args.clients),
                             device=args.device)
+
+
+def join_group(device) -> bool:
+    """Set up the process group the mesh lays over where none exists:
+    torchrun's (``env://``) when ``WORLD_SIZE`` is set, else one rank's
+    (launch/mesh.py ``ensure_group``).  True when this call made it."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return False
+    dev = resolve_device(device)
+    if "WORLD_SIZE" in os.environ:
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    else:
+        ensure_group(dev)
+    return True
+
+
+def say(*a) -> None:
+    """``print`` on rank 0 of the process group (or without one)."""
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(*a)
 
 
 def fresh_runtime(args, key, init_one, apply_fn, data,
                   obs=None) -> TrainRuntime:
     rt = TrainRuntime(make_train_config(args), init_one, apply_fn, key,
-                      obs=obs, device=args.device)
+                      mesh=make_mesh(args), obs=obs, device=args.device)
     for (x, y) in data:
         rt.register_client(x, y)
     return rt
 
 
 def print_report(tag: str, rep: dict):
-    print(f"{tag}: cohort={rep['cohort']} tier={rep['tier']} "
+    say(f"{tag}: cohort={rep['cohort']} tier={rep['tier']} "
           f"drops={rep['mid_round_drops']} "
           f"lag={rep['stragglers']}/{rep['stale_merges']}"
           f"/{rep['pending_payloads']} "
@@ -246,7 +277,8 @@ def smoke(args) -> dict:
     path = os.path.join(tempfile.mkdtemp(), "train_smoke.msgpack")
     half.save(path)
     resumed = TrainRuntime.restore(make_train_config(args), init_one,
-                                   apply_fn, path, device=args.device)
+                                   apply_fn, path, mesh=make_mesh(args),
+                                   device=args.device)
     for uid, (x, y) in enumerate(data):
         resumed.attach_data(uid, x, y)
     resumed.run(args.rounds - mid)
@@ -358,11 +390,11 @@ def smoke(args) -> dict:
         want = {"cohort_sample", "plan", "round_dispatch", "fedavg"}
         assert any(want <= by_parent.get(e["args"]["sid"], set())
                    for e in round_evs), by_parent
-    print(f"smoke/obs: tracing is a pure observer (bitwise full state, "
+    say(f"smoke/obs: tracing is a pure observer (bitwise full state, "
           f"{obs_rt.traces} traces both modes, {n_frames} JSONL frames, "
           "Perfetto round decomposition verified)")
 
-    print(f"smoke: OK ({subset_rounds} strict-subset rounds, "
+    say(f"smoke: OK ({subset_rounds} strict-subset rounds, "
           f"1 signature per tier over {rt.traces} tiers, "
           f"bitwise resume-at-round-{mid} == uninterrupted; "
           f"stragglers={n_straggled} sync_stall={sync_stall:.3f}s "
@@ -468,6 +500,17 @@ def main(argv=None):
                     help="CI preset: assert the train-runtime contract "
                          "(see module docstring)")
     args = ap.parse_args(argv)
+    own_group = join_group(args.device)
+    try:
+        return run(args)
+    finally:
+        if own_group:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def run(args):
+    """The CLI's body over a process group that ``main`` set up."""
     if args.smoke:
         # 5 ragged clients, bernoulli cohorts with mid-round dropout,
         # FedAvg + EMA on, toy denoiser — wide enough to hit >=2 tiers
@@ -494,6 +537,7 @@ def main(argv=None):
     cfg = make_train_config(args)
     if args.resume and args.checkpoint and os.path.exists(args.checkpoint):
         rt = TrainRuntime.restore(cfg, init_one, apply_fn, args.checkpoint,
+                                  mesh=make_mesh(args),
                                   obs=obs_from_args(args),
                                   device=args.device)
         for uid, (x, y) in enumerate(data):
@@ -505,11 +549,11 @@ def main(argv=None):
         if args.join_at is not None and args.clients in rt.registry:
             xj, yj = make_data(args, prng.fold_in(key, 777), device)[0]
             rt.attach_data(args.clients, xj, yj)
-        print(f"resumed {args.checkpoint} at round {rt.round}")
+        say(f"resumed {args.checkpoint} at round {rt.round}")
     else:
         rt = fresh_runtime(args, key, init_one, apply_fn, data,
                            obs=obs_from_args(args))
-    print(f"CollaFuse train runtime: k={args.clients} T={args.T} "
+    say(f"CollaFuse train runtime: k={args.clients} T={args.T} "
           f"t_cut={args.t_cut} denoiser={args.denoiser} "
           f"policy={args.policy}(p={args.p}, drop_p={args.drop_p}) "
           f"fedavg_every={args.fedavg_every} ema={args.ema} "
@@ -519,10 +563,10 @@ def main(argv=None):
                 args.clients not in rt.registry:
             x, y = make_data(args, prng.fold_in(key, 777), device)[0]
             uid = rt.register_client(x, y)
-            print(f"round {rt.round}: client {uid} joined")
+            say(f"round {rt.round}: client {uid} joined")
         if args.leave_at is not None and rt.round == args.leave_at:
             rt.leave(0)
-            print(f"round {rt.round}: client 0 left")
+            say(f"round {rt.round}: client 0 left")
         rep = rt.run_round()
         print_report(f"round {rep['round']}", rep)
         if args.checkpoint and args.checkpoint_every > 0 and \
@@ -530,7 +574,7 @@ def main(argv=None):
             rt.save(args.checkpoint)
     if args.checkpoint:
         rt.save(args.checkpoint)
-        print("checkpoint ->", args.checkpoint)
+        say("checkpoint ->", args.checkpoint)
     rt.obs.close()
     return rt
 

@@ -44,6 +44,7 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import bridge
@@ -233,6 +234,147 @@ def inject_specs(inject):
 def handoff_spec(ndim: int, batch_axis: str = "data") -> Spec:
     """One cached server handoff (B, ...): batch over "data"."""
     return (batch_axis,) + (None,) * (ndim - 1)
+
+
+# ---------------------------------------------------------------------------
+# Placement on a mesh: the five ``shard_*`` functions of the reference.
+# A placed operand is a ``DTensor`` (the counterpart of a ``jax.Array``
+# with a ``NamedSharding``): its spec, sanitized against its shape, gives
+# one placement per mesh dim, and its local part is this rank's slice.
+# Every rank holds the whole host value (the same seed, the same plan),
+# so placing moves no data; the engines read the layout off the operands.
+# ---------------------------------------------------------------------------
+
+
+def placements(spec: Spec, mesh):
+    """The ``DTensor`` placements of a sanitized spec: ``Shard(i)`` on the
+    mesh dim that tensor dim i names, ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        if isinstance(entry, tuple):
+            raise ValueError(f"spec {spec}: a dim cut over several axes "
+                             "has no DTensor placement here")
+        out[names.index(entry)] = Shard(i)
+    return out
+
+
+def place(mesh, value, spec: Spec):
+    """``value`` (a tensor or a numpy array, whole on every rank) laid out
+    on ``mesh`` by ``spec`` sanitized against its shape: a ``DTensor`` on
+    the mesh's device type whose local part is this rank's slice, taken
+    without communication.  A dim the mesh does not divide stays
+    replicated, as in JAX."""
+    from torch.distributed.tensor import DTensor
+    t = torch.from_numpy(np.ascontiguousarray(value)) \
+        if isinstance(value, np.ndarray) else value
+    t = t.to(mesh.device_type) if t.device.type != mesh.device_type else t
+    pl = placements(sanitize_spec(spec, tuple(t.shape), mesh), mesh)
+    local = t
+    for d, p in enumerate(pl):
+        if p.is_shard():
+            n = mesh.size(d)
+            local = local.chunk(n, dim=p.dim)[mesh.get_local_rank(d)]
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def local_part(t):
+    """(this rank's part, mesh, sharded tensor dim or None) of a placed
+    operand; ``(t, None, None)`` for anything else."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return t, None, None
+    dims = [p.dim for p in t.placements if p.is_shard()]
+    return t.to_local(), t.device_mesh, (dims[0] if dims else None)
+
+
+# bytes this rank handed to each kind of collective of the sharded
+# engines (a buffer's size, whatever the world size): core/collab.py's
+# all_reduce and broadcast, and ``gather``'s all_gather
+COMM_BYTES: Dict[str, int] = {}
+
+
+def count_bytes(kind: str, t: torch.Tensor) -> None:
+    COMM_BYTES[kind] = COMM_BYTES.get(kind, 0) + t.numel() * t.element_size()
+
+
+def gather(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """Every rank's part of a tensor cut along ``dim`` over ``mesh``'s
+    (1-D) ranks, concatenated in rank order: the whole tensor."""
+    import torch.distributed as dist
+    group = mesh.get_group()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    count_bytes("all_gather", t)
+    return torch.cat(parts, dim=dim)
+
+
+def whole(t):
+    """The whole value of a placed operand (``gather`` where it is cut);
+    anything else as it is."""
+    local, mesh, dim = local_part(t)
+    return local if dim is None else gather(local, mesh, dim)
+
+
+def shard_round_batches(mesh, xs, ys, mask=None):
+    """Place padded round stacks (n_batches, k, B, ...) and their validity
+    mask on ``mesh`` with the client axis (dim 1) sharded: a (client,
+    batch) cell and its validity always live on the same rank."""
+    put = lambda a: place(mesh, a, client_batch_spec(np.ndim(a)))
+    return put(xs), put(ys), None if mask is None else put(mask)
+
+
+def shard_cohort_round(mesh, xs, ys, mask, uids):
+    """Place one federated round's operands (train/rounds.py's padded
+    cohort stacks and the (tier,) uid vector) on ``mesh``: a cohort slot,
+    its validity and its uid always live on the same rank."""
+    xs, ys, mask = shard_round_batches(mesh, xs, ys, mask)
+    return xs, ys, mask, place(mesh, uids, cohort_uid_spec())
+
+
+def slot_owners(mesh, n_slots: int):
+    """The clients-axis rank that owns each of ``n_slots`` stacked slots
+    (slot c on rank c // (n_slots / world)), or None when the mesh does
+    not divide them and every rank holds every slot."""
+    spec = sanitize_spec(client_opt_specs({})["step"], (n_slots,), mesh)
+    if spec[0] is None:
+        return None
+    per = n_slots // axis_sizes(mesh)[CLIENT_AXIS]
+    return [c // per for c in range(n_slots)]
+
+
+def shard_vectorized_state(state, mesh):
+    """Lay a ``core.collab.VectorizedCollabState`` on ``mesh``: the server
+    model and AdamW state replicated, the client slots over the
+    ``clients`` axis (``client_stacked_specs`` / ``client_opt_specs``).
+    The port keeps one module a slot on every rank, so this records the
+    mesh and each slot's owning rank (``state.owners``, None when
+    replicated); ``train_round_vectorized`` then updates each slot on its
+    owner and sends it to every rank."""
+    state.mesh = mesh
+    state.owners = slot_owners(mesh, state.n_clients)
+    return state
+
+
+def _place_tuple(mesh, tree, spec_tree):
+    return type(tree)(*(place(mesh, a, s) for a, s in zip(tree, spec_tree)))
+
+
+def shard_sample_plan(mesh, tables):
+    """Place a ``sample_plan.PlanTables`` on ``mesh`` with the sampling
+    specs: the group and request axes over "clients" where it divides
+    them, each on its own."""
+    return _place_tuple(mesh, tables, sample_plan_specs(tables))
+
+
+def shard_inject(mesh, inject):
+    """Place a plan's injected cache-hit rows (``InjectTables``) on
+    ``mesh``, laid out like the scanned stacks."""
+    return _place_tuple(mesh, inject, inject_specs(inject))
 
 
 def make_client_mesh(n_clients: int, device=None):

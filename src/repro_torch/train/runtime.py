@@ -60,8 +60,18 @@ on one card.
   span in ``run``).  Disabled, tracing is structurally inert; enabled, it
   never perturbs training.
 
-One card: the runtime places everything on ``device`` (CUDA unless the
-caller passes ``device="cpu"``) and takes no mesh.
+The runtime places everything on ``device`` (CUDA unless the caller
+passes ``device="cpu"``).  With a ``mesh`` (a 1-D ``("clients",)``
+``DeviceMesh``, sharding/specs.py ``make_client_mesh``) every rank runs
+the same runtime: ``run_round`` places the cohort through
+``shard_cohort_round``, the engine updates each rank's own slots and
+sums the server's gradient over the ranks, and then each real slot's
+parameters and AdamW state go from the rank that owns it to every rank
+(``collab.broadcast_slots``), an async straggler's queued copy included.
+So every rank's registry, queue, FedAvg, DP release and EMA stay whole
+and bitwise alike, and a checkpoint written by rank 0 (the only rank
+that writes checkpoints and JSONL frames) is the whole state.  A tier the
+mesh does not divide runs replicated: every rank computes every slot.
 """
 from __future__ import annotations
 
@@ -75,7 +85,7 @@ import torch.nn as nn
 
 from repro_torch.checkpointing import checkpoint as ckpt
 from repro_torch.core import prng, trees
-from repro_torch.core.collab import make_vectorized_round
+from repro_torch.core.collab import broadcast_slots, make_vectorized_round
 from repro_torch.core.fedavg import average_cohort, average_stale
 from repro_torch.core.schedules import DiffusionSchedule
 from repro_torch.core.splitting import CutPoint
@@ -84,6 +94,7 @@ from repro_torch.obs import DELTA, GAUGE, ObsConfig, RecompileGuard, Telemetry
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state, named
 from repro_torch.privacy.accountant import RdpAccountant
 from repro_torch.privacy.dp import TAG_DP, PrivacyConfig, dp_average_cohort
+from repro_torch.sharding.specs import shard_cohort_round, slot_owners
 from repro_torch.train.participation import (TAG_INIT, TAG_PART, TAG_ROUND,
                                              ParticipationConfig,
                                              sample_cohort, sample_drops,
@@ -164,10 +175,23 @@ class TrainRuntime:
     persist across calls."""
 
     def __init__(self, config: TrainConfig, init_one, apply_fn, key,
-                 obs=None, device=None):
+                 mesh=None, obs=None, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             deterministic_cuda()
+        self.mesh = mesh
+        self._writer = True              # this rank writes files and frames
+        if mesh is not None:
+            import torch.distributed as dist
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"TrainRuntime: a {mesh.device_type} mesh "
+                                 f"for a runtime on {self.device}")
+            if mesh.get_coordinate() is None:
+                raise ValueError("TrainRuntime: this rank is not in the "
+                                 "mesh")
+            self._writer = dist.get_rank() == 0
+            if not self._writer:
+                obs = None if isinstance(obs, ObsConfig) else obs
         self.config = config
         self.sched = config.sched(self.device)
         self.cut = config.cut()
@@ -433,10 +457,20 @@ class TrainRuntime:
             co += [co[0]] * pad
             rkey = prng.fold_in(prng.fold_in(self._key, TAG_ROUND),
                                 self.round)
+            xs, ys, mask, uids = plan.xs, plan.ys, mask_np, plan.uids
+            if self.mesh is not None:
+                xs, ys, mask, uids = shard_cohort_round(self.mesh, xs, ys,
+                                                        mask, uids)
             _, _, self.server_params, self.server_opt, metrics = \
                 self._engine(cp, co, self.server_params, self.server_opt,
-                             plan.xs, plan.ys, mask_np, plan.uids,
-                             rkey.to(self.device))
+                             xs, ys, mask, uids, rkey.to(self.device))
+            owners = None if self.mesh is None else \
+                slot_owners(self.mesh, plan.tier)
+            if owners is not None:
+                # each real slot from its owner to every rank
+                broadcast_slots(cp, co, self.mesh, [
+                    m for m in range(len(members))
+                    if mask_np[:, m, :].any()], owners)
             self._sync()
         self._sigs.setdefault(plan.tier, set()).add(plan.signature())
 
@@ -641,7 +675,13 @@ class TrainRuntime:
         }
 
     def save(self, path: str) -> None:
-        ckpt.save(path, self.state_dict())
+        """Write the checkpoint (rank 0 of a mesh alone; the other ranks
+        wait until the file is whole)."""
+        if self._writer:
+            ckpt.save(path, self.state_dict())
+        if self.mesh is not None and self.mesh.size() > 1:
+            import torch.distributed as dist
+            dist.barrier(group=self.mesh.get_group())
 
     def _params_from(self, template, saved):
         """A model of ``template``'s kind holding the saved parameters."""
@@ -669,18 +709,19 @@ class TrainRuntime:
 
     @classmethod
     def restore(cls, config: TrainConfig, init_one, apply_fn, path: str,
-                obs=None, device=None) -> "TrainRuntime":
+                mesh=None, obs=None, device=None) -> "TrainRuntime":
         """Rebuild a runtime from a checkpoint (versions 1–3, the port's
         or the reference's): models, AdamW states, registry, cursor and
         key resume where they stopped, so continuing is bitwise never
         having stopped.  Data is not in the checkpoint: call
-        ``attach_data(uid, x, y)`` for every client that keeps training."""
+        ``attach_data(uid, x, y)`` for every client that keeps training.
+        On a ``mesh`` every rank reads the file."""
         state = ckpt.load(path)
         if state.get("version") not in (1, 2, 3):
             raise ValueError(f"unknown checkpoint version "
                              f"{state.get('version')!r}")
         rt = cls(config, init_one, apply_fn, _key_unpack(state["base_key"]),
-                 obs=obs, device=device)
+                 mesh=mesh, obs=obs, device=device)
         tmpl = rt.server_params
         P = lambda saved: rt._params_from(tmpl, saved)
         priv = state.get("privacy")

@@ -426,13 +426,14 @@ def test_main_runs_every_phase_in_order():
     assert calls == ["phase_build", "phase_keyed", "phase_kernels",
                      "phase_flash_ssd", "phase_unet", "phase_main_path",
                      "phase_contracts", "phase_train", "phase_train_runtime",
-                     "phase_eval", "phase_dit", "phase_grouped_matmul",
-                     "phase_moe", "phase_moe_train", "phase_lm_serve",
-                     "phase_lm_train", "phase_whisper", "phase_examples",
-                     "phase_dryrun", "phase_meta_check"]
+                     "phase_clients_mesh", "phase_eval", "phase_dit",
+                     "phase_grouped_matmul", "phase_moe", "phase_moe_train",
+                     "phase_lm_serve", "phase_lm_train", "phase_whisper",
+                     "phase_examples", "phase_dryrun", "phase_meta_check"]
     assert cs.PATHS == ("serve", "train", "train_runtime", "eval", "dit",
                         "moe", "moe_train", "lm_serve", "lm_train",
-                        "whisper_serve", "whisper_train", "examples")
+                        "whisper_serve", "whisper_train", "examples",
+                        "clients_mesh")
     for name in calls:
         assert callable(getattr(cs, name))
 
@@ -467,7 +468,8 @@ def test_kernels_line_carries_the_new_paths_and_lm_shapes():
                              "flash_attention_bwd": 240},
            "examples": {"ddpm_step": 150, "ssd_scan": 80,
                         "ssd_scan_bwd": 40, "flash_attention": 90,
-                        "flash_attention_bwd": 60}}
+                        "flash_attention_bwd": 60},
+           "clients_mesh": {"ddpm_step": 200, "ddpm_step_batched": 200}}
     enc = dict(shape=[4, 8, 1500, 64], causal=False, ms=0.05)
     bwd = dict(shape=[8, 8, 1500, 64], causal=False, ms=0.3, simt_ms=9.0)
     records["flash_attention"]["whisper_encoder"] = enc
@@ -479,6 +481,9 @@ def test_kernels_line_carries_the_new_paths_and_lm_shapes():
     for k in line:
         assert list(k["launches_by_path"]) == list(cs.PATHS)
     assert line[1]["launches_by_path"]["eval"] == 1250
+    assert line[0]["launches_by_path"]["clients_mesh"] == 200
+    assert line[1]["launches_by_path"]["clients_mesh"] == 200
+    assert line[2]["launches_by_path"]["clients_mesh"] == 0
     assert line[2]["launches_by_path"]["lm_serve"] == 6
     assert line[3]["launches_by_path"]["examples"] == 80
     assert line[3]["launches_by_path"]["lm_serve"] == 38
@@ -498,6 +503,33 @@ def test_kernels_line_carries_the_new_paths_and_lm_shapes():
     assert line[2]["whisper_encoder"] == enc
     assert line[5]["whisper_encoder"] == bwd
     assert "whisper_encoder" not in line[3]
+
+
+def test_clients_mesh_phase_configuration_and_reckoning():
+    """The clients-mesh phase: two rounds, three requests, bytes reckoned
+    for 2, 4 and 8 ranks (a ring all-reduce moves 2(W-1)/W of its buffer
+    through each rank, a broadcast or all-gather the (W-1)/W a rank does
+    not own); it runs on the runtime phase's configuration and tears
+    down the process group it makes."""
+    import inspect
+    cs = _chip_smoke()
+    assert (cs.CM_ROUNDS, cs.CM_REQUESTS, cs.CM_WORLDS) == (2, 3, (2, 4, 8))
+    assert (cs.CM_SAMPLE_T, cs.CM_SAMPLE_CUT) == (100, 25)
+    got = cs.collective_reckoning(
+        {"all_reduce": 1000, "broadcast": 800, "all_gather": 64})
+    assert list(got) == [2, 4, 8]
+    for w, v in got.items():
+        want = 2 * (w - 1) / w * 1000 + (w - 1) / w * 864
+        assert v["bytes"] == pytest.approx(want)
+        assert v["bound_ms"] == pytest.approx(1e3 * want / cs.card.NVLINK_BW)
+    assert got[8]["bytes"] > got[2]["bytes"]
+    src = inspect.getsource(cs.phase_clients_mesh)
+    for name in ("make_client_mesh", "shard_sample_plan", "mesh=m",
+                 "assert_runtime_bitwise", "destroy_process_group",
+                 "check_ddpm_launches", '"bfloat16"', "reset_counts",
+                 "COMM_BYTES", "collective_reckoning", "RT_SEED", "RT_P",
+                 "RT_DROP", "RT_FEDAVG", "RT_EMA", "TRAIN_CUT"):
+        assert name in src, name
 
 
 def test_whisper_phase_configuration():

@@ -11,7 +11,10 @@
   run;
 * its base key is the reference CLI's (``PRNGKey(seed)``), so the same
   flags draw the reference's cohorts;
-* without ``--device cpu`` and without a card the CLI raises.
+* without ``--device cpu`` and without a card the CLI raises;
+* ``main`` runs the runtime on a one-rank ``("clients",)`` mesh whose
+  process group it makes and tears down before returning; a group the
+  caller made is left to the caller.
 """
 import jax
 import numpy as np
@@ -65,6 +68,22 @@ def test_cohorts_are_the_reference_cli_cohorts():
     for r in range(8):
         assert sample_cohort(rt.config.participation, rt._key, r,
                              [0, 1, 2]) == jsample(cfg, jkey, r, [0, 1, 2])
+
+
+def test_main_leaves_no_process_group():
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    rt = collab_train.main(SMALL_RUN + ["--rounds", "2"])
+    assert not dist.is_initialized()
+    assert rt.mesh.mesh_dim_names == ("clients",) and rt.mesh.size() == 1
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        again = collab_train.main(SMALL_RUN + ["--rounds", "2"])
+        assert dist.is_initialized()
+        assert trees.equal(again.server_params, rt.server_params)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_cli_without_device_raises():
