@@ -26,7 +26,8 @@ package).  Phases, each of which fails the run on any error:
    (``make_per_request_sampler``); kernel launch counters are zeroed just
    before and read just after, and must equal the scheduled steps, every
    one on the keyed variants (``keyed``, ``rowwise``); then the device
-   events per per-request step from a T=10 sample's profile;
+   events per per-request step from a T=10 sample's profile, and each
+   pass's wall split by the runtime's own spans;
 6. serve contracts at CONFIG width on the card (the CLI's ``--smoke``,
    T=20: warm==cold==fifo, pipelined==sequential, continuous==depth, obs
    on==off, all bitwise) and the batched engine against its per-request
@@ -100,7 +101,7 @@ package).  Phases, each of which fails the run on any error:
    38), every one on the wgmma variants.  The flash and SSD kernels
    are held against their plain versions on the inputs the first forward
    feeds them and timed there; then, with every launch counter zeroed just
-   before, one per-request Alg.-2 sample (T=500, cut 250, batch 4) and
+   before, one per-request Alg.-2 sample (T=250, cut 125, batch 4) and
    one ``ServeRuntime`` pass (T=60, cuts 8/15/30, three requests of
    batch 4, max_wave 4, depth policy, cache on), counters read just
    after: 6 flash and 38 SSD launches per forward, every one on the wgmma
@@ -135,7 +136,7 @@ package).  Phases, each of which fails the run on any error:
    time from the profiler; the grouped matmul's output rows at C = 64 must
    equal the first 64 rows at C = 256, and flash's rows of batch 1 those
    of batch 4, bitwise.  Then, with every launch counter zeroed just
-   before, one per-request Alg.-2 sample (T=500, cut 250) and one
+   before, one per-request Alg.-2 sample (T=250, cut 125) and one
    ``ServeRuntime`` pass (T=60, cuts 8/15/30), counters read just after:
    6 grouped-matmul and 2 flash launches per forward, all on the wgmma
    variants.  The pass's outputs must equal ``sample_plan_reference``
@@ -204,6 +205,14 @@ package).  Phases, each of which fails the run on any error:
    and peak memory; (d) a repeated step bitwise; (e) a 7-layer model's
    loss and gradients on the card against the CPU port within
    LM_LOSS_RTOL / LM_GRAD_RTOL, another batch's gradients outside;
+15b. the partitioned dense path (``phase_dense_partition``):
+   Zamba2-1.2B at full width in bf16, B 4 x S 1,024, laid out by
+   ``shard_params`` / ``shard_batch`` on a one-rank NCCL ("data",
+   "model") (1, 1) mesh, against the unpartitioned path from the same
+   weights: the loss and every gradient, the prefill logits and one
+   AdamW step bitwise; the flash and SSD launches, forward and backward,
+   equal each way (path ``dense_partition``); the training step's wall,
+   device time, idle share and peak memory each way;
 16. the encoder-decoder (``phase_whisper``): whisper-base at its
    published widths and depth (6 + 6 layers, d_model 512, 8 heads of 64,
    vocab 51,865, bf16): (a) the ``serve`` CLI twice (batch 4, 1,500
@@ -224,22 +233,27 @@ package).  Phases, each of which fails the run on any error:
    ``examples``): the keyed DDPM step, the SSD scan's and flash
    attention's forward and backward kernels each launched, outputs
    finite;
-18. the dry runs (``phase_dryrun``), one after the other, each in a
-   process of its own on the CPU with no card visible (output in
-   experiments/dryrun_torch/): launch/dryrun.py ``--all`` on the fake
-   single-pod mesh, every pair that ``skip_reason`` runs ``OK`` and
-   every other ``SKIP`` with its reason, then launch/collab_dryrun.py at
-   COLLAB_DRYRUN_ARGS writing its six programs;
-19. the card check of the meta route (``phase_meta_check``): Zamba2-1.2B
+18. the card check of the meta route (``phase_meta_check``): Zamba2-1.2B
    at full width, B 1 x S 1,024, its parameter and AdamW bytes on the
    card within META_BYTES_RTOL of ``dryrun.reckon``'s, one training
    step's saved-tensor bytes and FLOPs (``FlopCounterMode`` plus
    ``kernels.FLOPS``) equal to the meta run's; then one Alg.-1 step of
    the collab dry run's U-Net at META_CHECK_UNET (group norm and the
    cached output shapes of ``dryrun.StepCounters``), its saved bytes and
-   FLOPs on the card equal to the meta run's;
+   FLOPs on the card equal to the meta run's; and the partitioned step
+   at META_PARTITION_SHAPE on a one-rank NCCL (1, 1) mesh, its saved
+   bytes and FLOPs equal to ``reckon``'s over a fake (1, 1) mesh.  It
+   compares counts and times nothing the records read, so the dry runs
+   run beside it;
+19. the dry runs (``start_dryrun`` / ``phase_dryrun``), started just
+   before phase 18, both at once, each in a process of its own on the
+   CPU with no card visible (output in experiments/dryrun_torch/):
+   launch/dryrun.py ``--all`` on the fake single-pod mesh, every pair
+   that ``skip_reason`` runs ``OK`` and every other ``SKIP`` with its
+   reason, and launch/collab_dryrun.py at COLLAB_DRYRUN_ARGS writing its
+   six programs;
 20. a ``kernels`` JSON line (eight kernels, ``launches_by_path`` over
-   the thirteen paths), the card line again, and the result line.
+   the fourteen paths), the card line again, and the result line.
 
 Exits nonzero, printing no result line, without a CUDA device or outside
 a checkout.
@@ -315,8 +329,10 @@ SSD_WGMMA = [(2, 200, 4, 64, 64, 64), (1, 256, 3, 64, 128, 256),
 # (H100 hosts differ by 2x), so a T=1000 pass with its reference would
 # take ~10 min; the sample was at T=1000 and the pass at T=120 until the
 # LM training phase joined the script (whole runs reached 1,083 s of the
-# 1,200 s limit on a slow host), now T=500 and T=60
-DIT_SAMPLE_T, DIT_SAMPLE_CUT = 500, 250
+# 1,200 s limit on a slow host), then T=500 and T=60, and the sample at
+# T=250 since the partitioned path joined (a slow host had run 1,163 s
+# before the dry runs ended)
+DIT_SAMPLE_T, DIT_SAMPLE_CUT = 250, 125
 DIT_T = 60                      # the serve pass's T
 DIT_CUTS = [8, 15, 30]          # its three clients' cuts (T/8, T/4, T/2)
 GMM_SWEEP = [(4, 32, 64, 48), (2, 100, 50, 70), (8, 16, 16, 16),
@@ -1005,7 +1021,7 @@ def phase_main_path(fwd_ms: float):
     from repro_torch.serve import ServeConfig, ServeRuntime
 
     # the paper's T and cuts; 3 requests of batch 4 a pass (6 until the LM
-    # training phase joined the script: see DIT_SAMPLE_T)
+    # training phase joined the script)
     T, cuts, n_req, passes = 1000, [125, 250, 500], MAIN_REQUESTS, 2
     key = prng.PRNGKey(0, device="cuda")
     ks, *kc = prng.split(key, len(cuts) + 1)
@@ -1073,9 +1089,13 @@ def phase_main_path(fwd_ms: float):
             f"events and {prof['_ms'] / 10:.4f} ms of device a step "
             "(profiler, T=10 sample; the forward's own in unet/device_ms)")
 
-    # where a pass's time goes: model calls and scan steps times their
-    # per-call wall cost (measured alone, at the client stage's K=4), the
-    # host planning spans, and the rest (Python, indexing, key folding)
+    # where a pass's time goes: the host's spans of its waves (planning,
+    # the server and client scans' dispatch, the wait for the device at
+    # retirement) and the rest (admission, Python); beside them an
+    # estimate of the scans' parts, model calls and scan steps times their
+    # per-call wall measured alone (the forward's in phase 4, the step's
+    # at the client stage's K=4), which the host's speed, varying between
+    # phases, can put above the scans it estimates
     keys = prng.fold_in(key, torch.arange(4, device="cuda"))
     shape = (B,) + IMG
     xs = [torch.randn((4,) + shape, device="cuda") for _ in range(2)]
@@ -1099,17 +1119,20 @@ def phase_main_path(fwd_ms: float):
          **{k: round(v, 4) for k, v in per_ms.items()}}))
     spans = rt.obs.spans()
     for p, (_, rep) in enumerate(reports, 1):
-        plan_s = sum(s.duration_s for s in spans
-                     if s.frame == p - 1 and s.name == "plan")
+        parts = {name: sum(s.duration_s for s in spans
+                           if s.frame == p - 1 and s.name == name)
+                 for name in ("plan", "server_scan", "client_scan",
+                              "retire")}
+        parts["other"] = rep["wall_s"] - sum(parts.values())
         calls = rep["server_calls_physical"] + rep["client_calls_physical"]
         n = pass_steps[p - 1]
-        parts = {"unet": calls * fwd_ms / 1e3,
-                 **{k: n * v / 1e3 for k, v in per_ms.items()},
-                 "plan": plan_s}
-        parts["other"] = rep["wall_s"] - sum(parts.values())
+        est = {"unet": calls * fwd_ms / 1e3,
+               **{k: n * v / 1e3 for k, v in per_ms.items()}}
         log(f"main/pass{p}/breakdown_s (wall {rep['wall_s']:.2f}, "
             f"{calls} model calls, {n} scan steps): " + json.dumps(
-                {k: round(v, 3) for k, v in parts.items()}))
+                {k: round(v, 3) for k, v in parts.items()}) +
+            "; scans estimated from per-call walls: " + json.dumps(
+                {k: round(v, 3) for k, v in est.items()}))
     return launches, card_ms
 
 
@@ -3001,7 +3024,7 @@ WHISPER_FLASH_BWD = (((8, 8, 8, 1500, 64), False),
 WHISPER_CPU_LAYERS, WHISPER_GRAD_SEQ = 2, 333
 PATHS = ("serve", "train", "train_runtime", "eval", "dit", "moe",
          "moe_train", "lm_serve", "lm_train", "whisper_serve",
-         "whisper_train", "examples", "clients_mesh")
+         "whisper_train", "examples", "clients_mesh", "dense_partition")
 
 
 def eval_scores(trained, data, key, n: int = EVAL_N) -> dict:
@@ -4853,6 +4876,141 @@ def phase_whisper():
     return records, launches, train_launches
 
 
+def partition_tensors(model, opt) -> dict:
+    """{name: tensor} of a model's parameters and AdamW moments, each
+    ``DTensor`` as its local part."""
+    from torch.distributed.tensor import DTensor
+    local = lambda t: t.to_local() if isinstance(t, DTensor) else t
+    out = {f"p/{n}": local(p) for n, p in model.named_parameters()}
+    for w in ("m", "v"):
+        out.update({f"{w}/{n}": local(t) for n, t in opt[w].items()})
+    return out
+
+
+def phase_dense_partition():
+    """The partitioned dense path (sharding/specs.py ``shard_params`` /
+    ``shard_batch``, models/transformer.py ``constrain``): Zamba2-1.2B
+    (LM_ARCH) at full width in bf16, LM_TRAIN_BATCH x LM_TRAIN_SEQ
+    tokens, on a one-rank NCCL ("data", "model") (1, 1) mesh
+    (``make_debug_mesh``), against the unpartitioned path from the same
+    weights (a copy of the model): (a) ``loss_and_grads``: the loss and
+    every gradient bitwise, each gradient placed as its parameter; (b)
+    the prefill logits bitwise; (c) one AdamW step (``make_train_step``):
+    the loss, the grad norm, every parameter and both moments bitwise;
+    the flash and SSD launches of (a)-(c), forward and backward and by
+    variant, counted from zero just before each way and equal; (d) the
+    training step's wall (events), device time (profiler), idle share and
+    peak memory, each way.  Returns the partitioned path's launches."""
+    import copy
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import prng
+    from repro_torch.device import deterministic_cuda
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.ssd_scan import kernel as skernel
+    from repro_torch.launch import shapes, train
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.sharding import specs
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    deterministic_cuda()
+    card = card_line()
+    if dist.is_initialized():
+        raise AssertionError("dense_partition: a process group is left "
+                             "over from an earlier phase")
+    kmods = (fkernel, skernel)
+    cfg = get_arch(LM_ARCH)
+    key = prng.PRNGKey(0, device="cuda")
+    model = api.init_params(key, cfg, "cuda")
+    placed = copy.deepcopy(model)
+    batch = train.build_batch(prng.fold_in(key, 0), cfg, LM_TRAIN_BATCH,
+                              LM_TRAIN_SEQ)
+    mesh = make_debug_mesh(device="cuda")
+    try:
+        if (dist.get_backend(), mesh.mesh_dim_names, mesh.size()) != \
+                ("nccl", ("data", "model"), 1):
+            raise AssertionError(f"dense_partition: mesh {mesh}")
+        specs.shard_params(placed, mesh)
+        pbatch = specs.shard_batch(mesh, batch)
+        rt = shapes.make_runtime(mesh)
+        step = shapes.make_train_step(cfg)
+        step_rt = shapes.make_train_step(cfg, runtime=rt)
+        ways = {"plain": (model, batch, shapes.CPU, step),
+                "partitioned": (placed, pbatch, rt, step_rt)}
+        out, launches, walls = {}, {}, {}
+        for way, (m, b, r, st) in ways.items():
+            for kmod in kmods:                   # --- main path starts
+                kmod.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = shapes.loss_and_grads(m, b, cfg, r)
+            logits, _ = api.prefill_fn(m, b, cfg, r)
+            opt = init_opt_state(m)
+            _, _, metrics = st(m, opt, b)
+            torch.cuda.synchronize()
+            walls[way] = time.perf_counter() - t0
+            launches[way] = lm_counts(*kmods)    # --- main path ends
+            out[way] = (loss, grads, logits, metrics, opt)
+        (l0, g0, p0, m0, o0), (l1, g1, p1, m1, o1) = out.values()
+        params = dict(placed.named_parameters())
+        bad = [n for n, g in g1.items()
+               if g.placements != params[n].placements or
+               not torch.equal(g.to_local(), g0[n])]
+        if not torch.equal(l0, l1) or bad:
+            raise AssertionError(f"dense_partition: loss {l0.item()!r} vs "
+                                 f"{l1.item()!r}; gradients differ: "
+                                 f"{bad[:5]} ({len(bad)})")
+        if not torch.equal(p1.to_local(), p0):
+            raise AssertionError("dense_partition: prefill logits differ")
+        ta, tb = partition_tensors(model, o0), partition_tensors(placed, o1)
+        bad = [n for n in ta if not torch.equal(ta[n], tb[n])]
+        if bad or not (torch.equal(m0["loss"], m1["loss"]) and
+                       torch.equal(m0["grad_norm"], m1["grad_norm"])):
+            raise AssertionError(f"dense_partition: the AdamW step differs: "
+                                 f"{bad[:5]} ({len(bad)})")
+        if launches["plain"] != launches["partitioned"] or \
+                launches["plain"]["ssd_scan_bwd"] == 0 or \
+                launches["plain"]["flash_attention_bwd"] == 0:
+            raise AssertionError(f"dense_partition: launches {launches}")
+        log(f"dense_partition/bitwise: {LM_ARCH} B={LM_TRAIN_BATCH} "
+            f"S={LM_TRAIN_SEQ} on a (1, 1) NCCL mesh: loss {l1.item()!r}, "
+            f"{len(g1)} gradients, prefill logits {tuple(p1.shape)}, one "
+            f"AdamW step (grad norm {m1['grad_norm'].item()!r}, "
+            f"{len(ta)} parameters and moments) bitwise the unpartitioned "
+            f"path; launches each way {launches['partitioned']}; wall of "
+            f"(a)-(c) plain {walls['plain']:.2f} s, partitioned "
+            f"{walls['partitioned']:.2f} s (first calls included)")
+        del out, g0, g1, grads, logits, ta, tb
+        for way, (m, b, r, st) in ways.items():
+            opt = o0 if way == "plain" else o1
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: st(m, opt, b), iters=2, warmup=1)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            prof = device_ms(f"dense_partition/{way}", lambda: st(m, opt, b),
+                             n=1, per="step")
+            idle = "not measured" if prof["_ms"] is None else \
+                f"{100 * (1 - prof['_ms'] / ms):.1f}%"
+            log(f"dense_partition/step_{way}: wall {ms:.3f} ms (events), "
+                f"device {fmt_ms(prof['_ms'])} over {prof['_events']} "
+                f"events, idle {idle}; peak memory {peak:.2f} GB; card "
+                f"{card}")
+    finally:
+        dist.destroy_process_group()
+    del model, placed, ways, o0, o1
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"dense_partition/phase_s: {time.perf_counter() - t_phase:.1f}; "
+        f"card {card}")
+    return launches["partitioned"]
+
+
 EXAMPLES = ("torch_quickstart", "torch_cutpoint_sweep", "torch_dit_backbone",
             "torch_train_lm")
 # what each example's run() returns that must be finite
@@ -4867,6 +5025,10 @@ EXAMPLE_OUTPUTS = {
 META_CHECK_ARCH = "zamba2-1.2b"
 META_CHECK_SHAPE = ("meta_check", 1024, 1, "train")
 META_BYTES_RTOL = 0.01
+# and the same step partitioned (``partition_meta_check``) on a one-rank
+# (1, 1) mesh, at two sequences: DTensor cannot view a batch dim of one
+# cut over the size-one "data" axis away
+META_PARTITION_SHAPE = ("meta_check", 1024, 2, "train")
 # and one Alg.-1 step of the collab dry run's U-Net (image size, batch, T,
 # cut): the paper's 32 x 32 images, the cut of phase 7
 META_CHECK_UNET = (32, 16, 1000, 250)
@@ -4874,37 +5036,79 @@ COLLAB_DRYRUN_ARGS = ["--image-size", "16", "--batch", "16", "--T", "10",
                       "--t-cut", "2"]
 
 
-def phase_dryrun(timeout: float = 600.0) -> dict:
-    """The dry runs, one after the other, each in a process of its own on
-    the CPU with no card visible (output in experiments/dryrun_torch/
-    <name>.log, beside the records):
-    launch/dryrun.py ``--all`` on the single-pod fake mesh, where every
-    pair that ``skip_reason`` runs must come out OK and every other SKIP
-    with that reason, then launch/collab_dryrun.py at COLLAB_DRYRUN_ARGS,
-    which must write its six programs.  Returns their walls and counts."""
+def start_dryrun(timeout: float = 600.0) -> dict:
+    """Start the dry runs, both at once, each in a process of its own on
+    the CPU with no card visible: launch/dryrun.py ``--all`` on the
+    single-pod fake mesh and launch/collab_dryrun.py at
+    COLLAB_DRYRUN_ARGS.  They run beside the card check of the meta route
+    (``main``), which times nothing the records read; ``phase_dryrun``
+    waits for them and checks them.  Returns the runs' state: each
+    process, the thread that waits for it, and each finished run's
+    (output, exit code, wall)."""
     import os
+    import threading
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    state = {"procs": {}, "threads": [], "outs": {}}
+
+    def wait(name, proc, t0):
+        try:
+            out, _ = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        state["outs"][name] = (out, proc.returncode,
+                               time.perf_counter() - t0)
+
+    for name, argv in (("dryrun", ["--all"]),
+                       ("collab_dryrun", COLLAB_DRYRUN_ARGS)):
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", f"repro_torch.launch.{name}", *argv],
+            cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        state["procs"][name] = proc
+        state["threads"].append(threading.Thread(
+            target=wait, args=(name, proc, t0), daemon=True))
+        state["threads"][-1].start()
+    return state
+
+
+def stop_dryrun(state: dict) -> None:
+    """Kill the dry runs still running (the phase beside them failed)."""
+    for proc in state["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+    for thread in state["threads"]:
+        thread.join()
+
+
+def phase_dryrun(state: dict) -> dict:
+    """The dry runs ``start_dryrun`` started, waited for (their output in
+    experiments/dryrun_torch/<name>.log, beside the records): under
+    ``--all`` every pair that ``skip_reason`` runs must come out OK and
+    every other SKIP with that reason; collab_dryrun must write its six
+    programs.  Returns their walls and counts."""
     import torch  # noqa: F401  (the package's configs need it)
     from repro_torch.configs.base import ARCH_IDS, SHAPES, get_arch
     from repro_torch.launch import dryrun
     from repro_torch.launch.shapes import skip_reason
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="")
+    for thread in state["threads"]:
+        thread.join()
     out_dir = ROOT / dryrun.OUT_DIR
     out_dir.mkdir(parents=True, exist_ok=True)
     outs = {}
-    for name, argv in (("dryrun", ["--all"]),
-                       ("collab_dryrun", COLLAB_DRYRUN_ARGS)):
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", f"repro_torch.launch.{name}", *argv],
-            cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True, timeout=timeout)
-        outs[name] = (proc.stdout, time.perf_counter() - t0)
-        (out_dir / f"{name}.log").write_text(proc.stdout)
-        log(f"dryrun/{name}: rc {proc.returncode}, wall {outs[name][1]:.1f} s")
-        if proc.returncode != 0:
-            log(proc.stdout[-4000:])
-            raise AssertionError(f"dryrun/{name}: exit {proc.returncode}")
+    for name in ("dryrun", "collab_dryrun"):
+        if name not in state["outs"]:
+            raise AssertionError(f"dryrun/{name}: did not run")
+        out, rc, wall = state["outs"][name]
+        outs[name] = (out, wall)
+        (out_dir / f"{name}.log").write_text(out)
+        log(f"dryrun/{name}: rc {rc}, wall {wall:.1f} s (the two dry runs "
+            "at once, beside the meta check)")
+        if rc != 0:
+            log(out[-4000:])
+            raise AssertionError(f"dryrun/{name}: exit {rc}")
     lines = outs["dryrun"][0].splitlines()
     n_ok = n_skip = 0
     for a in ARCH_IDS:
@@ -5027,8 +5231,86 @@ def phase_meta_check() -> dict:
     del params, opt
     gc.collect()
     torch.cuda.empty_cache()
+    rec["partitioned"] = partition_meta_check()
     rec["unet"] = unet_meta_check()
     rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
+def partition_meta_check() -> dict:
+    """The partitioned training step of META_CHECK_ARCH at
+    META_PARTITION_SHAPE: ``dryrun.reckon`` over a fake (1, 1) mesh
+    (``make_fake_mesh``; meta ``DTensor`` operands, ``"partitioner":
+    "dtensor"``), then the same step on the card on a one-rank NCCL (1,
+    1) mesh (``shard_params`` / ``shard_batch``): saved-tensor bytes
+    (activations and parameters) and FLOPs (``FlopCounterMode`` plus
+    ``kernels.FLOPS``) equal."""
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import kernels
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.core import prng
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.launch import dryrun, shapes
+    from repro_torch.launch.mesh import make_debug_mesh, make_fake_mesh
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.sharding import specs
+    t0 = time.perf_counter()
+    cfg = get_arch(META_CHECK_ARCH)
+    shape = ShapeConfig(*META_PARTITION_SHAPE)
+    fake = make_fake_mesh((1, 1))
+    try:
+        meta = dryrun.reckon(cfg, shape, fake)
+    finally:
+        dist.destroy_process_group()
+    meta_s = time.perf_counter() - t0
+    if meta["partitioner"] != "dtensor":
+        raise AssertionError(f"meta_check/partitioned: {meta['partitioner']}")
+    key = prng.PRNGKey(0, device="cuda")
+    b = lm_batch(prng.fold_in(key, 0), shape.global_batch, shape.seq_len,
+                 cfg.vocab_size)
+    mesh = make_debug_mesh(device="cuda")
+    try:
+        params = specs.shard_params(api.init_params(key, cfg, "cuda"), mesh)
+        opt = init_opt_state(params)
+        batch = specs.shard_batch(mesh, {k: v.int() for k, v in b.items()})
+        step = shapes.make_train_step(cfg, runtime=shapes.make_runtime(mesh))
+        step(params, opt, batch)                      # warm
+        torch.cuda.synchronize()
+        kernels.reset_flops()
+        with FlopCounterMode(display=False) as fc, \
+                dryrun.SavedBytes() as saved, torch.no_grad():
+            step(params, opt, batch)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    rec = dict(shape=list(META_PARTITION_SHAPE[1:3]),
+               card_saved=[saved.activation_bytes, saved.param_bytes],
+               meta_saved=[meta["saved_activation_bytes"]["per_device"],
+                           meta["saved_param_bytes"]],
+               card_flops=fc.get_total_flops() + kernels.total_flops(),
+               meta_flops=meta["flops"], meta_trace_s=meta["trace_s"],
+               meta_s=meta_s, check_s=time.perf_counter() - t0)
+    log(f"meta_check/partitioned {cfg.name} B{shape.global_batch} x "
+        f"S{shape.seq_len} on (1, 1): saved activations card "
+        f"{rec['card_saved'][0]} meta {rec['meta_saved'][0]}, saved "
+        f"parameters card {rec['card_saved'][1]} meta "
+        f"{rec['meta_saved'][1]}; flops card {rec['card_flops']} meta "
+        f"{rec['meta_flops']}; census {meta['collectives']}; reckoning "
+        f"{meta_s:.1f} s, check {rec['check_s']:.1f} s")
+    if rec["card_saved"] != rec["meta_saved"]:
+        raise AssertionError(f"meta_check/partitioned: saved bytes card "
+                             f"{rec['card_saved']} != meta "
+                             f"{rec['meta_saved']}")
+    if rec["card_flops"] != rec["meta_flops"]:
+        raise AssertionError(f"meta_check/partitioned: flops card "
+                             f"{rec['card_flops']} != meta "
+                             f"{rec['meta_flops']}")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -5146,13 +5428,23 @@ def main() -> int:
     moe_train_records, moe_train_launches = phase_moe_train()
     lm_records, lm_launches = phase_lm_serve()
     train_records, lm_train_launches = phase_lm_train()
+    partition_launches = phase_dense_partition()
     whisper_records, whisper_launches, whisper_train_launches = \
         phase_whisper()
-    t_new = time.perf_counter()
     examples_launches, _ = phase_examples()
-    phase_dryrun()
-    phase_meta_check()
-    log(f"examples_dryrun_meta/phase_s: {time.perf_counter() - t_new:.1f}")
+    # the dry runs (CPU only) beside the card check of the meta route,
+    # which times nothing the records read
+    t_new = time.perf_counter()
+    dryruns = start_dryrun()
+    try:
+        phase_meta_check()
+    except BaseException:
+        stop_dryrun(dryruns)
+        raise
+    phase_dryrun(dryruns)
+    log(f"meta_check_and_dryrun/phase_s: "
+        f"{time.perf_counter() - t_new:.1f}")
+
     records["ddpm_step"]["card_ms"] = ddpm_card_ms
     records["ddpm_step_batched"]["card_ms"] = batched_card_ms
     records.update(dit_records)
@@ -5175,14 +5467,15 @@ def main() -> int:
     records["grouped_matmul"]["capacity_shapes"] = \
         moe_train_records["capacity_shapes"]
     records["grouped_matmul_bwd"] = moe_train_records["grouped_matmul_bwd"]
-    # launches of the thirteen main paths (each counted from zero just
+    # launches of the fourteen main paths (each counted from zero just
     # before it)
     by_path = dict(zip(PATHS, (launches, train_launches, runtime_launches,
                                eval_launches, dit_launches, moe_launches,
                                moe_train_launches, lm_launches,
                                lm_train_launches, whisper_launches,
                                whisper_train_launches, examples_launches,
-                               mesh_launches), strict=True))
+                               mesh_launches, partition_launches),
+                       strict=True))
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in set().union(*by_path.values())}
     log(f"total_s: {time.perf_counter() - t_start:.1f}")

@@ -6,41 +6,50 @@ input shape × mesh) pair's step without running it.
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
 
 The port of the JAX package's ``launch/dryrun.py``, with its flags.  JAX
-lowers and compiles each pair on 256 or 512 forced host devices; PyTorch
-has no partitioning compiler, so this runs rank 0's program of the pair
-on the ``meta`` device (shapes and types, nothing computed) over the
+lowers and compiles each pair on 256 or 512 forced host devices, and
+XLA's SPMD pass partitions it; this runs rank 0's program of the pair on
+the ``meta`` device (shapes and types, nothing computed) over the
 production mesh of a fake process group (launch/mesh.py
-``make_production_mesh``), and records per pair:
+``make_production_mesh``), partitioned by ``DTensor`` where the port
+partitions (``partitioned``: the non-MoE families' train and prefill
+pairs, parameters, AdamW moments and batch laid out by their specs), and
+records per pair:
 
 * ``flops``: the floating-point operations of rank 0's step — aten's
   products and convolutions (``FlopCounterMode``'s formulas) plus the
   kernels'
   (``kernels.FLOPS``: on meta a kernel's launch returns empty outputs of
   the card's shapes and counts its operations); ``aten_flops`` and
-  ``kernel_flops`` by kernel beside it;
+  ``kernel_flops`` by kernel beside it; a ``DTensor`` op is counted on
+  the local parts it dispatches;
 * ``bytes_per_device`` (``params``, ``opt_state``, ``batch``,
   ``decode_state``, ``total``): over every input leaf, its bytes divided
   by the product of the sizes of the axes its sanitized spec names
-  (sharding/specs.py);
+  (sharding/specs.py); for a partitioned pair, the bytes of the placed
+  operands' local parts, which are the same;
 * ``saved_activation_bytes``: the storages autograd saves for the
   backward (``saved_tensors_hooks``; each storage once, parameters
   apart, ``saved_param_bytes``), ``per_device`` as rank 0 saves them and
   ``global`` over the batch shards;
 * ``collectives``: the census (count and bytes of the buffers each
-  writes) of the collectives that the port's own code issues, by op
-  (the c10d ops dispatched over the fake group).  These are the MoE's
-  expert-parallel all-to-all, all-gather and all-reduce.  The port does
-  not partition the dense families as XLA's SPMD pass does, so their
-  census is empty and the record says ``"partitioner": null``;
-  ``collective_bytes`` is their sum and ``collective_bound_s`` that sum
-  over the card's NVLink rate (launch/mesh.py ``NVLINK_BW``), the least
-  time rank 0's collectives take on its links;
+  writes) of the collectives rank 0 issues, by the reference's op names:
+  the c10d ops dispatched over the fake group (the MoE's expert-parallel
+  all-to-all, all-gather and all-reduce) and the functional collectives
+  that ``DTensor``'s redistributions dispatch (the partitioned pairs'
+  all-gathers, reduce-scatters and all-reduces; the record says
+  ``"partitioner": "dtensor"``, the MoE, decode and collab pairs
+  ``null``); ``collective_bytes`` is their sum and
+  ``collective_bound_s`` that sum over the card's NVLink rate
+  (launch/mesh.py ``NVLINK_BW``), the least time rank 0's collectives
+  take on its links;
 * ``n_params``, ``n_active_params``, ``trace_s``.
 
-Rank 0's program: the pair's step on its batch shard (the batch, the
-token and the decode state cut over the mesh's batch axes, "pod" and
-"data"), with the full parameters and AdamW state, which every rank of
-the port holds (an MoE rank computes its experts' slice).  MoE pairs run
+Rank 0's program: a partitioned pair's step on its placed operands (the
+batch over "pod" and "data", the weights over "model" and "data");
+another pair's step on its batch shard (the batch, the token and the
+decode state cut over the mesh's batch axes), with the full parameters
+and AdamW state, which every rank of the port holds there (an MoE rank
+computes its experts' slice).  MoE pairs run
 ``moe_ep`` (``moe_ep2d`` at decode) over the fake group's process
 groups, or ``moe_dense`` with ``--moe-mode dense``.  Records go to
 ``experiments/dryrun_torch/<tag>.json``, apart from the reference's
@@ -57,6 +66,8 @@ import traceback
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -64,7 +75,9 @@ from repro_torch import kernels
 from repro_torch.configs.base import ARCH_IDS, SHAPES, get_arch
 from repro_torch.launch import shapes as SH
 from repro_torch.launch.mesh import NVLINK_BW, make_production_mesh
+from repro_torch.models import api
 from repro_torch.models.transformer import CPU
+from repro_torch.optim.adamw import init_opt_state
 from repro_torch.sharding import specs as S
 
 OUT_DIR = "experiments/dryrun_torch"
@@ -77,6 +90,16 @@ COLLECTIVE_NAMES = {
     "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
     "reduce_scatter_": "reduce-scatter",
     "_reduce_scatter_base_": "reduce-scatter",
+}
+# the functional collectives' (``_c10d_functional``, which ``DTensor``
+# dispatches) -> the same names
+FUNCTIONAL_NAMES = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_to_all_single": "all-to-all",
 }
 
 
@@ -244,12 +267,16 @@ class StepCounters(TorchDispatchMode):
     * ``flops``: aten's, by ``FlopCounterMode``'s own rules (its
       ``flop_registry``, and an op without a formula decomposed first),
       without its module tracker, which costs more than a meta op;
-    * ``census``: per op, the collectives dispatched (the c10d ops that
-      ``CommDebugMode`` counts) and the bytes of the buffers each writes
-      (its first argument), by the reference's names;
+    * ``census``: per op, the collectives dispatched and the bytes of the
+      buffers each writes (a c10d op's first argument, a functional
+      collective's output), by the reference's names;
 
     and on the meta device the ops of ``_META_SHAPES`` answered from their
-    shapes."""
+    shapes.  An op on ``DTensor``s is handed back to ``DTensor``
+    (``NotImplemented``, as ``CommDebugMode`` does), whose local ops and
+    collectives then come here: rank 0's own work.  The ops its sharding
+    propagation runs on fake tensors of the global shapes (for the
+    output's metadata) run uncounted."""
 
     def __init__(self):
         super().__init__()
@@ -258,8 +285,10 @@ class StepCounters(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if func in _QUERIES:
+        if func in _QUERIES or any(issubclass(t, DTensor) for t in types):
             return NotImplemented
+        if any(issubclass(t, FakeTensor) for t in types):
+            return func(*args, **kwargs)
         packet = func._overloadpacket
         if packet not in flop_registry and _decomposes(func):
             with self:
@@ -272,25 +301,33 @@ class StepCounters(TorchDispatchMode):
         if packet in flop_registry:
             self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
         elif func.namespace == "c10d" and args:
-            op = COLLECTIVE_NAMES.get(packet.__name__, packet.__name__)
-            c = self.census.setdefault(op, {"count": 0, "bytes": 0})
-            c["count"] += 1
-            c["bytes"] += sum(t.numel() * t.element_size()
-                              for t in tensor_leaves(args[0]))
+            self._count(COLLECTIVE_NAMES.get(packet.__name__,
+                                             packet.__name__), args[0])
+        elif packet.__name__ in FUNCTIONAL_NAMES and \
+                func.namespace == "_c10d_functional":
+            self._count(FUNCTIONAL_NAMES[packet.__name__], out)
         return out
+
+    def _count(self, op: str, written) -> None:
+        c = self.census.setdefault(op, {"count": 0, "bytes": 0})
+        c["count"] += 1
+        c["bytes"] += sum(t.numel() * t.element_size()
+                          for t in tensor_leaves(written))
 
 
 class SavedBytes:
     """Bytes of the distinct storages autograd saves for the backward
     while active (``saved_tensors_hooks``): a storage saved twice, or
-    through two views, counts once; parameters' apart."""
+    through two views, counts once; parameters' apart.  A ``DTensor``
+    counts its local part's storage."""
 
     def __init__(self):
         self.activation_bytes = self.param_bytes = 0
         self._seen = {}
 
     def _pack(self, t):
-        storage = t.untyped_storage()
+        local = t._local_tensor if isinstance(t, DTensor) else t
+        storage = local.untyped_storage()
         if storage._cdata not in self._seen:
             self._seen[storage._cdata] = t       # keeps the storage alive
             base = t if t._base is None else t._base
@@ -332,12 +369,29 @@ def measure(fn, args) -> dict:
             "collective_bound_s": coll / NVLINK_BW}
 
 
+def partitioned(cfg, shape) -> bool:
+    """Whether the port partitions the pair with ``DTensor``: the non-MoE
+    families' train and prefill steps (MoE weights and decode keep the
+    batch cut alone)."""
+    return not cfg.n_experts and shape.kind in ("train", "prefill")
+
+
+def local_bytes(tree) -> int:
+    """Bytes this rank holds of a tree of operands: each ``DTensor``'s
+    local part, any other tensor whole."""
+    return sum((t.to_local() if isinstance(t, DTensor) else t).numel() *
+               t.element_size() for t in tensor_leaves(tree))
+
+
 def reckon(cfg, shape, mesh, runtime=None) -> dict:
     """The dry run's record of ``cfg`` at ``shape`` (a ``ShapeConfig``
     or its name) on ``mesh``: its abstract inputs' bytes per device and
     rank 0's step on the meta device under the counters.  ``runtime``
     defaults to ``runtime_for`` the mesh over a ``DeviceMesh`` and to
-    ``CPU`` (no mesh, MoE dense) over a mesh of axis sizes alone."""
+    ``CPU`` (no mesh, MoE dense) over a mesh of axis sizes alone.  Over a
+    ``DeviceMesh`` a ``partitioned`` pair runs on ``DTensor`` operands:
+    the meta model's parameters laid out by ``shard_params``, AdamW
+    moments following them, the batch by ``shard_batch``."""
     shape = SH.shape_of(shape)
     fake = getattr(mesh, "mesh_dim_names", None) is not None
     if runtime is None:
@@ -362,16 +416,27 @@ def reckon(cfg, shape, mesh, runtime=None) -> dict:
         run = (params, run_operands(token, mesh),
                run_operands(state, mesh), pos)
         cut = token
-    per_part = {k: device_bytes(v, mesh) for k, v in parts.items()}
-    per_part["total"] = sum(per_part.values())
-    rec = measure(SH.step_fn(cfg, shape, runtime), run)
     first = tensor_leaves(cut)[0]
     batch_shards = S.shards(first.spec[:1], mesh, S.mesh_batch_axes(mesh))
+    partitioner = None
+    if fake and partitioned(cfg, shape):
+        model = S.shard_params(api.empty_params(cfg, "meta"), mesh)
+        batch = S.shard_batch(mesh, batch)
+        opt = init_opt_state(model) if shape.kind == "train" else None
+        parts = {"params": model, "opt_state": opt, "batch": batch,
+                 "decode_state": None}
+        run = (model, batch) if opt is None else (model, opt, batch)
+        per_part = {k: local_bytes(v) for k, v in parts.items()}
+        partitioner = "dtensor"
+    else:
+        per_part = {k: device_bytes(v, mesh) for k, v in parts.items()}
+    per_part["total"] = sum(per_part.values())
+    rec = measure(SH.step_fn(cfg, shape, runtime), run)
     act = rec.pop("saved_activation_bytes")
     rec.update(bytes_per_device=per_part,
                saved_activation_bytes={"per_device": act,
                                        "global": act * batch_shards},
-               partitioner=None, moe_mode=runtime.moe_mode
+               partitioner=partitioner, moe_mode=runtime.moe_mode
                if cfg.n_experts else None,
                n_params=cfg.n_params(), n_active_params=cfg.n_active_params())
     return rec

@@ -10,7 +10,8 @@ The port of the JAX package's ``launch/mesh.py``:
   0.  It is torch's counterpart of XLA's forced host device count: the
   dry run (launch/dryrun.py) reckons one rank's program on it, on the
   ``meta`` device.  It raises if a process group exists already, and only
-  the dry run's own process calls it.
+  the dry run's own process calls it; ``make_fake_mesh`` lays any shape
+  out the same way (the card's meta check reckons a (1, 1) one).
 * ``make_debug_mesh``: a ``("data", "model")`` mesh of ``data × model``
   ranks, one device each.
 
@@ -46,16 +47,22 @@ NVLINK_BW = 450e9             # NVLink 4, bytes/s each way to the host's
 def make_production_mesh(multi_pod: bool = False) -> DeviceMesh:
     """The production mesh over a fake process group of 256 (512 with
     ``multi_pod``) ranks; this process is rank 0."""
+    if multi_pod:
+        return make_fake_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_fake_mesh((16, 16), AXES)
+
+
+def make_fake_mesh(shape, axes=AXES) -> DeviceMesh:
+    """A CPU mesh of ``shape`` over a fake process group of as many ranks,
+    this process rank 0 (the dry run's reckoning at any size)."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
         raise RuntimeError("make_production_mesh: a process group exists "
                            "already; the fake group is for the dry run's "
                            "own process")
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else AXES
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=int(torch.tensor(shape).prod()))
-    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
+    return init_device_mesh("cpu", tuple(shape), mesh_dim_names=axes)
 
 
 def ensure_group(device=None) -> torch.device:

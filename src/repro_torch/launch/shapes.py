@@ -15,9 +15,11 @@ builds the model on the ``meta`` device without drawing its weights
 (``api.empty_params``) and attaches each parameter's sanitized spec
 (sharding/specs.py) as ``.spec``; the other operands come from
 ``specs.with_sharding``: meta tensors of the global shapes, each with
-its ``.spec``.  The port does not partition the dense families, so no
-step takes a sharded tensor: the dry run cuts rank 0's operands from
-these shapes and specs (launch/dryrun.py).  Token ids are int32, as in JAX's stand-ins.  A decode step's
+its ``.spec``.  The dry run lays the non-MoE families' train and
+prefill operands out from them as ``DTensor``s (sharding/specs.py
+``shard_params`` / ``shard_batch``) and cuts the other pairs' operands
+over the batch axes alone (launch/dryrun.py).  Token ids are int32, as
+in JAX's stand-ins.  A decode step's
 position is a host int, as the port's decode steps take it.
 
 Shape semantics (the JAX package's DESIGN.md §6):
@@ -33,6 +35,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig, get_shape
 from repro_torch.models import api
@@ -165,14 +168,27 @@ def input_specs(cfg: ArchConfig, shape_name, mesh) -> Tuple[Any, ...]:
 def loss_and_grads(params, batch, cfg: ArchConfig, runtime: Runtime = CPU):
     """(loss, {name: gradient}) of ``api.loss_fn`` at ``params`` (an
     ``nn.Module``): grad enabled here whatever the caller's mode; a
-    parameter the loss does not reach gets zeros, as ``jax.grad`` gives."""
+    parameter the loss does not reach gets zeros, as ``jax.grad`` gives.
+    Partitioned (``DTensor`` parameters, sharding/specs.py
+    ``shard_params``, and a batch placed by ``shard_batch``), each
+    gradient is redistributed to its parameter's placements (a partial
+    sum over "data" reduce-scattered: FSDP's gradient) and the loss comes
+    back whole, a plain tensor."""
     ps = named(params)
     with torch.enable_grad():
         loss = api.loss_fn(params, batch, cfg, runtime)
         grads = torch.autograd.grad(loss, list(ps.values()),
                                     allow_unused=True)
-    return loss.detach(), {n: torch.zeros_like(p) if g is None else g
-                           for (n, p), g in zip(ps.items(), grads)}
+    out = {}
+    for (n, p), g in zip(ps.items(), grads):
+        if g is None:
+            g = torch.zeros_like(p)
+        elif isinstance(g, DTensor) and g.placements != p.placements:
+            g = g.redistribute(p.device_mesh, p.placements)
+        out[n] = g
+    if isinstance(loss, DTensor):
+        loss = loss.full_tensor()
+    return loss.detach(), out
 
 
 def make_train_step(cfg: ArchConfig,

@@ -13,6 +13,16 @@ The encoder-decoder's cross attention (``cross_attention`` against the
 K/V of ``encoder_kv``) has Sq != Sk, which no flash kernel takes; as in
 the reference it runs through ``attend``, plain torch on both devices.
 
+On ``DTensor`` activations (the partitioned families, models/
+transformer.py) a projection's output dim is cut over "model"; where
+the mesh does not divide its heads (GQA with fewer K/V heads than ranks,
+chatglm3-6b's 2 heads of 128 over 16), ``_split_heads`` gathers that dim
+whole before the view, so no rank holds part of a head, and the flash
+wrapper gives each rank the K/V heads its query heads read.  Cross
+attention runs ``attend`` on each rank's heads the same way
+(``on_local_heads``): ``DTensor``'s strategy search over its 5-D
+einsums costs seconds a call.
+
 RoPE rotates interleaved pairs (``x[..., ::2]``, ``x[..., 1::2]``) as JAX
 does, not the half-split ``rotate_half`` of common PyTorch code.
 """
@@ -23,10 +33,12 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core import prng
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.models.layers import dense, fill_dense
+from repro_torch.models.layers import dense, fill_dense, replicate_like
+from repro_torch.sharding import specs
 
 NEG_INF = -1e30
 
@@ -56,7 +68,8 @@ def apply_rope(x, positions, theta: float, fraction: float = 1.0):
     if pos.ndim == 1:
         pos = pos[None, :]
     ang = pos[:, None, :, None] * inv_freq           # (B, 1, S, rot/2)
-    cos, sin = torch.cos(ang), torch.sin(ang)
+    cos = replicate_like(x, torch.cos(ang))
+    sin = replicate_like(x, torch.sin(ang))
     x_rot, x_pass = x[..., :rot], x[..., rot:]
     x1, x2 = x_rot[..., ::2], x_rot[..., 1::2]
     y1 = x1 * cos - x2 * sin                         # float32, as in JAX
@@ -127,14 +140,35 @@ def attn_init(key: torch.Tensor, d_model: int, n_heads: int,
     return m
 
 
+def _whole_heads(x, n_heads: int):
+    """A placed projection (B, S, H·dh) whose last dim is cut over mesh
+    dims that do not divide its H heads, with that dim gathered whole;
+    otherwise ``x`` itself."""
+    cut = Shard(x.ndim - 1)
+    mesh = x.device_mesh
+    ways = math.prod(mesh.size(d) for d, p in enumerate(x.placements)
+                     if p == cut)
+    if n_heads % ways == 0:
+        return x
+    return x.redistribute(mesh, [Replicate() if p == cut else p
+                                 for p in x.placements])
+
+
 def _split_heads(x, n_heads: int, head_dim: int):
     B, S, _ = x.shape
+    if isinstance(x, DTensor):
+        x = _whole_heads(x, n_heads)
     return x.reshape(B, S, n_heads, head_dim).transpose(1, 2)
 
 
 def _merge_heads(x):
     B, H, S, dh = x.shape
-    return x.transpose(1, 2).reshape(B, S, H * dh)
+    out = x.transpose(1, 2).reshape(B, S, H * dh)
+    if isinstance(out, DTensor):
+        # the gradient back as the heads were laid out: a cut the heads
+        # do not divide cannot be viewed back into them
+        out = specs.pin(out, out.placements)
+    return out
 
 
 def qkv(params: Attention, x, n_heads, n_kv_heads, head_dim, positions,
@@ -169,7 +203,12 @@ def cross_attention(params: Attention, x, enc_k, enc_v, *, n_heads,
     """Decoder → encoder attention.  x: (B, Sq, D); enc_k / enc_v: (B,
     Hkv, Se, dh), prepared once by ``encoder_kv``."""
     q = _split_heads(params.wq(x), n_heads, head_dim)
-    return params.wo(_merge_heads(attend(q, enc_k, enc_v, None)))
+    if isinstance(q, DTensor):
+        a = flash_ops.on_local_heads(lambda q, k, v: attend(q, k, v),
+                                     q, enc_k, enc_v)
+    else:
+        a = attend(q, enc_k, enc_v)
+    return params.wo(_merge_heads(a))
 
 
 def encoder_kv(params: Attention, enc_out, n_kv_heads, head_dim):

@@ -24,8 +24,11 @@ length C = ``max_decoder_len`` whatever the prompt (zero-padded when the
 prompt is shorter, its last C positions when it is not; the reference
 ignores ``cache_len`` and keeps no ring), and the cross K/V span every
 encoder frame.  The entry points take JAX's ``runtime``
-(models/transformer.py ``Runtime``) and pass it on; nothing here reads
-it (no MoE block, no remat in these loops).
+(models/transformer.py ``Runtime``): with a mesh, ``encode`` and
+``decode_train`` pin the residual stream at JAX's call sites
+(``constrain``), which is what a ``DTensor`` model needs; no MoE block
+and no remat in these loops.  Partitioned, the vocabulary of 51,865
+stays whole (``sanitize_spec``) and cross attention stays plain torch.
 """
 from __future__ import annotations
 
@@ -38,11 +41,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (GeluMLP, LayerNorm, dense, embedding,
-                                       fill_dense, fill_embedding, fill_mlp,
-                                       gelu_mlp, layernorm,
+from repro_torch.models.layers import (GeluMLP, LayerNorm, dense, embed,
+                                       embedding, fill_dense, fill_embedding, fill_mlp,
+                                       gelu_mlp, layernorm, replicate_like,
                                        sinusoidal_embedding)
-from repro_torch.models.transformer import (CPU, Runtime, cross_entropy,
+from repro_torch.models.transformer import (CPU, Runtime, batch_spec,
+                                            constrain, cross_entropy,
                                             stacked_init)
 
 
@@ -154,8 +158,9 @@ def encode(params: EncDec, frames, cfg: ArchConfig,
     """frames: (B, S_enc, D) stub embeddings → (B, S_enc, D)."""
     S = frames.shape[1]
     pos = _positions(S, frames.device)
-    x = frames + sinusoidal_embedding(pos, cfg.d_model)[None].to(
-        frames.dtype)
+    pe = sinusoidal_embedding(pos, cfg.d_model)[None].to(frames.dtype)
+    x = constrain(frames + replicate_like(frames, pe), runtime,
+                  batch_spec(runtime))
     for lp in params.enc_layers:
         h = layernorm(lp.norm1, x, cfg.norm_eps)
         x = x + attn.self_attention(
@@ -163,7 +168,7 @@ def encode(params: EncDec, frames, cfg: ArchConfig,
             head_dim=cfg.head_dim_, positions=pos[None], causal=False,
             use_rope=False)
         h = layernorm(lp.norm2, x, cfg.norm_eps)
-        x = x + gelu_mlp(lp.mlp, h)
+        x = constrain(x + gelu_mlp(lp.mlp, h), runtime, batch_spec(runtime))
     return layernorm(params.enc_norm, x, cfg.norm_eps)
 
 
@@ -181,10 +186,10 @@ def encoder_cross_kv(params: EncDec, enc_out, cfg: ArchConfig):
 
 
 def _dec_embed(params: EncDec, tokens, cfg: ArchConfig):
-    x = params.tok_embed(tokens)
+    x = embed(params.tok_embed, tokens)
     pos = sinusoidal_embedding(_positions(tokens.shape[1], x.device),
                                cfg.d_model)
-    return x + pos[None].to(x.dtype)
+    return x + replicate_like(x, pos[None].to(x.dtype))
 
 
 def decode_train(params: EncDec, tokens, enc_out, cfg: ArchConfig,
@@ -195,7 +200,8 @@ def decode_train(params: EncDec, tokens, enc_out, cfg: ArchConfig,
     ``cross_kv`` (``encoder_cross_kv``'s lists) saves computing the cross
     K/V again; they are the same tensors either way."""
     S = tokens.shape[1]
-    x = _dec_embed(params, tokens, cfg)
+    x = constrain(_dec_embed(params, tokens, cfg), runtime,
+                  batch_spec(runtime))
     positions = _positions(S, x.device)[None]
     kvs = [] if collect_kv else None
     for i, lp in enumerate(params.dec_layers):
@@ -216,7 +222,7 @@ def decode_train(params: EncDec, tokens, enc_out, cfg: ArchConfig,
                                      n_kv_heads=cfg.n_kv_heads,
                                      head_dim=cfg.head_dim_)
         h = layernorm(lp.norm2, x, cfg.norm_eps)
-        x = x + gelu_mlp(lp.mlp, h)
+        x = constrain(x + gelu_mlp(lp.mlp, h), runtime, batch_spec(runtime))
         if collect_kv:
             kvs.append(kv)
     return layernorm(params.dec_norm, x, cfg.norm_eps), kvs
@@ -270,7 +276,7 @@ def encdec_decode_step(params: EncDec, token, cache, pos: int,
     """One decoder token (B, 1) against the self cache (slot pos % C) and
     the cross K/V over every encoder frame; ``pos`` a host int.  Returns
     (logits (B, 1, V), new cache); the given cache is not changed."""
-    x = params.tok_embed(token)
+    x = embed(params.tok_embed, token)
     p = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     x = x + sinusoidal_embedding(p, cfg.d_model)[None].to(x.dtype)
     new_cache = []

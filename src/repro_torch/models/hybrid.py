@@ -26,12 +26,13 @@ import torch.nn as nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (dense, embedding, fill_dense,
+from repro_torch.models.layers import (dense, embed, embedding, fill_dense,
                                        fill_embedding, rmsnorm, rmsnorm_init)
 from repro_torch.models.ssm import (Mamba, fill_mamba, mamba_decode,
                                     mamba_forward, mamba_init_state)
-from repro_torch.models.transformer import (CPU, Block, Runtime, block_apply,
-                                            block_decode, cross_entropy,
+from repro_torch.models.transformer import (CPU, Block, Runtime, batch_spec,
+                                            block_apply, block_decode,
+                                            constrain, cross_entropy,
                                             fill_block, logits_of,
                                             ring_cache, stacked_init)
 
@@ -88,9 +89,10 @@ def hybrid_forward(params: HybridLM, tokens, cfg: ArchConfig,
     """Returns (hidden, states | None, shared_kvs | None): with
     ``collect_state`` the Mamba2 layers' decode states ``{"head",
     "tail"}`` and each shared application's full-sequence (k, v)."""
-    x = params.embed(tokens)
+    x = embed(params.embed, tokens)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
+    x = constrain(x, runtime, batch_spec(runtime))
     g, G, _ = _grouping(cfg)
     head, tail = _split_groups(params.mamba, g, G)
 
@@ -123,7 +125,8 @@ def hybrid_loss(params: HybridLM, batch, cfg: ArchConfig,
                 runtime: Runtime = CPU):
     """The next-token loss of batch {tokens, labels}."""
     hidden, _, _ = hybrid_forward(params, batch["tokens"], cfg, runtime)
-    return cross_entropy(logits_of(params, hidden), batch["labels"])
+    return cross_entropy(logits_of(params, hidden, runtime),
+                         batch["labels"])
 
 
 def init_hybrid_state(cfg: ArchConfig, batch: int, seq_len: int, dtype=None,
@@ -152,7 +155,7 @@ def hybrid_prefill(params: HybridLM, tokens, cfg: ArchConfig,
     if cfg.shared_attn_every > 0:
         C = cache_len or attn.cache_len_for(S, cfg.sliding_window)
         state["shared"] = ring_cache(shared_kvs, C, S)
-    return logits_of(params, hidden[:, -1:, :]), state
+    return logits_of(params, hidden[:, -1:, :], runtime), state
 
 
 def hybrid_decode_step(params: HybridLM, token, state, pos: int,
@@ -160,7 +163,7 @@ def hybrid_decode_step(params: HybridLM, token, state, pos: int,
     """token: (B, 1); ``state`` from ``init_hybrid_state`` or a prefill;
     ``pos`` the token's position (a host int).  Returns (logits (B, 1,
     V), new state); the given state is not changed."""
-    x = params.embed(token)
+    x = embed(params.embed, token)
     g, G, _ = _grouping(cfg)
     head, tail = _split_groups(params.mamba, g, G)
 
@@ -183,4 +186,4 @@ def hybrid_decode_step(params: HybridLM, token, state, pos: int,
         new_state["head"], new_state["shared"] = hs, skv
     x, new_state["tail"] = mamba_group(x, tail, state["tail"])
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    return logits_of(params, x), new_state
+    return logits_of(params, x, runtime), new_state

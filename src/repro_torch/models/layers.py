@@ -3,6 +3,13 @@ equal to the JAX package's for the same key), the token embedding, the
 sinusoidal timestep embedding, RMSNorm, whisper's LayerNorm and the two
 MLPs.
 
+Each function also takes ``DTensor`` parameters and activations (the
+partitioned families, sharding/specs.py ``shard_params``): the same
+operations, with ``DTensor``'s sharding propagation inserting the
+collectives, so RMSNorm over a dim cut over "model" all-reduces its row
+statistic, and ``embed`` looks up a vocab-sharded table on each rank's
+rows and sums them.
+
 Parameters live in ``nn.Module``s whose attribute names are the JAX
 package's parameter keys (``scale``, ``w_gate``, ``w_up`` …), so
 bridge.py maps a JAX tree onto a module name by name.  A JAX ``(in, out)``
@@ -20,9 +27,11 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.nn.utils import skip_init
 
 from repro_torch.core import prng
+from repro_torch.sharding import specs
 
 
 def dense_init(key: torch.Tensor, d_in: int, d_out: int,
@@ -71,6 +80,45 @@ def embedding(vocab: int, d: int, dtype, device=None) -> nn.Embedding:
                      device="cpu" if device is None else device, dtype=dtype)
 
 
+def embed(table: nn.Embedding, tokens):
+    """``table(tokens)``.  A vocab-sharded table (a ``DTensor`` weight cut
+    over "model" by its rows, JAX's ``("model", None)``) looks up on each
+    rank the tokens of its rows, zero elsewhere, through ``local_map``:
+    the rows come out as partial sums over the vocab's ranks, which the
+    caller's ``constrain`` all-reduces.  (``DTensor``'s own embedding
+    gives a masked partial that its backward cannot take back from a
+    partial-sum gradient.)"""
+    w = table.weight
+    if not isinstance(w, DTensor):
+        return table(tokens)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = w.device_mesh
+    rows = [d for d, p in enumerate(w.placements) if p == Shard(0)]
+    if len(rows) > 1 or any(tokens.placements[d] != Replicate()
+                            for d in rows):
+        raise ValueError(f"embed: table {w.placements} with tokens "
+                         f"{tokens.placements}")
+    kinds = ["cut" if d in rows else kind
+             for d, kind in enumerate(specs.mesh_kinds(tokens, 0))]
+    (w_pl, w_grad), (t_pl, _), (_, out) = specs.local_map_placements(
+        kinds, (None, 0), (0, None), (0, None))
+    lo = mesh.get_local_rank(rows[0]) * (w.shape[0] // mesh.size(rows[0])) \
+        if rows else None
+
+    def local(w, tokens):
+        if lo is None:
+            return F.embedding(tokens, w)
+        idx = tokens - lo
+        hit = (idx >= 0) & (idx < w.shape[0])
+        found = F.embedding(torch.where(hit, idx, 0), w)
+        return torch.where(hit[..., None], found, 0.0)
+
+    return local_map(local, out_placements=out,
+                     in_placements=(w_pl, t_pl),
+                     in_grad_placements=(w_grad, t_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(w, tokens)
+
+
 def fill_embedding(emb: nn.Embedding, key: torch.Tensor) -> None:
     """``embed_init`` into an embedding."""
     fill(emb.weight, embed_init(key, emb.num_embeddings, emb.embedding_dim,
@@ -88,6 +136,18 @@ def sinusoidal_embedding(positions: torch.Tensor, dim: int,
     if dim % 2:
         emb = torch.nn.functional.pad(emb, (0, 1))
     return emb
+
+
+def replicate_like(ref, t: torch.Tensor):
+    """``t``, a constant computed beside the model (positions, their
+    rotary angles or sinusoidal embedding), as ``ref`` holds its values: a
+    ``DTensor`` replicated over ``ref``'s mesh when ``ref`` is a placed
+    activation, ``t`` itself otherwise."""
+    if not isinstance(ref, DTensor):
+        return t
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,15 @@ plain torch, as it is plain JAX in the reference.
 
 Shapes per layer: d_inner = expand · d_model, P = ssm_head_dim,
 H = d_inner / P, N = ssm_state; x, B and C go through the depthwise conv.
+
+Partitioned (``DTensor`` parameters and activations, models/
+transformer.py): z, x and dt are cut over "model" by heads and channels,
+B and C (``bc_proj``) are whole on every rank, ``A_log``, ``D``,
+``dt_bias`` and the conv weights are replicated and meet the cut
+operands as this rank's slice; ``out_norm`` is an RMSNorm over the cut
+d_inner (its row statistic all-reduced), and ``out_proj``'s partial sums
+are all-reduced into the residual.  The depthwise conv and the scan take
+their local parts through ``local_map``.
 """
 from __future__ import annotations
 
@@ -19,6 +28,7 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
@@ -26,6 +36,7 @@ from repro_torch.core.schedules import linspace_f32
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.layers import (dense, fill, fill_dense, rmsnorm,
                                        rmsnorm_init)
+from repro_torch.sharding import specs
 
 
 class Mamba(nn.Module):
@@ -86,10 +97,26 @@ def mamba_init(key: torch.Tensor, cfg: ArchConfig, dtype) -> Mamba:
 
 def _causal_conv(xBC, w, b):
     """Depthwise causal conv then SiLU.  xBC: (B, S, C); w: (K, C)."""
+    if isinstance(xBC, DTensor):
+        return _conv_on_shards(xBC, w, b)
     K, C = w.shape
     lhs = F.pad(xBC.transpose(1, 2), (K - 1, 0))          # (B, C, S+K-1)
     out = F.conv1d(lhs, w.t().unsqueeze(1), groups=C)     # (B, C, S)
     return F.silu(out.transpose(1, 2) + b)
+
+
+def _conv_on_shards(xBC, w, b):
+    """``_causal_conv`` over a placed input: each rank's batch shard and
+    channels, with the weight and bias sliced to its channels; their
+    gradients are partial sums over the batch shards."""
+    from torch.distributed.tensor.experimental import local_map
+    (x_pl, _), (w_pl, w_grad), (b_pl, b_grad) = specs.local_map_placements(
+        specs.mesh_kinds(xBC, 0, 2), (0, 2), (None, 1), (None, 0))
+    return local_map(_causal_conv, out_placements=x_pl,
+                     in_placements=(x_pl, w_pl, b_pl),
+                     in_grad_placements=(x_pl, w_grad, b_grad),
+                     device_mesh=xBC.device_mesh,
+                     redistribute_inputs=True)(xBC, w, b)
 
 
 def _conv_decode(conv_state, xBC_new, w, b):
@@ -139,7 +166,13 @@ def mamba_forward(params: Mamba, x, cfg: ArchConfig,
     out = x + params.out_proj(y)
     if return_state:
         K = cfg.ssm_conv_kernel
-        conv_state = torch.cat([x_raw, bc_raw], dim=-1)[:, -(K - 1):, :]
+        tails = [t[:, -(K - 1):] for t in (x_raw, bc_raw)]
+        if isinstance(x, DTensor):
+            # both as the batch is cut, whole on every other mesh dim
+            tails = [t.redistribute(t.device_mesh, [
+                p if p == Shard(0) else Replicate() for p in t.placements])
+                for t in tails]
+        conv_state = torch.cat(tails, dim=-1)
         return out, {"ssm": final_state, "conv": conv_state}
     return out
 

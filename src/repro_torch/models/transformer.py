@@ -7,7 +7,8 @@ The port of the JAX package's ``models/transformer.py``: ``block_init``,
 (a Python loop where JAX scans), and the LM entry points
 ``init_lm_params``, ``lm_forward``, ``logits_of``, ``_to_ring``,
 ``lm_prefill``, ``init_lm_cache`` and ``lm_decode_step``, and JAX's
-``Runtime`` with its default ``CPU``.  A ``Runtime`` says how the model
+``Runtime`` with its default ``CPU`` and its sharding hints ``constrain``
+and ``batch_spec``.  A ``Runtime`` says how the model
 executes, beside the ``ArchConfig``: ``mesh`` (a ``DeviceMesh``,
 launch/mesh.py), ``batch_axes``, ``model_axis`` and ``moe_mode`` pick an
 MoE block's mode as JAX's ``moe_apply`` does (``moe_dense`` without a
@@ -22,6 +23,17 @@ callers pass the later arguments by keyword, and as the last keyword of
 ``block_apply`` and ``_scan_blocks``, whose positional arguments keep
 the port's order.  A block of an MoE architecture (``n_experts`` set)
 holds ``moe`` where the others hold ``mlp``.
+
+Partitioning (the dense, vlm, ssm, hybrid and audio families): with
+parameters laid out by sharding/specs.py ``shard_params`` and inputs by
+``shard_batch`` (``DTensor``s over a ``("data", "model")`` mesh), every
+function here runs on the global shapes and ``DTensor``'s sharding
+propagation inserts the collectives, as XLA's SPMD pass does for JAX's
+jit over ``param_specs``: Megatron tensor parallelism over "model", FSDP
+over "data".  ``constrain`` pins an activation at JAX's call sites (it
+redistributes a ``DTensor``; a plain tensor or a runtime without a mesh
+passes through), and the kernels take their local parts through
+``local_map`` (kernels/flash_attention/ops.py, kernels/ssd_scan/ops.py).
 
 Prefill runs the full-sequence blocks (attention through the flash
 kernel on the card) and keeps each layer's K/V; the cache is a list of
@@ -40,15 +52,17 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (dense, embedding, fill_dense,
+from repro_torch.models.layers import (dense, embed, embedding, fill_dense,
                                        fill_embedding, fill_mlp, make_mlp,
                                        mlp_apply, rmsnorm, rmsnorm_init)
 from repro_torch.models.moe import MoE, fill_moe, moe_apply
+from repro_torch.sharding import specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +78,26 @@ class Runtime:
 
 
 CPU = Runtime()
+
+
+def constrain(x, runtime: Optional[Runtime], spec):
+    """Sharding hint, JAX's ``with_sharding_constraint``: a ``DTensor``
+    and its gradient redistributed to ``spec`` sanitized against its
+    shape on the runtime's mesh; a no-op for a plain tensor or
+    off-mesh."""
+    if runtime is None or runtime.mesh is None or \
+            not isinstance(x, DTensor):
+        return x
+    mesh = runtime.mesh
+    return specs.pin(x, specs.placements(
+        specs.sanitize_spec(spec, tuple(x.shape), mesh), mesh))
+
+
+def batch_spec(runtime: Runtime, extra=(None, None)):
+    """The activations' spec: the batch over the runtime's batch axes,
+    ``extra`` for the other dims."""
+    axes = runtime.batch_axes
+    return (axes if isinstance(axes, str) else tuple(axes),) + tuple(extra)
 
 
 class Block(nn.Module):
@@ -110,14 +144,14 @@ def block_apply(params: Block, x, cfg: ArchConfig, positions,
         params.attn, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim_, positions=positions, theta=cfg.rope_theta,
         fraction=cfg.rope_fraction, causal=causal, window=w, return_kv=True)
-    x = x + a
+    x = constrain(x + a, runtime, batch_spec(runtime))
     h = rmsnorm(params.norm2, x, cfg.norm_eps)
     if cfg.n_experts:
         m, aux = moe_apply(params.moe, h, cfg, runtime)
     else:
         m = mlp_apply(params.mlp, h, cfg.mlp_type)
         aux = 0.0
-    return x + m, aux, kv
+    return constrain(x + m, runtime, batch_spec(runtime)), aux, kv
 
 
 def block_decode(params: Block, x, cache, pos: int, cfg: ArchConfig,
@@ -209,29 +243,49 @@ def lm_forward(params: LM, tokens, cfg: ArchConfig, runtime: Runtime = CPU,
     """tokens: (B, S) integer.  embeds_prefix: optional (B, P, D)
     prepended (VLM vision patches).  Returns (hidden (B, S[+P], D), aux,
     [(k, v)] per layer or None)."""
-    x = params.embed(tokens)
+    x = embed(params.embed, tokens)
     if embeds_prefix is not None:
         x = torch.cat([embeds_prefix.to(x.dtype), x], dim=1)
-    S = x.shape[1]
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=x.device)[None]
+    x = constrain(x, runtime, batch_spec(runtime))
     x, aux, kvs = _scan_blocks(params.layers, x, cfg, positions, collect_kv,
                                runtime=runtime)
     return rmsnorm(params.final_norm, x, cfg.norm_eps), aux, kvs
 
 
-def logits_of(params, hidden):
-    return params.unembed(hidden)
+def logits_of(params, hidden, runtime: Runtime = CPU):
+    """hidden (B, S, D) → logits (B, S, V), pinned as JAX pins them:
+    batch over the batch axes, vocab over the model axis."""
+    return constrain(params.unembed(hidden), runtime,
+                     batch_spec(runtime, (None, runtime.model_axis)))
+
+
+def _vocab_index(logits):
+    """0 … V−1 laid out as the logits' last dim: cut over the mesh dims
+    that cut the vocab when ``logits`` is a ``DTensor``."""
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    if not isinstance(logits, DTensor):
+        return iota
+    vocab = Shard(logits.ndim - 1)
+    return specs.distribute(iota, logits.device_mesh,
+                        [Shard(0) if p == vocab else Replicate()
+                         for p in logits.placements])
 
 
 def cross_entropy(logits, labels, mask=None):
     """logits (B, S, V), labels (B, S) integer; mask True = count (None:
     labels >= 0).  The mean of logsumexp(logits) − logits[label] over the
-    counted positions, in float32, divided by max(count, 1)."""
+    counted positions, in float32, divided by max(count, 1).  The label's
+    logit is taken by compare-and-sum over the vocab, which a vocab cut
+    over "model" turns into a partial sum (``DTensor`` has no gather on
+    a sharded dim); a sum of one value and zeros is exact, so it equals
+    the gather bitwise."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     # a negative (ignored) label reads column 0; its term is masked out
-    idx = labels.clamp(min=0).long()[..., None]
-    ll = torch.gather(logits, -1, idx)[..., 0]
+    hit = labels.clamp(min=0).long()[..., None] == _vocab_index(logits)
+    ll = torch.where(hit, logits, 0.0).sum(-1)
     nll = lse - ll
     mask = (labels >= 0) if mask is None else mask
     mask = mask.float()
@@ -243,14 +297,23 @@ def lm_loss(params: LM, batch, cfg: ArchConfig, runtime: Runtime = CPU):
     the data pipeline.  The next-token loss plus ``router_aux_coef`` times
     the MoE router's auxiliary loss."""
     hidden, aux, _ = lm_forward(params, batch["tokens"], cfg, runtime)
-    loss = cross_entropy(logits_of(params, hidden), batch["labels"])
+    loss = cross_entropy(logits_of(params, hidden, runtime),
+                         batch["labels"])
     return loss + cfg.router_aux_coef * aux
 
 
 def _to_ring(k, cache_len: int, seq: int):
     """Pack full-sequence K/V (B, H, S, dh) into the ring layout (B, H, C,
     dh): zero-padded when C >= S, else the last C positions rolled so
-    that position p sits in slot p % C."""
+    that position p sits in slot p % C.  Placed K/V (never cut along S)
+    are packed on each rank's part (``local_map``; ``DTensor``'s own pad
+    fails in some torch releases' redistribution planner)."""
+    if isinstance(k, DTensor):
+        from torch.distributed.tensor.experimental import local_map
+        return local_map(lambda t: _to_ring(t, cache_len, seq),
+                         out_placements=list(k.placements),
+                         in_placements=(k.placements,),
+                         device_mesh=k.device_mesh)(k)
     if cache_len >= seq:
         return F.pad(k, (0, 0, 0, cache_len - seq))
     return torch.roll(k[:, :, -cache_len:, :], seq % cache_len, dims=2)
@@ -271,7 +334,8 @@ def lm_prefill(params: LM, tokens, cfg: ArchConfig, runtime: Runtime = CPU,
                                 embeds_prefix=embeds_prefix, collect_kv=True)
     S = hidden.shape[1]
     C = cache_len or attn.cache_len_for(S, cfg.sliding_window)
-    return logits_of(params, hidden[:, -1:, :]), ring_cache(kvs, C, S)
+    return logits_of(params, hidden[:, -1:, :], runtime), \
+        ring_cache(kvs, C, S)
 
 
 def init_lm_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=None,
@@ -287,10 +351,10 @@ def lm_decode_step(params: LM, token, cache, pos: int, cfg: ArchConfig,
     """token: (B, 1) integer; cache: per-layer ``{"k", "v"}``; ``pos``
     the token's position (a host int).  Returns (logits (B, 1, V), new
     cache)."""
-    x = params.embed(token)
+    x = embed(params.embed, token)
     new_cache = []
     for layer, c in zip(params.layers, cache):
         x, c = block_decode(layer, x, c, pos, cfg, runtime)
         new_cache.append(c)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    return logits_of(params, x), new_cache
+    return logits_of(params, x, runtime), new_cache

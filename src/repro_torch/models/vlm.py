@@ -19,7 +19,7 @@ def vlm_loss(params, batch, cfg: ArchConfig, runtime: Runtime = CPU):
     hidden, aux, _ = lm_forward(params, batch["tokens"], cfg, runtime,
                                 embeds_prefix=batch["vision_embeds"])
     P = batch["vision_embeds"].shape[1]
-    logits = logits_of(params, hidden[:, P:, :])
+    logits = logits_of(params, hidden[:, P:, :], runtime)
     return cross_entropy(logits, batch["labels"]) + cfg.router_aux_coef * aux
 
 

@@ -13,6 +13,13 @@ float32, mh / (sqrt(vh) + eps) with the weight decay added to the delta,
 and the update in float32 cast back to the parameter's dtype.  Parameters
 and moments are updated in place under ``no_grad`` with multi-tensor
 (``_foreach``) ops: a handful of launches for the whole model.
+
+Partitioned parameters (``DTensor``s, sharding/specs.py
+``shard_params``) with their moments and gradients laid out alike: the
+update runs on the local parts, and ``global_norm`` sums each
+gradient's square over the ranks that hold its pieces, so every rank
+clips by the same whole norm; on one rank every step is the unplaced
+arithmetic, bit for bit.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.distributed.tensor import DTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,23 +59,57 @@ def init_opt_state(params) -> Dict:
             "step": torch.zeros((), dtype=torch.int32)}
 
 
+def _local(t):
+    """This rank's part of a placed tensor; a plain tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _sum_over_shards(sq, gs):
+    """Each entry of ``sq`` (the square of ``gs[i]``'s local norm) summed
+    over the ranks of every mesh dim that cuts ``gs[i]``: the square of
+    its whole norm on every rank (a replicated dim counts once)."""
+    from torch.distributed import _functional_collectives as funcol
+    placed = [g for g in gs if isinstance(g, DTensor)]
+    if not placed:
+        return sq
+    mesh = placed[0].device_mesh
+    for g in placed:
+        if any(p.is_partial() for p in g.placements):
+            raise ValueError("global_norm: a partial-sum gradient; "
+                             "redistribute it to its parameter first")
+    for d in range(mesh.ndim):
+        cut = [isinstance(g, DTensor) and g.placements[d].is_shard()
+               for g in gs]
+        if mesh.size(d) == 1 or not any(cut):
+            continue
+        whole = funcol.wait_tensor(funcol.all_reduce(sq, "sum", (mesh, d)))
+        sq = torch.where(torch.tensor(cut, device=sq.device), whole, sq)
+    return sq
+
+
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient, in float32: the L2
     norm of each tensor in one multi-tensor launch, then the norm of
     those (the reference's sum of per-leaf sums of squares, rounded once
-    more per leaf; one sum and square per leaf cost a launch each)."""
+    more per leaf; one sum and square per leaf cost a launch each).
+    Placed gradients: each local norm's square summed over the ranks
+    holding its pieces (``_sum_over_shards``), a plain tensor alike on
+    every rank."""
     gs = list(grads.values()) if isinstance(grads, dict) else list(grads)
-    norms = torch._foreach_norm([g.float() for g in gs])
-    return torch.sqrt(torch.sum(torch.square(torch.stack(norms))))
+    norms = torch._foreach_norm([_local(g).float() for g in gs])
+    sq = _sum_over_shards(torch.square(torch.stack(norms)), gs)
+    return torch.sqrt(torch.sum(sq))
 
 
 def clip_by_global_norm(grads, max_norm: float):
     """(float32 gradients scaled by min(1, max_norm / max(norm, 1e-9)),
-    norm); ``grads`` is a {name: tensor} dict."""
+    norm); ``grads`` is a {name: tensor} dict (placed gradients give
+    their local parts)."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     names = list(grads)
-    out = torch._foreach_mul([grads[n].float() for n in names], scale)
+    out = torch._foreach_mul([_local(grads[n]).float() for n in names],
+                             scale)
     return dict(zip(names, out)), norm
 
 
@@ -91,11 +133,11 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
     if cfg.clip_norm > 0:
         g32, gnorm = clip_by_global_norm(g_in, cfg.clip_norm)
     else:
-        g32 = {n: g.float() for n, g in g_in.items()}
-        gnorm = global_norm(g32)
+        g32 = {n: _local(g).float() for n, g in g_in.items()}
+        gnorm = global_norm(g_in)
     g = [g32[n] for n in names]
-    m = [state["m"][n] for n in names]
-    v = [state["v"][n] for n in names]
+    m = [_local(state["m"][n]) for n in names]
+    v = [_local(state["v"][n]) for n in names]
     step = (state["step"] + 1).to(torch.int32)
     s32 = step.to(torch.float32)
     b1c = _host_f32(1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** s32)
@@ -114,7 +156,7 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
     denom = torch._foreach_sqrt(torch._foreach_div(v, b2c))
     torch._foreach_add_(denom, cfg.eps)
     delta = torch._foreach_div(torch._foreach_div(m, b1c), denom)
-    p = [ps[n] for n in names]
+    p = [_local(ps[n]) for n in names]
     p32 = [x.float() for x in p]          # the parameter itself if fp32
     if cfg.weight_decay:
         torch._foreach_add_(delta, torch._foreach_mul(

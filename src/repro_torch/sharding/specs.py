@@ -38,6 +38,12 @@ them (``nn.Linear`` stores JAX's (in, out) as (out, in); conv kernels
 HWIO as OIHW).  Decode-state leaves are per layer in the port, so their
 specs are JAX's without the leading stack entries.  Optimizer moments
 inherit the parameter specs.
+
+Applying them (``shard_params``, ``shard_batch``, ``place``): a tensor
+laid out by a spec is a ``DTensor`` whose placements are the sanitized
+spec's (``placements``), the counterpart of a ``jax.Array`` with a
+``NamedSharding``; models/transformer.py ``constrain`` pins activations
+the same way, and ``pin`` lays a tensor's gradient out as the tensor.
 """
 from __future__ import annotations
 
@@ -248,38 +254,137 @@ def handoff_spec(ndim: int, batch_axis: str = "data") -> Spec:
 
 def placements(spec: Spec, mesh):
     """The ``DTensor`` placements of a sanitized spec: ``Shard(i)`` on the
-    mesh dim that tensor dim i names, ``Replicate()`` elsewhere."""
+    mesh dim that tensor dim i names, ``Replicate()`` elsewhere.  A dim
+    cut over several axes (the multi-pod batch, ``("pod", "data")``) is
+    ``Shard(i)`` on each of their mesh dims; ``DTensor`` cuts the earlier
+    mesh dim first, so the spec must name them in the mesh's order, major
+    first, as JAX reads the tuple."""
     from torch.distributed.tensor import Replicate, Shard
     names = tuple(mesh.mesh_dim_names)
     out = [Replicate()] * len(names)
     for i, entry in enumerate(spec):
         if entry is None:
             continue
-        if isinstance(entry, tuple):
-            raise ValueError(f"spec {spec}: a dim cut over several axes "
-                             "has no DTensor placement here")
-        out[names.index(entry)] = Shard(i)
+        dims = [names.index(a) for a in
+                (entry if isinstance(entry, tuple) else (entry,))]
+        if dims != sorted(dims):
+            raise ValueError(f"spec {spec}: {entry} is not in the mesh's "
+                             f"order {names}")
+        for d in dims:
+            out[d] = Shard(i)
     return out
 
 
-def place(mesh, value, spec: Spec):
-    """``value`` (a tensor or a numpy array, whole on every rank) laid out
-    on ``mesh`` by ``spec`` sanitized against its shape: a ``DTensor`` on
-    the mesh's device type whose local part is this rank's slice, taken
-    without communication.  A dim the mesh does not divide stays
-    replicated, as in JAX."""
+def distribute(t: torch.Tensor, mesh, pl, copy: bool = False):
+    """``t`` (whole on every rank) as a ``DTensor`` of placements ``pl``
+    on ``mesh``: its local part this rank's slice, taken without
+    communication (a view, or a copy of its own with ``copy``)."""
     from torch.distributed.tensor import DTensor
-    t = torch.from_numpy(np.ascontiguousarray(value)) \
-        if isinstance(value, np.ndarray) else value
-    t = t.to(mesh.device_type) if t.device.type != mesh.device_type else t
-    pl = placements(sanitize_spec(spec, tuple(t.shape), mesh), mesh)
     local = t
     for d, p in enumerate(pl):
         if p.is_shard():
-            n = mesh.size(d)
-            local = local.chunk(n, dim=p.dim)[mesh.get_local_rank(d)]
+            local = local.chunk(mesh.size(d), dim=p.dim)[
+                mesh.get_local_rank(d)]
+    if copy and local.numel() != t.numel():
+        local = local.clone()
     return DTensor.from_local(local, mesh, pl, run_check=False,
                               shape=t.shape, stride=t.stride())
+
+
+def place(mesh, value, spec: Spec, copy: bool = False):
+    """``value`` (a tensor or a numpy array, whole on every rank) laid out
+    on ``mesh`` by ``spec`` sanitized against its shape: a ``DTensor`` on
+    the mesh's device type (a meta tensor stays on meta) whose local part
+    is this rank's slice, taken without communication (``distribute``).
+    A dim the mesh does not divide stays replicated, as in JAX."""
+    t = torch.from_numpy(np.ascontiguousarray(value)) \
+        if isinstance(value, np.ndarray) else value
+    if t.device.type not in (mesh.device_type, "meta"):
+        t = t.to(mesh.device_type)
+    pl = placements(sanitize_spec(spec, tuple(t.shape), mesh), mesh)
+    return distribute(t, mesh, pl, copy)
+
+
+class _Pin(torch.autograd.Function):
+    """Redistribute a ``DTensor`` to ``placements``, and its gradient to
+    the same placements: ``with_sharding_constraint`` is its own
+    transpose in JAX.  (``redistribute``'s own backward hands a partial
+    sum back as it is, and ``DTensor`` then meets a partial gradient at
+    the next product by gathering the whole weight.)"""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements), None
+
+
+def pin(x, placements):
+    """A ``DTensor`` and, in the backward, its gradient laid out by
+    ``placements``."""
+    return _Pin.apply(x, tuple(placements))
+
+
+def mesh_kinds(t, batch=None, cut=None):
+    """What each mesh dim does to a placed operand ``t``: ``"batch"``
+    where it cuts ``t``'s dim ``batch``, ``"cut"`` where it cuts dim
+    ``cut`` (the heads, channels or rows a kernel treats one by one),
+    None elsewhere."""
+    from torch.distributed.tensor import Shard
+    return ["batch" if batch is not None and p == Shard(batch) else
+            "cut" if cut is not None and p == Shard(cut) else None
+            for p in t.placements]
+
+
+def local_map_placements(kinds, *dims):
+    """``local_map``'s placements over a mesh whose dims do ``kinds``
+    (``mesh_kinds``), for operands and outputs each given as its (batch
+    dim, cut dim), None where it has no such dim.  Returns, for each, its
+    (placements, gradient placements): ``Shard`` of its own dim where a
+    mesh dim cuts a dim it has; whole elsewhere, where over a mesh dim
+    that cuts the others its gradient, or an output's value, is a partial
+    sum over that dim's ranks."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    out = []
+    for batch, cut in dims:
+        pl, grad = [], []
+        for kind in kinds:
+            dim = {"batch": batch, "cut": cut, None: None}[kind]
+            pl.append(Replicate() if dim is None else Shard(dim))
+            grad.append(Partial() if kind is not None and dim is None
+                        else pl[-1])
+        out.append((pl, grad))
+    return out
+
+
+def shard_params(model, mesh, inference: bool = False):
+    """Lay a module's parameters out on ``mesh`` in place, the
+    counterpart of JAX's ``device_put`` over ``with_sharding(param_specs
+    (...))``: each becomes an ``nn.Parameter`` holding a ``DTensor``
+    placed by its sanitized ``param_specs`` entry, its local part a copy
+    of this rank's slice.  AdamW moments made after it
+    (optim/adamw.py ``init_opt_state``) follow each parameter's
+    placements, which is ``opt_state_specs``.  Returns the module."""
+    import torch.nn as nn
+    specs = param_specs(model, inference)
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner)
+        placed = place(mesh, p.detach(), specs[name], copy=True)
+        mod._parameters[leaf] = nn.Parameter(placed,
+                                             requires_grad=p.requires_grad)
+    return model
+
+
+def shard_batch(mesh, batch):
+    """A batch ({name: tensor}, each with the batch leading) laid out on
+    ``mesh`` by ``batch_spec_for``: the batch over ("pod", "data") where
+    they divide it, replicated otherwise."""
+    return {k: place(mesh, t, batch_spec_for(mesh, t.shape[0], t.ndim - 1))
+            for k, t in batch.items()}
 
 
 def local_part(t):

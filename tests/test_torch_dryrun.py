@@ -5,8 +5,13 @@
   worker): ``run_pair`` for granite-8b ``decode_32k``, mamba2-2.7b
   ``long_500k`` and dbrx-132b ``train_4k`` (expert-parallel, ``ep``) on
   the single-pod fake mesh comes out ``ok`` with every field and a
-  written record; the MoE pair's census holds the expert-parallel
-  all-to-alls; a pair the JAX package skips comes out ``skip`` with JAX's
+  written record, ``"partitioner": "dtensor"`` where ``partitioned``
+  (none of these three) and null elsewhere; the MoE pair's census holds
+  the expert-parallel all-to-alls; a reduced granite-8b train step
+  partitioned on the fake mesh holds all-gathers, reduce-scatters and
+  all-reduces, fewer FLOPs than the same step with the batch cut alone,
+  and parameter bytes from its placed tensors equal to
+  ``device_bytes``; a pair the JAX package skips comes out ``skip`` with JAX's
   reason; a second production mesh in the same process is refused.
 * ``reckon`` of a reduced granite-8b prefill on a one-device mesh of
   axis sizes: its FLOPs equal 2·M·N·K summed over the step's products,
@@ -33,7 +38,7 @@ from repro.configs.base import SHAPES as JSHAPES
 from repro.configs.base import get_arch as jget_arch
 from repro.launch.shapes import skip_reason as jskip_reason
 from repro_torch import kernels
-from repro_torch.configs.base import ShapeConfig, get_arch, reduced
+from repro_torch.configs.base import SHAPES, ShapeConfig, get_arch, reduced
 from repro_torch.kernels.ddpm_step import cost as ddpm_cost
 from repro_torch.kernels.ddpm_step import kernel as dkernel
 from repro_torch.kernels.ddpm_step import ops as dops
@@ -68,6 +73,16 @@ mesh = make_production_mesh()
 out = [dryrun.run_pair(a, s, False, "ep", {out!r}, mesh) for a, s in (
     ("granite-8b", "decode_32k"), ("mamba2-2.7b", "long_500k"),
     ("dbrx-132b", "train_4k"), ("minicpm-2b", "long_500k"))]
+import types
+from repro_torch.configs.base import ShapeConfig, get_arch, reduced
+from repro_torch.launch import shapes
+cfg = reduced(get_arch("granite-8b"))
+shape = ShapeConfig("t", 32, 32, "train")
+sizes = types.SimpleNamespace(shape={{"data": 16, "model": 16}})
+out.append({{"part": dryrun.reckon(cfg, shape, mesh),
+            "plain": dryrun.reckon(cfg, shape, sizes),
+            "param_bytes": dryrun.device_bytes(
+                shapes.abstract_params(cfg, mesh), mesh)}})
 try:
     make_production_mesh()
     out.append("second mesh accepted")
@@ -83,12 +98,15 @@ def test_run_pair_on_the_fake_production_mesh(tmp_path):
                           text=True, timeout=600, cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-4000:]
     line = [x for x in proc.stdout.splitlines() if x.startswith("RESULT ")]
-    *recs, refused = json.loads(line[-1][len("RESULT "):])
+    *recs, red, refused = json.loads(line[-1][len("RESULT "):])
     assert "exists already" in refused
     for rec in recs[:3]:
         assert rec["status"] == "ok" and set(rec) == FIELDS, rec
         assert rec["n_devices"] == 256 and rec["mesh"] == "pod16x16"
-        assert rec["partitioner"] is None and rec["flops"] > 0
+        partitioned = dryrun.partitioned(get_arch(rec["arch"]),
+                                         SHAPES[rec["shape"]])
+        assert rec["partitioner"] == ("dtensor" if partitioned else None)
+        assert rec["flops"] > 0
         assert rec["bytes_per_device"]["total"] == sum(
             v for k, v in rec["bytes_per_device"].items() if k != "total")
         saved = json.loads((tmp_path / f"{rec['tag']}.json").read_text())
@@ -111,6 +129,15 @@ def test_run_pair_on_the_fake_production_mesh(tmp_path):
                     "status": "skip",
                     "reason": jskip_reason(jget_arch("minicpm-2b"),
                                            JSHAPES["long_500k"])}
+    # a reduced granite-8b train step partitioned on the fake mesh against
+    # the same step with the batch cut alone (a mesh of axis sizes)
+    part, plain = red["part"], red["plain"]
+    assert part["partitioner"] == "dtensor" and plain["partitioner"] is None
+    assert {"all-gather", "reduce-scatter", "all-reduce"} <= \
+        set(part["collectives"]) and plain["collectives"] == {}
+    assert 0 < part["flops"] < plain["flops"]
+    assert part["bytes_per_device"] == plain["bytes_per_device"]
+    assert part["bytes_per_device"]["params"] == red["param_bytes"]
 
 
 def _matmul_flops(cfg, B: int, S: int) -> int:
