@@ -21,7 +21,7 @@ package).  Phases, each of which fails the run on any error:
 4. the full-width U-Net (configs CONFIG) on the card against the port on
    the CPU, same threefry weights, one forward of B=4;
 5. the main path: ``ServeRuntime`` on CUDA with the CONFIG U-Net, T=1000,
-   3 clients at cuts 125/250/500, 3 requests x batch 4, max_wave 4, depth
+   3 clients at cuts 125/250/500, 2 requests x batch 4, max_wave 4, depth
    policy, cache on, 2 passes, then one per-request Alg.-2 sample
    (``make_per_request_sampler``); kernel launch counters are zeroed just
    before and read just after, and must equal the scheduled steps, every
@@ -213,6 +213,24 @@ package).  Phases, each of which fails the run on any error:
    AdamW step bitwise; the flash and SSD launches, forward and backward,
    equal each way (path ``dense_partition``); the training step's wall,
    device time, idle share and peak memory each way;
+15c. decode under the inference layout (``phase_decode_partition``):
+   Zamba2-1.2B at full width in bf16 placed by ``shard_params(inference=
+   True)`` on the one-rank mesh, a prefill of 4 x 1,024 tokens (its state
+   laid out by ``shard_decode_state``) and 32 greedy steps against the
+   unpartitioned path: every step's logits and the final state bitwise,
+   the flash and SSD launches equal each way (path
+   ``decode_partition``); each way's decode-step wall, device time, idle
+   share and peak memory;
+15d. the MoE architecture partitioned (``phase_moe_partition``):
+   DBRX-132B at its published widths and 2 blocks, bf16, on the
+   one-rank mesh against today's expert-parallel path on whole
+   parameters: a prefill of 128 tokens and 8 greedy ``moe_ep2d`` steps
+   in the inference layout, then ``moe_ep``'s ``loss_and_grads`` at
+   4 x 1,024 tokens in the training layout, every logit, the state, the
+   loss and every gradient bitwise, the grouped matmul's and flash's
+   launches (forward and backward) equal (path ``moe_partition``); each
+   way's step and decode-step wall and device time; one AdamW step on the
+   reduced config, placed against whole, bitwise;
 16. the encoder-decoder (``phase_whisper``): whisper-base at its
    published widths and depth (6 + 6 layers, d_model 512, 8 heads of 64,
    vocab 51,865, bf16): (a) the ``serve`` CLI twice (batch 4, 1,500
@@ -253,7 +271,7 @@ package).  Phases, each of which fails the run on any error:
    reason, and launch/collab_dryrun.py at COLLAB_DRYRUN_ARGS writing its
    six programs;
 20. a ``kernels`` JSON line (eight kernels, ``launches_by_path`` over
-   the fourteen paths), the card line again, and the result line.
+   the sixteen paths), the card line again, and the result line.
 
 Exits nonzero, printing no result line, without a CUDA device or outside
 a checkout.
@@ -307,7 +325,9 @@ FP32_INSTR_PER_S = FP32_FLOPS_PER_S / 2
 INT32_OPS_PER_S = FP32_FLOPS_PER_S / 4
 IMG = (32, 32, 3)
 B = 4
-MAIN_REQUESTS = 3           # the U-Net serve path's requests a pass
+MAIN_REQUESTS = 2           # the U-Net serve path's requests a pass (cut
+                            # from 3 to keep the script in its limit:
+                            # PERF.md section 4)
 DIT_ARCH = "zamba2-1.2b"
 FLASH_SWEEP = [(2, 4, 2, 64, 32), (1, 4, 4, 100, 16), (2, 8, 2, 128, 64),
                (1, 2, 1, 48, 8)]          # test_flash_attention_sweep
@@ -1020,8 +1040,7 @@ def phase_main_path(fwd_ms: float):
     from repro_torch.obs import ObsConfig
     from repro_torch.serve import ServeConfig, ServeRuntime
 
-    # the paper's T and cuts; 3 requests of batch 4 a pass (6 until the LM
-    # training phase joined the script)
+    # the paper's T and cuts; MAIN_REQUESTS requests of batch 4 a pass
     T, cuts, n_req, passes = 1000, [125, 250, 500], MAIN_REQUESTS, 2
     key = prng.PRNGKey(0, device="cuda")
     ks, *kc = prng.split(key, len(cuts) + 1)
@@ -3024,7 +3043,8 @@ WHISPER_FLASH_BWD = (((8, 8, 8, 1500, 64), False),
 WHISPER_CPU_LAYERS, WHISPER_GRAD_SEQ = 2, 333
 PATHS = ("serve", "train", "train_runtime", "eval", "dit", "moe",
          "moe_train", "lm_serve", "lm_train", "whisper_serve",
-         "whisper_train", "examples", "clients_mesh", "dense_partition")
+         "whisper_train", "examples", "clients_mesh", "dense_partition",
+         "decode_partition", "moe_partition")
 
 
 def eval_scores(trained, data, key, n: int = EVAL_N) -> dict:
@@ -5011,6 +5031,329 @@ def phase_dense_partition():
     return launches["partitioned"]
 
 
+# the partitioned decode path: LM_ARCH at full width in bf16, a prefill of
+# DECODE_PART_BATCH x DECODE_PART_PROMPT tokens, then DECODE_PART_STEPS
+# greedy steps, in the inference layout on a one-rank (1, 1) mesh
+DECODE_PART_BATCH, DECODE_PART_PROMPT, DECODE_PART_STEPS = 4, 1024, 32
+# the partitioned MoE path: MOE_ARCH at MOE_LAYERS blocks, the
+# expert-parallel step at MOE_TRAIN_BATCH x MOE_TRAIN_SEQ, then a prefill
+# of MOE_PART_PROMPT tokens and MOE_PART_STEPS greedy moe_ep2d steps; the
+# AdamW step on the reduced config (the full width's float32 moments,
+# 62 GB, do not fit beside its weights and gradients: PERF.md section 4)
+MOE_PART_PROMPT, MOE_PART_STEPS = 128, 8
+
+
+def placed_whole(t):
+    """A tensor whole: a ``DTensor`` gathered, anything else itself."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def greedy_decode(model, cfg, tokens, steps: int, prefill_rt, decode_rt,
+                  mesh=None):
+    """``api.prefill_fn`` on ``tokens`` (B, S) with a cache of S + steps
+    slots, then ``steps`` greedy ``api.decode_fn`` steps; with ``mesh``
+    the tokens placed by the batch (the model placed by the caller).
+    Returns (every step's logits, whole; the final state; the last step's
+    (token, state, position))."""
+    from repro_torch.models import api
+    from repro_torch.sharding import specs
+    B, S = tokens.shape
+    place = (lambda t: t) if mesh is None else \
+        (lambda t: specs.place(mesh, t, specs.batch_spec_for(mesh, B, 1)))
+    logits, state = api.prefill_fn(model, {"tokens": place(tokens)}, cfg,
+                                   prefill_rt, cache_len=S + steps)
+    out = [placed_whole(logits)]
+    for i in range(steps):
+        token = place(out[-1].argmax(-1))
+        last = (token, state, S + i)
+        logits, state = api.decode_fn(model, token, state, S + i, cfg,
+                                      decode_rt)
+        out.append(placed_whole(logits))
+    return out, state, last
+
+
+def decode_bitwise(tag: str, a, b) -> None:
+    """Two ``greedy_decode`` results: every step's logits and every leaf
+    of the final state bitwise, the second's state placed."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch import bridge
+    (la, sa, _), (lb, sb, _) = a, b
+    steps = [i for i, (x, y) in enumerate(zip(la, lb, strict=True))
+             if not torch.equal(x, y)]
+    ta, tb = bridge.leaves(sa), bridge.leaves(sb)
+    if len(ta) != len(tb) or not all(isinstance(t, DTensor) for t in tb):
+        raise AssertionError(f"{tag}: the state is not placed")
+    bad = [i for i, (x, y) in enumerate(zip(ta, tb))
+           if not torch.equal(x, placed_whole(y))]
+    if steps or bad:
+        raise AssertionError(f"{tag}: logits differ at steps {steps}; "
+                             f"state leaves differ: {bad[:5]} ({len(bad)})")
+
+
+def step_timing(tag: str, fn, per: str, card: str, iters: int) -> dict:
+    """One call's wall (CUDA events over ``iters`` calls after one),
+    device time (profiler) and idle share, logged."""
+    ms = time_ms(fn, iters=iters, warmup=1)
+    prof = device_ms(tag, fn, n=1, per=per)
+    idle = "not measured" if prof["_ms"] is None else \
+        f"{100 * (1 - prof['_ms'] / ms):.1f}%"
+    log(f"{tag}: wall {ms:.3f} ms (events) a {per}, device "
+        f"{fmt_ms(prof['_ms'])} over {prof['_events']} events, idle {idle}; "
+        f"card {card}")
+    return {"wall_ms": ms, "device_ms": prof["_ms"]}
+
+
+def phase_decode_partition():
+    """Decode under the inference layout (sharding/specs.py
+    ``shard_params(inference=True)``, the prefill's state laid out by
+    ``shard_decode_state``): Zamba2-1.2B (LM_ARCH) at full width in bf16
+    on a one-rank NCCL ("data", "model") (1, 1) mesh, against the
+    unpartitioned path from the same weights (a copy of the model): a
+    prefill of DECODE_PART_BATCH x DECODE_PART_PROMPT tokens and
+    DECODE_PART_STEPS greedy steps, every step's logits and the final
+    state bitwise; the flash and SSD launches (the prefill's; decode runs
+    none) counted from zero just before each way and equal; each way's
+    decode-step wall (events), device time, idle share and the peak
+    memory of its run.  Returns the partitioned path's launches."""
+    import copy
+    import torch
+    import torch.distributed as dist
+    from repro_torch import bridge
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import prng
+    from repro_torch.device import deterministic_cuda
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.ssd_scan import kernel as skernel
+    from repro_torch.launch import shapes, train
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import api
+    from repro_torch.sharding import specs
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    deterministic_cuda()
+    card = card_line()
+    if dist.is_initialized():
+        raise AssertionError("decode_partition: a process group is left "
+                             "over from an earlier phase")
+    kmods = (fkernel, skernel)
+    cfg = get_arch(LM_ARCH)
+    key = prng.PRNGKey(0, device="cuda")
+    model = api.init_params(key, cfg, "cuda")
+    placed = copy.deepcopy(model)
+    tokens = train.build_batch(prng.fold_in(key, 1), cfg, DECODE_PART_BATCH,
+                               DECODE_PART_PROMPT)["tokens"]
+    mesh = make_debug_mesh(device="cuda")
+    try:
+        if (dist.get_backend(), mesh.mesh_dim_names, mesh.size()) != \
+                ("nccl", ("data", "model"), 1):
+            raise AssertionError(f"decode_partition: mesh {mesh}")
+        specs.shard_params(placed, mesh, inference=True)
+        ways = {"plain": (model, shapes.CPU, shapes.CPU, None),
+                "partitioned": (placed,
+                                shapes.runtime_for(cfg, "prefill_32k", mesh),
+                                shapes.runtime_for(cfg, "decode_32k", mesh),
+                                mesh)}
+        out, launches, walls, peaks = {}, {}, {}, {}
+        for way, (m, rp, rd, on) in ways.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for kmod in kmods:                   # --- main path starts
+                kmod.reset_counts()
+            t0 = time.perf_counter()
+            out[way] = greedy_decode(m, cfg, tokens, DECODE_PART_STEPS, rp,
+                                     rd, on)
+            torch.cuda.synchronize()
+            walls[way] = time.perf_counter() - t0
+            launches[way] = lm_counts(*kmods)    # --- main path ends
+            peaks[way] = torch.cuda.max_memory_allocated() / 1e9
+        decode_bitwise("decode_partition", out["plain"], out["partitioned"])
+        if launches["plain"] != launches["partitioned"] or \
+                launches["plain"]["flash_attention"] == 0 or \
+                launches["plain"]["ssd_scan"] == 0:
+            raise AssertionError(f"decode_partition: launches {launches}")
+        log(f"decode_partition/bitwise: {LM_ARCH} B={DECODE_PART_BATCH} "
+            f"prompt {DECODE_PART_PROMPT} + {DECODE_PART_STEPS} greedy steps "
+            f"on a (1, 1) NCCL mesh in the inference layout: every step's "
+            f"logits and {len(bridge.leaves(out['plain'][1]))} state "
+            f"tensors bitwise the unpartitioned path; launches each way "
+            f"{launches['partitioned']}; wall of the run plain "
+            f"{walls['plain']:.2f} s, partitioned {walls['partitioned']:.2f}"
+            f" s; peak memory {peaks['plain']:.2f} / "
+            f"{peaks['partitioned']:.2f} GB")
+        for way, (m, _, rd, _) in ways.items():
+            token, state, pos = out[way][2]
+            step_timing(f"decode_partition/step_{way}",
+                        lambda: api.decode_fn(m, token, state, pos, cfg, rd),
+                        "decode step", card, iters=3)
+    finally:
+        dist.destroy_process_group()
+    del model, placed, ways, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"decode_partition/phase_s: {time.perf_counter() - t_phase:.1f}; "
+        f"card {card}")
+    return launches["partitioned"]
+
+
+def unplace(model) -> None:
+    """A module laid out on a one-rank mesh back to plain parameters, in
+    place: each ``DTensor``'s local part is its whole tensor there."""
+    import torch.nn as nn
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        model.get_submodule(owner)._parameters[leaf] = nn.Parameter(
+            p.to_local().detach(), requires_grad=p.requires_grad)
+
+
+def phase_moe_partition():
+    """The MoE architecture partitioned (models/moe.py ``moe_ep`` /
+    ``moe_ep2d`` on experts placed by ``shard_params``, the rest by the
+    dense rules): DBRX-132B (MOE_ARCH) at its published widths and
+    MOE_LAYERS blocks, bf16, on a one-rank NCCL (1, 1) mesh, against
+    today's expert-parallel path on whole parameters (the same module,
+    placed in place: on one rank a local part is the whole tensor, so no
+    weight is copied).  Each way, counted from zero just before it: a
+    prefill of MOE_PART_PROMPT tokens and MOE_PART_STEPS greedy
+    ``moe_ep2d`` steps (the inference layout), then the expert-parallel
+    ``loss_and_grads`` at MOE_TRAIN_BATCH x MOE_TRAIN_SEQ (the training
+    layout); every logit, the final state, the loss and every gradient
+    bitwise, the grouped matmul's and flash's launches (forward and
+    backward) equal.  Each way's step and decode-step wall, device time
+    and idle share.  Then the AdamW step (``make_train_step``) on the
+    reduced config, placed against whole, bitwise.  Returns the
+    partitioned path's launches."""
+    import copy
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.core import prng
+    from repro_torch.device import deterministic_cuda
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.grouped_matmul import kernel as gkernel
+    from repro_torch.launch import shapes, train
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.sharding import specs
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    deterministic_cuda()
+    card = card_line()
+    if dist.is_initialized():
+        raise AssertionError("moe_partition: a process group is left over "
+                             "from an earlier phase")
+    kmods = (gkernel, fkernel)
+    arch = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_LAYERS)
+    key = prng.PRNGKey(0, device="cuda")
+    mesh = make_debug_mesh(device="cuda")
+    try:
+        lm = api.init_params(key, arch, "cuda")
+        batch = train.build_batch(prng.fold_in(key, 0), arch,
+                                  MOE_TRAIN_BATCH, MOE_TRAIN_SEQ)
+        prompt = batch["tokens"][:, :MOE_PART_PROMPT]
+        rt_ep = shapes.make_runtime(mesh)
+        rt_p = shapes.runtime_for(arch, "prefill_32k", mesh)
+        rt_d = shapes.runtime_for(arch, "decode_32k", mesh)
+        dec, launches, times, grads = {}, {}, {}, {}
+        for way in ("plain", "partitioned"):
+            placed = way == "partitioned"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for kmod in kmods:                   # --- main path starts
+                kmod.reset_counts()
+            if placed:
+                specs.shard_params(lm, mesh, inference=True)
+            dec[way] = greedy_decode(lm, arch, prompt, MOE_PART_STEPS, rt_p,
+                                     rt_d, mesh if placed else None)
+            if placed:
+                unplace(lm)
+                specs.shard_params(lm, mesh)
+            b = specs.shard_batch(mesh, batch) if placed else batch
+            grads[way] = shapes.loss_and_grads(lm, b, arch, rt_ep)
+            torch.cuda.synchronize()
+            launches[way] = lm_counts(*kmods)    # --- main path ends
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            if placed:
+                (l0, g0), (l1, g1) = grads.pop("plain"), grads.pop(way)
+                params = dict(lm.named_parameters())
+                bad = [n for n, g in g1.items()
+                       if g.placements != params[n].placements or
+                       not torch.equal(g.to_local(), g0[n])]
+                if not torch.equal(l0, l1) or bad:
+                    raise AssertionError(
+                        f"moe_partition: loss {l0.item()!r} vs "
+                        f"{l1.item()!r}; gradients differ: {bad[:5]} "
+                        f"({len(bad)})")
+                n_grads, loss = len(g1), l1.item()
+                del g0, g1
+            token, state, pos = dec[way][2]
+            times[way] = (
+                step_timing(f"moe_partition/step_{way}",
+                            lambda: shapes.loss_and_grads(lm, b, arch,
+                                                          rt_ep),
+                            "step", card, iters=2),
+                peak)
+            if placed:
+                unplace(lm)
+                specs.shard_params(lm, mesh, inference=True)
+            step_timing(f"moe_partition/decode_{way}",
+                        lambda: api.decode_fn(lm, token, state, pos, arch,
+                                              rt_d), "decode step", card,
+                        iters=3)
+        decode_bitwise("moe_partition", dec["plain"], dec["partitioned"])
+        want = {"grouped_matmul_bwd": 3 * MOE_LAYERS,
+                "flash_attention_bwd": MOE_LAYERS}
+        if launches["plain"] != launches["partitioned"] or any(
+                launches["plain"][k] != n for k, n in want.items()):
+            raise AssertionError(f"moe_partition: launches {launches}")
+        log(f"moe_partition/bitwise: {MOE_ARCH} ({MOE_LAYERS} blocks, bf16) "
+            f"on a (1, 1) NCCL mesh: prompt {MOE_PART_PROMPT} + "
+            f"{MOE_PART_STEPS} moe_ep2d steps (inference layout), every "
+            f"logit and the final state; the moe_ep loss_and_grads at "
+            f"B={MOE_TRAIN_BATCH} S={MOE_TRAIN_SEQ} (training layout), the "
+            f"loss {loss!r} and {n_grads} gradients, each placed "
+            f"as its parameter, bitwise today's expert-parallel path; "
+            f"launches each way {launches['partitioned']}; peak memory "
+            f"{times['plain'][1]:.2f} / {times['partitioned'][1]:.2f} GB")
+        del lm, batch, dec
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the AdamW step, on the reduced config
+        small = reduced(get_arch(MOE_ARCH))
+        whole_m = api.init_params(prng.PRNGKey(0), small, "cuda")
+        placed_m = specs.shard_params(copy.deepcopy(whole_m), mesh)
+        b = train.build_batch(prng.fold_in(key, 2), small, 2, MOE_GRAD_SEQ)
+        step = shapes.make_train_step(small, runtime=rt_ep)
+        o0, o1 = init_opt_state(whole_m), init_opt_state(placed_m)
+        _, _, m0 = step(whole_m, o0, b)
+        _, _, m1 = step(placed_m, o1, specs.shard_batch(mesh, b))
+        ta, tb = partition_tensors(whole_m, o0), partition_tensors(placed_m,
+                                                                   o1)
+        bad = [n for n in ta if not torch.equal(ta[n], tb[n])]
+        if bad or not (torch.equal(m0["loss"], m1["loss"]) and
+                       torch.equal(m0["grad_norm"], m1["grad_norm"])):
+            raise AssertionError(f"moe_partition: the reduced AdamW step "
+                                 f"differs: {bad[:5]} ({len(bad)})")
+        log(f"moe_partition/adamw: reduced {MOE_ARCH} (float32), B=2 "
+            f"S={MOE_GRAD_SEQ}, one make_train_step placed against whole: "
+            f"loss {m1['loss'].item()!r}, grad norm "
+            f"{m1['grad_norm'].item()!r}, {len(ta)} parameters and moments "
+            f"bitwise")
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"moe_partition/phase_s: {time.perf_counter() - t_phase:.1f}; "
+        f"card {card}")
+    return launches["partitioned"]
+
+
 EXAMPLES = ("torch_quickstart", "torch_cutpoint_sweep", "torch_dit_backbone",
             "torch_train_lm")
 # what each example's run() returns that must be finite
@@ -5086,9 +5429,10 @@ def stop_dryrun(state: dict) -> None:
 def phase_dryrun(state: dict) -> dict:
     """The dry runs ``start_dryrun`` started, waited for (their output in
     experiments/dryrun_torch/<name>.log, beside the records): under
-    ``--all`` every pair that ``skip_reason`` runs must come out OK and
-    every other SKIP with that reason; collab_dryrun must write its six
-    programs.  Returns their walls and counts."""
+    ``--all`` every pair that ``skip_reason`` runs must come out OK,
+    partitioned by ``DTensor``, and every other SKIP with that reason;
+    collab_dryrun must write its six programs.  Returns their walls and
+    counts."""
     import torch  # noqa: F401  (the package's configs need it)
     from repro_torch.configs.base import ARCH_IDS, SHAPES, get_arch
     from repro_torch.launch import dryrun
@@ -5122,6 +5466,11 @@ def phase_dryrun(state: dict) -> dict:
                 raise AssertionError(f"dryrun: no line {want!r}")
             n_ok, n_skip = n_ok + (reason is None), n_skip + (
                 reason is not None)
+            if reason is None:
+                part = json.loads((out_dir / f"{tag}.json").read_text())[
+                    "partitioner"]
+                if part != "dtensor":
+                    raise AssertionError(f"dryrun: {tag} partitioner {part}")
     rec = json.loads(Path(ROOT / dryrun.OUT_DIR /
                           "granite-8b__train_4k__pod16x16.json").read_text())
     log(f"dryrun/pairs: {n_ok} ok, {n_skip} skipped with the reference's "
@@ -5429,6 +5778,8 @@ def main() -> int:
     lm_records, lm_launches = phase_lm_serve()
     train_records, lm_train_launches = phase_lm_train()
     partition_launches = phase_dense_partition()
+    decode_partition_launches = phase_decode_partition()
+    moe_partition_launches = phase_moe_partition()
     whisper_records, whisper_launches, whisper_train_launches = \
         phase_whisper()
     examples_launches, _ = phase_examples()
@@ -5467,14 +5818,16 @@ def main() -> int:
     records["grouped_matmul"]["capacity_shapes"] = \
         moe_train_records["capacity_shapes"]
     records["grouped_matmul_bwd"] = moe_train_records["grouped_matmul_bwd"]
-    # launches of the fourteen main paths (each counted from zero just
+    # launches of the sixteen main paths (each counted from zero just
     # before it)
     by_path = dict(zip(PATHS, (launches, train_launches, runtime_launches,
                                eval_launches, dit_launches, moe_launches,
                                moe_train_launches, lm_launches,
                                lm_train_launches, whisper_launches,
                                whisper_train_launches, examples_launches,
-                               mesh_launches, partition_launches),
+                               mesh_launches, partition_launches,
+                               decode_partition_launches,
+                               moe_partition_launches),
                        strict=True))
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in set().union(*by_path.values())}

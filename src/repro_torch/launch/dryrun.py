@@ -10,10 +10,11 @@ lowers and compiles each pair on 256 or 512 forced host devices, and
 XLA's SPMD pass partitions it; this runs rank 0's program of the pair on
 the ``meta`` device (shapes and types, nothing computed) over the
 production mesh of a fake process group (launch/mesh.py
-``make_production_mesh``), partitioned by ``DTensor`` where the port
-partitions (``partitioned``: the non-MoE families' train and prefill
-pairs, parameters, AdamW moments and batch laid out by their specs), and
-records per pair:
+``make_production_mesh``), partitioned by ``DTensor`` as JAX's SPMD pass
+partitions it (``placed_operands``: every pair's parameters, AdamW
+moments, batch or token and decode state laid out by their specs, the
+decode pairs' weights in the inference layout), and records per
+pair:
 
 * ``flops``: the floating-point operations of rank 0's step — aten's
   products and convolutions (``FlopCounterMode``'s formulas) plus the
@@ -25,7 +26,7 @@ records per pair:
 * ``bytes_per_device`` (``params``, ``opt_state``, ``batch``,
   ``decode_state``, ``total``): over every input leaf, its bytes divided
   by the product of the sizes of the axes its sanitized spec names
-  (sharding/specs.py); for a partitioned pair, the bytes of the placed
+  (sharding/specs.py); over a ``DeviceMesh``, the bytes of the placed
   operands' local parts, which are the same;
 * ``saved_activation_bytes``: the storages autograd saves for the
   backward (``saved_tensors_hooks``; each storage once, parameters
@@ -34,27 +35,28 @@ records per pair:
 * ``collectives``: the census (count and bytes of the buffers each
   writes) of the collectives rank 0 issues, by the reference's op names:
   the c10d ops dispatched over the fake group (the MoE's expert-parallel
-  all-to-all, all-gather and all-reduce) and the functional collectives
-  that ``DTensor``'s redistributions dispatch (the partitioned pairs'
-  all-gathers, reduce-scatters and all-reduces; the record says
-  ``"partitioner": "dtensor"``, the MoE, decode and collab pairs
-  ``null``); ``collective_bytes`` is their sum and
+  all-to-all, all-gather and all-reduce, and the all-reduces of decode
+  attention over a cache cut by its slots) and the functional
+  collectives that ``DTensor``'s redistributions dispatch (all-gathers,
+  reduce-scatters and all-reduces; the record says ``"partitioner":
+  "dtensor"``, the collab pairs, launch/collab_dryrun.py, ``null``);
+  ``collective_bytes`` is their sum and
   ``collective_bound_s`` that sum over the card's NVLink rate
   (launch/mesh.py ``NVLINK_BW``), the least time rank 0's collectives
   take on its links;
 * ``n_params``, ``n_active_params``, ``trace_s``.
 
-Rank 0's program: a partitioned pair's step on its placed operands (the
-batch over "pod" and "data", the weights over "model" and "data");
-another pair's step on its batch shard (the batch, the token and the
-decode state cut over the mesh's batch axes), with the full parameters
-and AdamW state, which every rank of the port holds there (an MoE rank
-computes its experts' slice).  MoE pairs run
-``moe_ep`` (``moe_ep2d`` at decode) over the fake group's process
-groups, or ``moe_dense`` with ``--moe-mode dense``.  Records go to
+Rank 0's program: the pair's step on its placed operands (the batch over
+"pod" and "data"; the weights over "model" and, except at decode, over
+"data"; caches over "model" by their heads, or by their slots where
+"model" does not divide the K/V heads).  MoE pairs run ``moe_ep``
+(``moe_ep2d`` at decode) on the experts' local parts over the fake
+group's process groups, or ``moe_dense`` with ``--moe-mode dense``.
+Records go to
 ``experiments/dryrun_torch/<tag>.json``, apart from the reference's
 ``experiments/dryrun/``.  ``reckon`` does the same for any mesh; over a
-mesh of axis sizes alone (no process group) the MoE runs dense.
+mesh of axis sizes alone (no process group) the step runs on its batch
+shard with every other operand whole, the MoE dense.
 """
 from __future__ import annotations
 
@@ -369,18 +371,58 @@ def measure(fn, args) -> dict:
             "collective_bound_s": coll / NVLINK_BW}
 
 
-def partitioned(cfg, shape) -> bool:
-    """Whether the port partitions the pair with ``DTensor``: the non-MoE
-    families' train and prefill steps (MoE weights and decode keep the
-    batch cut alone)."""
-    return not cfg.n_experts and shape.kind in ("train", "prefill")
-
-
 def local_bytes(tree) -> int:
     """Bytes this rank holds of a tree of operands: each ``DTensor``'s
     local part, any other tensor whole."""
     return sum((t.to_local() if isinstance(t, DTensor) else t).numel() *
                t.element_size() for t in tensor_leaves(tree))
+
+
+def placed_operands(cfg, shape, mesh, args):
+    """({part: operands}, the step's arguments) of rank 0 with the pair's
+    operands laid out on ``mesh`` (a ``DeviceMesh``) as ``DTensor``s:
+    the meta model's parameters by ``shard_params`` (the inference
+    layout for a decode pair), AdamW moments following them, the batch
+    or token by ``shard_batch`` / its spec, the decode state by
+    ``shard_decode_state``.  ``args``: ``input_specs``'s stand-ins."""
+    decode = shape.kind == "decode"
+    model = S.shard_params(api.empty_params(cfg, "meta"), mesh,
+                           inference=decode)
+    if decode:
+        _, token, _, pos = args
+        B = shape.global_batch
+        token = S.place(mesh, token, token.spec)
+        state = S.shard_decode_state(mesh, cfg, B, api.init_decode_state(
+            cfg, B, shape.seq_len, device="meta"))
+        return ({"params": model, "opt_state": None, "batch": token,
+                 "decode_state": state}, (model, token, state, pos))
+    batch = S.shard_batch(mesh, args[-1])
+    opt = init_opt_state(model) if shape.kind == "train" else None
+    return ({"params": model, "opt_state": opt, "batch": batch,
+             "decode_state": None},
+            (model, batch) if opt is None else (model, opt, batch))
+
+
+def batch_cut_operands(shape, args, mesh):
+    """({part: abstract operands}, the step's arguments) of rank 0 with
+    the batch, the token and the decode state cut over the mesh's batch
+    axes alone (``run_operands``), the parameters and AdamW state whole.
+    ``args``: ``input_specs``'s stand-ins."""
+    if shape.kind == "train":
+        params, opt, batch = args
+        return ({"params": params, "opt_state": opt, "batch": batch,
+                 "decode_state": None},
+                (params, whole(opt), run_operands(batch, mesh)))
+    if shape.kind == "prefill":
+        params, batch = args
+        return ({"params": params, "opt_state": None, "batch": batch,
+                 "decode_state": None},
+                (params, run_operands(batch, mesh)))
+    params, token, state, pos = args
+    return ({"params": params, "opt_state": None, "batch": token,
+             "decode_state": state},
+            (params, run_operands(token, mesh), run_operands(state, mesh),
+             pos))
 
 
 def reckon(cfg, shape, mesh, runtime=None) -> dict:
@@ -389,46 +431,22 @@ def reckon(cfg, shape, mesh, runtime=None) -> dict:
     rank 0's step on the meta device under the counters.  ``runtime``
     defaults to ``runtime_for`` the mesh over a ``DeviceMesh`` and to
     ``CPU`` (no mesh, MoE dense) over a mesh of axis sizes alone.  Over a
-    ``DeviceMesh`` a ``partitioned`` pair runs on ``DTensor`` operands:
-    the meta model's parameters laid out by ``shard_params``, AdamW
-    moments following them, the batch by ``shard_batch``."""
+    ``DeviceMesh`` the step runs on ``DTensor`` operands
+    (``placed_operands``); over axis sizes alone on its batch shard,
+    every other operand whole."""
     shape = SH.shape_of(shape)
     fake = getattr(mesh, "mesh_dim_names", None) is not None
     if runtime is None:
         runtime = SH.runtime_for(cfg, shape, mesh) if fake else CPU
     args = SH.input_specs(cfg, shape, mesh)
-    if shape.kind == "train":
-        params, opt, batch = args
-        parts = {"params": params, "opt_state": opt, "batch": batch,
-                 "decode_state": None}
-        run = (params, whole(opt), run_operands(batch, mesh))
-        cut = batch
-    elif shape.kind == "prefill":
-        params, batch = args
-        parts = {"params": params, "opt_state": None, "batch": batch,
-                 "decode_state": None}
-        run = (params, run_operands(batch, mesh))
-        cut = batch
-    else:
-        params, token, state, pos = args
-        parts = {"params": params, "opt_state": None, "batch": token,
-                 "decode_state": state}
-        run = (params, run_operands(token, mesh),
-               run_operands(state, mesh), pos)
-        cut = token
-    first = tensor_leaves(cut)[0]
+    batch = args[1] if shape.kind == "decode" else args[-1]  # or the token
+    first = tensor_leaves(batch)[0]
     batch_shards = S.shards(first.spec[:1], mesh, S.mesh_batch_axes(mesh))
-    partitioner = None
-    if fake and partitioned(cfg, shape):
-        model = S.shard_params(api.empty_params(cfg, "meta"), mesh)
-        batch = S.shard_batch(mesh, batch)
-        opt = init_opt_state(model) if shape.kind == "train" else None
-        parts = {"params": model, "opt_state": opt, "batch": batch,
-                 "decode_state": None}
-        run = (model, batch) if opt is None else (model, opt, batch)
+    if fake:
+        parts, run = placed_operands(cfg, shape, mesh, args)
         per_part = {k: local_bytes(v) for k, v in parts.items()}
-        partitioner = "dtensor"
     else:
+        parts, run = batch_cut_operands(shape, args, mesh)
         per_part = {k: device_bytes(v, mesh) for k, v in parts.items()}
     per_part["total"] = sum(per_part.values())
     rec = measure(SH.step_fn(cfg, shape, runtime), run)
@@ -436,8 +454,8 @@ def reckon(cfg, shape, mesh, runtime=None) -> dict:
     rec.update(bytes_per_device=per_part,
                saved_activation_bytes={"per_device": act,
                                        "global": act * batch_shards},
-               partitioner=partitioner, moe_mode=runtime.moe_mode
-               if cfg.n_experts else None,
+               partitioner="dtensor" if fake else None,
+               moe_mode=runtime.moe_mode if cfg.n_experts else None,
                n_params=cfg.n_params(), n_active_params=cfg.n_active_params())
     return rec
 

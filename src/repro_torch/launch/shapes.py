@@ -15,12 +15,12 @@ builds the model on the ``meta`` device without drawing its weights
 (``api.empty_params``) and attaches each parameter's sanitized spec
 (sharding/specs.py) as ``.spec``; the other operands come from
 ``specs.with_sharding``: meta tensors of the global shapes, each with
-its ``.spec``.  The dry run lays the non-MoE families' train and
-prefill operands out from them as ``DTensor``s (sharding/specs.py
-``shard_params`` / ``shard_batch``) and cuts the other pairs' operands
-over the batch axes alone (launch/dryrun.py).  Token ids are int32, as
-in JAX's stand-ins.  A decode step's
-position is a host int, as the port's decode steps take it.
+its ``.spec``.  The dry run lays every pair's operands out from them as
+``DTensor``s (sharding/specs.py ``shard_params``, ``shard_batch``,
+``shard_decode_state``; launch/dryrun.py ``placed_operands``), a decode
+pair's parameters in the inference layout.  Token ids are int32, as in
+JAX's stand-ins.  A decode step's position is a host int, as the port's
+decode steps take it.
 
 Shape semantics (the JAX package's DESIGN.md §6):
   train_4k    -> train_step(params, opt, batch) (fwd + bwd + AdamW)
@@ -148,8 +148,12 @@ def abstract_decode_state(cfg: ArchConfig, shape: ShapeConfig, mesh):
 def input_specs(cfg: ArchConfig, shape_name, mesh) -> Tuple[Any, ...]:
     """Abstract arguments of the pair's step function (``step_fn``):
     train (params, opt_state, batch); prefill (params, batch); decode
-    (params in the inference layout, token, state, pos).  ``shape_name``
-    names a ``ShapeConfig`` or is one."""
+    (params in the inference layout, token, state, pos), each leaf with
+    the spec its placed counterpart takes: ``param_specs`` (with
+    ``inference=True`` at decode: JAX's ``_drop_data``, the MoE experts
+    by ``_RULES_3D_MOE_INFER``), ``batch_spec_for``,
+    ``decode_state_specs``.  ``shape_name`` names a ``ShapeConfig`` or
+    is one."""
     shape = shape_of(shape_name)
     if shape.kind == "train":
         params = abstract_params(cfg, mesh)

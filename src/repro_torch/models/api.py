@@ -19,7 +19,12 @@ default ``CPU``) picks the MoE family's mode as in JAX: ``moe_dense``
 without a mesh, ``moe_ep`` or ``moe_ep2d`` over a ``DeviceMesh``
 (launch/shapes.py ``make_runtime`` / ``runtime_for``).  The decode state
 is per-layer lists (models/transformer.py, models/hybrid.py,
-models/encdec.py) where JAX stacks a leading layer axis.  On the card,
+models/encdec.py) where JAX stacks a leading layer axis.  Partitioned
+(parameters laid out by sharding/specs.py ``shard_params``, the decode
+steps' in the inference layout, ``inference=True``), ``prefill_fn``
+returns its state laid out for decode and ``init_decode_state`` with a
+mesh lays a zero state out alike (``shard_decode_state``); ``decode_fn``
+takes it placed and returns it placed.  On the card,
 ``loss_fn`` under grad runs attention, the SSD scan and the MoE's
 grouped matmul through their kernels' autograd routes (a backward
 kernel each).
@@ -32,6 +37,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, hybrid, transformer, vlm
 from repro_torch.models.transformer import CPU, Runtime
+from repro_torch.sharding import specs
 
 SSM_FAMILIES = ("ssm", "hybrid")
 
@@ -92,13 +98,20 @@ def prefill_fn(params, batch: Dict, cfg: ArchConfig, runtime: Runtime = CPU,
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, dtype=None,
-                      device=None):
+                      device=None, runtime: Runtime = CPU):
+    """A zero decode state of ``batch`` rows for ``seq_len`` positions on
+    ``device``; with a mesh in ``runtime``, laid out on it for decode
+    (sharding/specs.py ``shard_decode_state``)."""
     dev = resolve_device(device)
     if cfg.family in SSM_FAMILIES:
-        return hybrid.init_hybrid_state(cfg, batch, seq_len, dtype, dev)
-    if cfg.family == "audio":
-        return encdec.init_encdec_cache(cfg, batch, seq_len, dtype, dev)
-    return transformer.init_lm_cache(cfg, batch, seq_len, dtype, dev)
+        state = hybrid.init_hybrid_state(cfg, batch, seq_len, dtype, dev)
+    elif cfg.family == "audio":
+        state = encdec.init_encdec_cache(cfg, batch, seq_len, dtype, dev)
+    else:
+        state = transformer.init_lm_cache(cfg, batch, seq_len, dtype, dev)
+    if runtime is not None and runtime.mesh is not None:
+        state = specs.shard_decode_state(runtime.mesh, cfg, batch, state)
+    return state
 
 
 def decode_fn(params, token, state, pos: int, cfg: ArchConfig,

@@ -23,6 +23,18 @@ attention runs ``attend`` on each rank's heads the same way
 (``on_local_heads``): ``DTensor``'s strategy search over its 5-D
 einsums costs seconds a call.
 
+A placed decode cache (sharding/specs.py ``shard_decode_state``, laid
+out by ``kv_cache_spec``) is attended where it lies, through
+``local_map`` (``_attend_on_shards``): with its K/V heads cut over
+"model" each rank takes its query heads against them; with its slots
+cut (GQA with fewer K/V heads than "model" ranks) each rank takes every
+query head against its slots, the token's K/V written on the rank that
+owns slot pos % C, and the partial softmaxes are combined over "model"
+(``attend_partial``: the max all-reduced, then Σexp·V and Σexp), so no
+rank gathers the cache; the merged heads are sliced back to the
+out-projection's row cut (``_rows_of``).  Cross attention against
+encoder K/V cut by frames combines alike.
+
 RoPE rotates interleaved pairs (``x[..., ::2]``, ``x[..., 1::2]``) as JAX
 does, not the half-split ``rotate_half`` of common PyTorch code.
 """
@@ -203,6 +215,10 @@ def cross_attention(params: Attention, x, enc_k, enc_v, *, n_heads,
     """Decoder → encoder attention.  x: (B, Sq, D); enc_k / enc_v: (B,
     Hkv, Se, dh), prepared once by ``encoder_kv``."""
     q = _split_heads(params.wq(x), n_heads, head_dim)
+    if isinstance(enc_k, DTensor) and _seq_dim(enc_k) is not None:
+        valid = torch.ones(enc_k.shape[2], dtype=torch.bool, device=q.device)
+        a = _attend_on_shards(q, enc_k, enc_v, valid)
+        return params.wo(_rows_of(_merge_heads(a), params.wo.weight))
     if isinstance(q, DTensor):
         a = flash_ops.on_local_heads(lambda q, k, v: attend(q, k, v),
                                      q, enc_k, enc_v)
@@ -244,7 +260,10 @@ def decode_attention(params: Attention, x, cache, pos: int, *, n_heads,
 
     The buffer has length C = cache_len_for(seq, window); with a window
     it is a ring indexed by pos % C.  RoPE uses absolute positions, so
-    the relative geometry holds whatever the ring's rotation."""
+    the relative geometry holds whatever the ring's rotation.
+
+    A placed cache (sharding/specs.py ``shard_decode_state``) runs on
+    each rank's part through ``local_map`` (``_attend_on_shards``)."""
     B = x.shape[0]
     C = cache["k"].shape[2]
     dev = x.device
@@ -252,9 +271,6 @@ def decode_attention(params: Attention, x, cache, pos: int, *, n_heads,
     q, k_new, v_new = qkv(params, x, n_heads, n_kv_heads, head_dim,
                           positions, theta, fraction, use_rope)
     slot = pos % C
-    k, v = cache["k"].clone(), cache["v"].clone()
-    k[:, :, slot:slot + 1] = k_new
-    v[:, :, slot:slot + 1] = v_new
     # valid slots: those already written (<= pos), within the window
     idx = torch.arange(C, device=dev)
     written = (torch.ones(C, dtype=torch.bool, device=dev) if pos + 1 >= C
@@ -266,5 +282,115 @@ def decode_attention(params: Attention, x, cache, pos: int, *, n_heads,
         valid = written & (pos - abs_pos < window) & (abs_pos >= 0)
     else:
         valid = written
-    out = params.wo(_merge_heads(attend(q, k, v, valid[None, None, None])))
-    return out, {"k": k, "v": v}
+    if isinstance(cache["k"], DTensor):
+        a, k, v = _attend_on_shards(q, cache["k"], cache["v"], valid,
+                                    (k_new, v_new), slot)
+        a = _rows_of(_merge_heads(a), params.wo.weight)
+    else:
+        a, k, v = _write_attend(q, cache["k"], cache["v"], valid,
+                                (k_new, v_new), slot)
+        a = _merge_heads(a)
+    return params.wo(a), {"k": k, "v": v}
+
+
+def _write_attend(q, k, v, valid, new=(), slot: int = 0, lo: int = 0,
+                  group=None):
+    """``attend(q, k, v, valid)`` after writing ``new`` = (k_new, v_new)
+    (B, Hkv, 1, dh) into copies of k and v at slot ``slot`` − ``lo``
+    when it lies in them (``lo``: the first slot they hold); with
+    ``group``, the other slots on its other ranks (``attend_partial``).
+    Returns out, and with ``new`` the written k and v."""
+    if new:
+        k, v = k.clone(), v.clone()
+        if lo <= slot < lo + k.shape[2]:
+            k[:, :, slot - lo:slot - lo + 1] = new[0]
+            v[:, :, slot - lo:slot - lo + 1] = new[1]
+    out = attend(q, k, v, valid[None, None, None]) if group is None else \
+        attend_partial(q, k, v, valid, group)
+    return (out, k, v) if new else out
+
+
+# ---------------------------------------------------------------------------
+# Placed caches: heads cut (local), or the sequence cut (lse combine)
+# ---------------------------------------------------------------------------
+
+
+def _seq_dim(k) -> Optional[int]:
+    """The mesh dim that cuts a placed cache (B, Hkv, C, dh) along its
+    slots, or None (its heads are cut, or nothing)."""
+    dims = [d for d, p in enumerate(k.placements) if p == Shard(2)]
+    if len(dims) > 1:
+        raise ValueError(f"cache slots cut over two mesh dims: "
+                         f"{k.placements}")
+    return dims[0] if dims else None
+
+
+def attend_partial(q, k, v, mask, group):
+    """``attend`` over K/V (B, Hkv, Sk, dh) whose keys are this rank's
+    part of the sequence, the rest on the other ranks of ``group``: the
+    logits' max all-reduced, then the local Σexp and Σexp·V (float32)
+    summed in one all-reduce, and their quotient in v's type.  ``mask``
+    (Sk,) marks the local keys to attend; every query must see at least
+    one key on some rank."""
+    import torch.distributed as dist
+    B, H, Sq, dh = q.shape
+    Hkv = k.shape[1]
+    g = H // Hkv
+    qg = q.reshape(B, Hkv, g, Sq, dh)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k).float() * \
+        (1.0 / math.sqrt(dh))
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    top = logits.amax(dim=-1, keepdim=True)
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    p = torch.exp(logits - top)
+    acc = torch.cat([torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()),
+                     p.sum(dim=-1, keepdim=True)], dim=-1)
+    dist.all_reduce(acc, group=group)
+    out = (acc[..., :dh] / acc[..., dh:]).to(v.dtype)
+    return out.reshape(B, H, Sq, dh)
+
+
+def _attend_on_shards(q, k, v, valid, new=(), slot: int = 0):
+    """``attend(q, k, v, valid)`` on placed operands, each rank on its
+    part through ``local_map``, after writing ``new`` = (k_new, v_new)
+    (B, Hkv, 1, dh) into slot ``slot`` when given.  The batch is cut as
+    the K/V cut it.  With their heads cut over "model", each rank takes
+    its query heads against its K/V heads (q's heads cut alike).  With
+    their keys cut (a cache's slots), each rank takes the whole heads of
+    q (and of ``new``, written on the rank that owns the slot) against
+    its keys, combined by ``attend_partial`` over that mesh dim: no rank
+    gathers the keys.  Returns out (B, H, Sq, dh), and with ``new`` the
+    written k and v, all placed."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = k.device_mesh
+    d = _seq_dim(k)
+    cut = 1 if d is None else 2
+    (c_pl, _), (q_pl, _) = specs.local_map_placements(
+        specs.mesh_kinds(k, 0, cut), (0, cut), (0, 1 if d is None else None))
+    lo, n = 0, k.shape[2]
+    if d is not None:
+        n //= mesh.size(d)
+        lo = mesh.get_local_rank(d) * n
+    mask = valid[lo:lo + n]
+    group = None if d is None else mesh.get_group(d)
+    local = lambda q, k, v, *kv_new: _write_attend(q, k, v, mask, kv_new,
+                                                   slot, lo, group)
+    return local_map(local, out_placements=(q_pl, c_pl, c_pl) if new
+                     else q_pl,
+                     in_placements=(q_pl, c_pl, c_pl) + (q_pl,) * len(new),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k, v, *new)
+
+
+def _rows_of(a, w):
+    """A placed activation (B, S, H·dh) cut along its last dim as the
+    input dim (1) of ``w`` (an out-projection's weight) is: this rank's
+    slice of the row cut, taken without communication where ``a`` is
+    whole there."""
+    if not isinstance(w, DTensor):
+        return a
+    last = Shard(a.ndim - 1)
+    want = [last if pw == Shard(1) else pa if pa != last else Replicate()
+            for pa, pw in zip(a.placements, w.placements)]
+    return a if want == list(a.placements) else \
+        a.redistribute(a.device_mesh, want)

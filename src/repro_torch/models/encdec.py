@@ -28,7 +28,10 @@ encoder frame.  The entry points take JAX's ``runtime``
 ``decode_train`` pin the residual stream at JAX's call sites
 (``constrain``), which is what a ``DTensor`` model needs; no MoE block
 and no remat in these loops.  Partitioned, the vocabulary of 51,865
-stays whole (``sanitize_spec``) and cross attention stays plain torch.
+stays whole (``sanitize_spec``) and cross attention stays plain torch;
+the prefill returns its cache laid out by ``kv_cache_spec`` (the self
+and cross caches, cut by slots or frames where "model" does not divide
+the K/V heads), and a decode step attends each where it lies.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from typing import List
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
@@ -47,7 +51,7 @@ from repro_torch.models.layers import (GeluMLP, LayerNorm, dense, embed,
                                        sinusoidal_embedding)
 from repro_torch.models.transformer import (CPU, Runtime, batch_spec,
                                             constrain, cross_entropy,
-                                            stacked_init)
+                                            decode_layout, stacked_init)
 
 
 def _attention(cfg: ArchConfig, dtype, device) -> attn.Attention:
@@ -239,7 +243,15 @@ def encdec_loss(params: EncDec, batch, cfg: ArchConfig,
 def _fit(t, C: int):
     """A layer's self K/V (B, H, S, dh) as the C-slot cache: zero-padded
     when S < C, else its last C positions (the reference's own layout, not
-    the LM's ring: position p sits in slot p − (S − C))."""
+    the LM's ring: position p sits in slot p − (S − C)).  Placed K/V (never
+    cut along S) are fitted on each rank's part (``local_map``), as
+    models/transformer.py ``_to_ring`` packs them."""
+    if isinstance(t, DTensor):
+        from torch.distributed.tensor.experimental import local_map
+        return local_map(lambda x: _fit(x, C),
+                         out_placements=list(t.placements),
+                         in_placements=(t.placements,),
+                         device_mesh=t.device_mesh)(t)
     S = t.shape[2]
     return F.pad(t, (0, 0, 0, C - S)) if S < C else t[:, :, -C:]
 
@@ -257,7 +269,8 @@ def encdec_prefill(params: EncDec, frames, tokens, cfg: ArchConfig,
     cache = [{"k": _fit(k, C), "v": _fit(v, C), "cross_k": ck,
               "cross_v": cv}
              for (k, v), ck, cv in zip(kvs, cross_k, cross_v)]
-    return params.unembed(hidden[:, -1:, :]), cache
+    return params.unembed(hidden[:, -1:, :]), \
+        decode_layout(cache, cfg, runtime)
 
 
 def init_encdec_cache(cfg: ArchConfig, batch: int, enc_len: int,
@@ -276,9 +289,11 @@ def encdec_decode_step(params: EncDec, token, cache, pos: int,
     """One decoder token (B, 1) against the self cache (slot pos % C) and
     the cross K/V over every encoder frame; ``pos`` a host int.  Returns
     (logits (B, 1, V), new cache); the given cache is not changed."""
-    x = embed(params.tok_embed, token)
+    x = constrain(embed(params.tok_embed, token), runtime,
+                  batch_spec(runtime))
     p = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    x = x + sinusoidal_embedding(p, cfg.d_model)[None].to(x.dtype)
+    x = x + replicate_like(x, sinusoidal_embedding(p, cfg.d_model)[None]
+                           .to(x.dtype))
     new_cache = []
     for lp, c in zip(params.dec_layers, cache):
         h = layernorm(lp.norm1, x, cfg.norm_eps)
@@ -293,7 +308,7 @@ def encdec_decode_step(params: EncDec, token, cache, pos: int,
                                      n_kv_heads=cfg.n_kv_heads,
                                      head_dim=cfg.head_dim_)
         h = layernorm(lp.norm2, x, cfg.norm_eps)
-        x = x + gelu_mlp(lp.mlp, h)
+        x = constrain(x + gelu_mlp(lp.mlp, h), runtime, batch_spec(runtime))
         new_cache.append({**c, **kv})
     x = layernorm(params.dec_norm, x, cfg.norm_eps)
     return params.unembed(x), new_cache

@@ -14,7 +14,9 @@ attention through the flash kernel on the card; decode is plain torch.
 Decode state, as lists where JAX stacks: ``head`` holds G groups of g
 per-layer ``{"ssm", "conv"}`` states, ``tail`` the r remaining layers',
 ``shared`` the G ring KV caches ``{"k", "v"}`` of the shared block's
-applications .
+applications.  Partitioned, the prefill returns the state laid out by
+``ssm_state_specs`` and a decode step takes and returns it placed, the
+residual pinned after every layer.
 """
 from __future__ import annotations
 
@@ -33,8 +35,9 @@ from repro_torch.models.ssm import (Mamba, fill_mamba, mamba_decode,
 from repro_torch.models.transformer import (CPU, Block, Runtime, batch_spec,
                                             block_apply, block_decode,
                                             constrain, cross_entropy,
-                                            fill_block, logits_of,
-                                            ring_cache, stacked_init)
+                                            decode_layout, fill_block,
+                                            logits_of, ring_cache,
+                                            stacked_init)
 
 
 def _grouping(cfg: ArchConfig) -> Tuple[int, int, int]:
@@ -155,7 +158,8 @@ def hybrid_prefill(params: HybridLM, tokens, cfg: ArchConfig,
     if cfg.shared_attn_every > 0:
         C = cache_len or attn.cache_len_for(S, cfg.sliding_window)
         state["shared"] = ring_cache(shared_kvs, C, S)
-    return logits_of(params, hidden[:, -1:, :], runtime), state
+    return logits_of(params, hidden[:, -1:, :], runtime), \
+        decode_layout(state, cfg, runtime)
 
 
 def hybrid_decode_step(params: HybridLM, token, state, pos: int,
@@ -163,7 +167,7 @@ def hybrid_decode_step(params: HybridLM, token, state, pos: int,
     """token: (B, 1); ``state`` from ``init_hybrid_state`` or a prefill;
     ``pos`` the token's position (a host int).  Returns (logits (B, 1,
     V), new state); the given state is not changed."""
-    x = embed(params.embed, token)
+    x = constrain(embed(params.embed, token), runtime, batch_spec(runtime))
     g, G, _ = _grouping(cfg)
     head, tail = _split_groups(params.mamba, g, G)
 
@@ -171,6 +175,7 @@ def hybrid_decode_step(params: HybridLM, token, state, pos: int,
         new = []
         for layer, st in zip(layers, states, strict=True):
             x, st = mamba_decode(layer, x, st, cfg)
+            x = constrain(x, runtime, batch_spec(runtime))
             new.append(st)
         return x, new
 

@@ -24,7 +24,15 @@ the ``runtime`` as JAX's does:
 A rank of the mesh holds the full parameters and uses its slice of them
 (its experts, and in ``moe_ep2d`` its part of F), as JAX's ``shard_map``
 gives each device its shard; gradients reach the full tensors through
-the slices.  JAX's collectives become ``torch.distributed.nn.functional``
+the slices.  Placed parameters (sharding/specs.py ``shard_params``,
+``DTensor``s) and a placed x run the same functions on local parts:
+each expert tensor redistributed to this rank's experts (the training
+layout's FSDP all-gather over "data", whose backward reduce-scatters
+the gradient; in the inference layout nothing moves) and taken with
+``to_local`` (``_local_experts``), y placed back as x, the aux loss as
+a placed vector of the batch shards' losses and its mean.
+
+JAX's collectives become ``torch.distributed.nn.functional``
 ones on the mesh's process groups (launch/mesh.py), which autograd
 differentiates: ``all_to_all`` → ``all_to_all_single`` over ``model``,
 ``all_gather`` over the batch axes → ``all_gather`` over ``data`` (over
@@ -55,7 +63,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
 from repro_torch.kernels.grouped_matmul import ops as gmm_ops
-from repro_torch.models.layers import dense_init, fill
+from repro_torch.models.layers import dense_init, fill, replicate_like
 
 
 class MoE(nn.Module):
@@ -101,7 +109,12 @@ def _router(params: MoE, x: torch.Tensor, top_k: int):
     int64).  The k largest probabilities in descending order, renormalised
     to sum to one (``lax.top_k``; on exact ties JAX takes the lower index
     first, which ``torch.topk`` does not promise)."""
-    logits = x.float() @ params.router
+    return _route(params.router, x, top_k)
+
+
+def _route(router: torch.Tensor, x: torch.Tensor, top_k: int):
+    """``_router`` with the router's weight (d, E) given."""
+    logits = x.float() @ router
     probs = torch.softmax(logits, dim=-1)
     topk_w, topk_idx = torch.topk(probs, top_k, dim=-1, largest=True,
                                   sorted=True)
@@ -113,8 +126,11 @@ def _aux_loss(probs: torch.Tensor, topk_idx: torch.Tensor,
               n_experts: int) -> torch.Tensor:
     """Switch-style load-balance loss: E * sum_e f_e * P_e.  The counts
     are a compare-and-sum over the E experts (``bincount``'s values,
-    whose output size a meta tensor cannot know)."""
-    experts = torch.arange(n_experts, device=topk_idx.device)
+    whose output size a meta tensor cannot know).  Placed (``DTensor``)
+    probabilities and choices, cut by rows, give the loss of all the
+    rows."""
+    experts = replicate_like(topk_idx, torch.arange(
+        n_experts, device=topk_idx.device))
     counts = (topk_idx.reshape(-1, 1) == experts).sum(dim=0).float()
     f = counts / torch.clamp(counts.sum(), min=1.0)
     p = probs.mean(dim=0)
@@ -132,16 +148,31 @@ def _expert_ffn(w_gate, w_up, w_down, tokens: torch.Tensor) -> torch.Tensor:
 def moe_dense(params: MoE, x: torch.Tensor, cfg: ArchConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D).  Every expert on every token, combined with the
-    router's top-k weights.  Returns (y (B, S, D), aux loss)."""
+    router's top-k weights.  Returns (y (B, S, D), aux loss).
+
+    Placed (``DTensor`` parameters and x, a mesh without ``moe_ep``):
+    each rank its batch shard against every expert, gathered whole
+    (``_local_experts``), y placed as x; the aux loss over the whole
+    batch, its probabilities and choices placed by rows."""
+    from torch.distributed.tensor import DTensor
+    placed = isinstance(params.w_gate, DTensor)
+    if placed:
+        w = [_local_experts(getattr(params, n), x)
+             for n in ("w_gate", "w_up", "w_down")]
+        x, router, back, rows = _placed(params, x)
+    else:
+        router, w = params.router, (params.w_gate, params.w_up,
+                                    params.w_down)
     B, S, D = x.shape
     xt = x.reshape(-1, D)
-    probs, topk_w, topk_idx = _router(params, xt, cfg.top_k)
+    probs, topk_w, topk_idx = _route(router, xt, cfg.top_k)
     combine = torch.zeros_like(probs).scatter_(1, topk_idx, topk_w)
-    y_e = _expert_ffn(params.w_gate, params.w_up, params.w_down,
-                      xt.unsqueeze(0).expand(cfg.n_experts, -1, -1))
+    y_e = _expert_ffn(*w, xt.unsqueeze(0).expand(cfg.n_experts, -1, -1))
     y = torch.einsum("end,ne->nd", y_e, combine.to(y_e.dtype))
-    aux = _aux_loss(probs, topk_idx, cfg.n_experts)
-    return y.reshape(B, S, D), aux
+    y = y.reshape(B, S, D)
+    if not placed:
+        return y, _aux_loss(probs, topk_idx, cfg.n_experts)
+    return back(y), _aux_loss(rows(probs), rows(topk_idx), cfg.n_experts)
 
 
 # ---------------------------------------------------------------------------
@@ -297,27 +328,136 @@ def _experts_round_trip(buf, w_gate, w_up, w_down, group, ep: int,
     return _all_to_all(out.reshape(ep * e_loc * capacity, D), group)
 
 
+# ---------------------------------------------------------------------------
+# placed operands: the experts laid out by sharding/specs.py ``shard_params``
+# ---------------------------------------------------------------------------
+
+
+class _ShareGrad(torch.autograd.Function):
+    """The identity, whose backward divides the gradient by ``n``: an
+    expert's local weights serve the ``n`` model ranks' identical copies
+    of a batch shard's tokens, so their gradients arrive ``n`` times."""
+
+    @staticmethod
+    def forward(ctx, w, n: int):
+        ctx.n = n
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def _batch_dims(x):
+    """The mesh dims that cut a placed x's batch (dim 0)."""
+    from torch.distributed.tensor import Shard
+    return {d for d, p in enumerate(x.placements) if p == Shard(0)}
+
+
+def _local_experts(w, x, model_axis=None, cut=None):
+    """This rank's part of a placed expert tensor (E, ·, ·) for the placed
+    tokens ``x``: the experts of its ``model_axis`` rank (every expert
+    without one), and over ``cut`` = (mesh axis, tensor dim) its slice of
+    that dim, whole over every other mesh dim.  Redistributed to that
+    layout first: in the training layout (``_RULES_3D_MOE``) the
+    all-gather over "data" of the FSDP cut, whose backward
+    reduce-scatters the gradient; in the inference layout
+    (``_RULES_3D_MOE_INFER``, the ``cut`` of ``moe_ep2d``) nothing moves.
+    Its gradient is a partial sum over the mesh dims that cut x's batch,
+    scaled by 1/ep for the ep copies of the tokens its experts see."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    batch = _batch_dims(x)
+    want, grad = [], []
+    for d, name in enumerate(mesh.mesh_dim_names):
+        if name == model_axis:
+            want.append(Shard(0))
+        elif cut is not None and name == cut[0]:
+            want.append(Shard(cut[1]))
+        else:
+            want.append(Replicate())
+        grad.append(Partial() if d in batch and want[-1] == Replicate()
+                    else want[-1])
+    if list(w.placements) != want:
+        w = w.redistribute(mesh, want)
+    local = w.to_local(grad_placements=grad)
+    ep = 1 if model_axis is None else _axis_size(mesh, model_axis)
+    return _ShareGrad.apply(local, ep) if ep > 1 else local
+
+
+def _placed(params: MoE, x):
+    """(x's local part, the router's local tensor, a function that places
+    a local output as x, one that places this shard's rows of a result
+    as the rows of all the shards) of a placed MoE call.  The router's
+    gradient is a partial sum over the mesh dims that cut the batch (each
+    rank routes its shard) and whole over the others (their ranks route
+    the same tokens)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = x.device_mesh
+    batch = _batch_dims(x)
+    router = params.router.to_local(grad_placements=[
+        Partial() if d in batch else Replicate() for d in range(mesh.ndim)])
+    back = lambda y: DTensor.from_local(y, mesh, x.placements,
+                                        run_check=False, shape=x.shape,
+                                        stride=x.stride())
+    rows = lambda t: DTensor.from_local(t, mesh, [
+        Shard(0) if d in batch else Replicate() for d in range(mesh.ndim)],
+        run_check=False)
+    return x.to_local(), router, back, rows
+
+
+def _mean_of_shards(rows, aux):
+    """JAX's ``jnp.mean`` of the batch shards' aux losses, this shard's
+    ``aux`` placed by ``rows``: their sum over the shards, then / their
+    count (where the mean would be a partial average, which the loss's
+    partial sums do not meet)."""
+    vec = rows(aux.reshape(1))
+    return vec.sum() / vec.shape[0]
+
+
 def moe_ep(params: MoE, x: torch.Tensor, cfg: ArchConfig, mesh,
            batch_axes=("data",), model_axis: str = "model"
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel MoE over ``mesh``.  x: this rank's batch shard (B,
     S, D); this rank runs its experts of the ``model`` axis.  One
     all-to-all pair per layer (dispatch and return).  Returns (y (B, S, D)
-    in x's type, the aux loss averaged over the batch shards)."""
-    es, ep, e_loc = _expert_slice(mesh, model_axis, cfg.n_experts)
+    in x's type, the aux loss averaged over the batch shards).
+
+    Placed (``DTensor`` parameters laid out by ``shard_params``, x cut
+    over the batch axes): the same on x's local part, with each expert
+    tensor gathered over "data" to this rank's experts
+    (``_local_experts``); y comes back placed as x, the aux loss as the
+    mean of the placed per-shard losses."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(params.w_gate, DTensor):
+        x_loc, router, back, rows = _placed(params, x)
+        w = [_local_experts(getattr(params, n), x, model_axis)
+             for n in ("w_gate", "w_up", "w_down")]
+        y, aux = _moe_ep_local(x_loc, router, w, cfg, mesh, model_axis)
+        return back(y), _mean_of_shards(rows, aux)
+    es, _, _ = _expert_slice(mesh, model_axis, cfg.n_experts)
+    y, aux = _moe_ep_local(x, params.router,
+                           [params.w_gate[es], params.w_up[es],
+                            params.w_down[es]], cfg, mesh, model_axis)
+    return y, _batch_mean(aux, mesh, batch_axes)
+
+
+def _moe_ep_local(x, router, w, cfg: ArchConfig, mesh, model_axis: str):
+    """``moe_ep`` on plain tensors: x this rank's batch shard, ``w`` its
+    experts' (w_gate, w_up, w_down).  Returns (y, this shard's aux)."""
+    _, ep, e_loc = _expert_slice(mesh, model_axis, cfg.n_experts)
     B, S, D = x.shape
     xt = x.reshape(-1, D)
     N = xt.shape[0]
-    probs, topk_w, topk_idx = _router(params, xt, cfg.top_k)
+    probs, topk_w, topk_idx = _route(router, xt, cfg.top_k)
     aux = _aux_loss(probs, topk_idx, cfg.n_experts)
     capacity = _capacity(cfg, N)
     buf, meta = _dispatch_local(xt, topk_w, topk_idx, cfg.n_experts,
                                 capacity)
-    out = _experts_round_trip(buf, params.w_gate[es], params.w_up[es],
-                              params.w_down[es], mesh.get_group(model_axis),
+    out = _experts_round_trip(buf, *w, mesh.get_group(model_axis),
                               ep, e_loc, capacity)
     y = _combine_local(out, meta, N)
-    return y.reshape(B, S, D).to(x.dtype), _batch_mean(aux, mesh, batch_axes)
+    return y.reshape(B, S, D).to(x.dtype), aux
 
 
 def moe_ep2d(params: MoE, x: torch.Tensor, cfg: ArchConfig, mesh,
@@ -327,33 +467,57 @@ def moe_ep2d(params: MoE, x: torch.Tensor, cfg: ArchConfig, mesh,
     ``model_axis``, each expert's FFN width over ``data_axis``.  The
     tokens move instead: gathered over the batch group, dispatched over
     ``model``, a partial-F expert product summed over ``data``, sent back,
-    and this rank's rows kept.  x: this rank's batch shard (B, S, D)."""
+    and this rank's rows kept.  x: this rank's batch shard (B, S, D).
+
+    Placed (the inference layout of ``shard_params(inference=True)``):
+    each expert tensor's local part is this rank's slice, with nothing
+    moved (``_local_experts``); y comes back placed as x."""
+    from torch.distributed.tensor import DTensor
     es, ep, e_loc = _expert_slice(mesh, model_axis, cfg.n_experts)
     fp = _axis_size(mesh, data_axis)
     if cfg.d_ff % fp:
         raise ValueError(f"moe: d_ff {cfg.d_ff} over {fp} data ranks")
+    if isinstance(params.w_gate, DTensor):
+        x_loc, router, back, rows = _placed(params, x)
+        w = [_local_experts(getattr(params, n), x, model_axis,
+                            (data_axis, dim))
+             for n, dim in (("w_gate", 2), ("w_up", 2), ("w_down", 1))]
+        y, aux = _moe_ep2d_local(x_loc, router, w, cfg, mesh, batch_axes,
+                                 model_axis, data_axis)
+        return back(y), _mean_of_shards(rows, aux)
     f_loc = cfg.d_ff // fp
     r = mesh.get_local_rank(data_axis)
     fs = slice(r * f_loc, (r + 1) * f_loc)
+    y, aux = _moe_ep2d_local(
+        x, params.router, [params.w_gate[es, :, fs], params.w_up[es, :, fs],
+                           params.w_down[es, fs, :]],
+        cfg, mesh, batch_axes, model_axis, data_axis)
+    return y, _batch_mean(aux, mesh, batch_axes)
+
+
+def _moe_ep2d_local(x, router, w, cfg: ArchConfig, mesh, batch_axes,
+                    model_axis: str, data_axis: str):
+    """``moe_ep2d`` on plain tensors: ``w`` this rank's (w_gate, w_up,
+    w_down) slices.  Returns (y, the aux of the gathered tokens)."""
+    _, ep, e_loc = _expert_slice(mesh, model_axis, cfg.n_experts)
     batch = _batch_mesh(mesh, batch_axes)
     B, S, D = x.shape
     xt = x.reshape(-1, D)
     n_loc = xt.shape[0]
     xt_all = _all_gather(xt, batch.get_group())
     N = xt_all.shape[0]
-    probs, topk_w, topk_idx = _router(params, xt_all, cfg.top_k)
+    probs, topk_w, topk_idx = _route(router, xt_all, cfg.top_k)
     aux = _aux_loss(probs, topk_idx, cfg.n_experts)
     capacity = _capacity(cfg, N)
     buf, meta = _dispatch_local(xt_all, topk_w, topk_idx, cfg.n_experts,
                                 capacity)
     out = _experts_round_trip(
-        buf, params.w_gate[es, :, fs], params.w_up[es, :, fs],
-        params.w_down[es, fs, :], mesh.get_group(model_axis), ep, e_loc,
-        capacity, reduce_group=mesh.get_group(data_axis))
+        buf, *w, mesh.get_group(model_axis), ep, e_loc, capacity,
+        reduce_group=mesh.get_group(data_axis))
     y_all = _combine_local(out, meta, N)
     shard = batch.get_local_rank()
     y = y_all[shard * n_loc:(shard + 1) * n_loc]
-    return y.reshape(B, S, D).to(x.dtype), _batch_mean(aux, mesh, batch_axes)
+    return y.reshape(B, S, D).to(x.dtype), aux
 
 
 def moe_apply(params: MoE, x: torch.Tensor, cfg: ArchConfig, runtime=None

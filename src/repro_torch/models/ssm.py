@@ -19,7 +19,9 @@ B and C (``bc_proj``) are whole on every rank, ``A_log``, ``D``,
 operands as this rank's slice; ``out_norm`` is an RMSNorm over the cut
 d_inner (its row statistic all-reduced), and ``out_proj``'s partial sums
 are all-reduced into the residual.  The depthwise conv and the scan take
-their local parts through ``local_map``.
+their local parts through ``local_map``.  The decode step takes its
+state as ``ssm_state_specs`` lays it out: the SSM state by heads over
+"model", the conv window whole (``mamba_decode``).
 """
 from __future__ import annotations
 
@@ -121,7 +123,18 @@ def _conv_on_shards(xBC, w, b):
 
 def _conv_decode(conv_state, xBC_new, w, b):
     """conv_state: (B, K−1, Cd) the previous raw inputs; xBC_new: (B, Cd).
-    Returns (SiLU of the conv's newest output, the next state)."""
+    Returns (SiLU of the conv's newest output, the next state).  A placed
+    state (whole over "model", as ``ssm_state_specs`` lays it out) runs
+    on each rank's batch shard through ``local_map``, with every channel
+    of ``xBC_new`` (the caller gathers them)."""
+    if isinstance(conv_state, DTensor):
+        from torch.distributed.tensor.experimental import local_map
+        (s_pl, _), (w_pl, _) = specs.local_map_placements(
+            specs.mesh_kinds(conv_state, 0), (0, None), (None, None))
+        return local_map(_conv_decode, out_placements=(s_pl, s_pl),
+                         in_placements=(s_pl, s_pl, w_pl, w_pl),
+                         device_mesh=conv_state.device_mesh,
+                         redistribute_inputs=True)(conv_state, xBC_new, w, b)
     window = torch.cat([conv_state, xBC_new[:, None, :]], dim=1)  # (B,K,Cd)
     out = torch.einsum("bkc,kc->bc", window, w) + b
     return F.silu(out), window[:, 1:, :]
@@ -137,6 +150,19 @@ def ssd_decode_step(state, x, dt, A, B, C):
     new = dA[:, :, None, None] * state.to(f32) + dBx
     y = torch.einsum("bn,bhpn->bhp", C.to(f32), new)
     return y.to(x.dtype), new
+
+
+def _ssd_decode_on_shards(state, x, dt, A, B, C):
+    """``ssd_decode_step`` on placed operands through ``local_map``: each
+    rank its batch shard and the heads the state's placements give it,
+    with its slice of x, dt and A; B and C whole."""
+    from torch.distributed.tensor.experimental import local_map
+    (h_pl, _), (a_pl, _), (n_pl, _) = specs.local_map_placements(
+        specs.mesh_kinds(state, 0, 1), (0, 1), (None, 0), (0, None))
+    return local_map(ssd_decode_step, out_placements=(h_pl, h_pl),
+                     in_placements=(h_pl, h_pl, h_pl, a_pl, n_pl, n_pl),
+                     device_mesh=state.device_mesh,
+                     redistribute_inputs=True)(state, x, dt, A, B, C)
 
 
 def mamba_forward(params: Mamba, x, cfg: ArchConfig,
@@ -189,15 +215,32 @@ def mamba_init_state(cfg: ArchConfig, batch: int, dtype, device=None):
                                 device=device)}
 
 
+def _batch_only(t):
+    """A placed tensor whole on every mesh dim but those that cut its
+    batch (dim 0); anything else as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    want = [p if p == Shard(0) else Replicate() for p in t.placements]
+    return t if want == list(t.placements) else \
+        t.redistribute(t.device_mesh, want)
+
+
 def mamba_decode(params: Mamba, x, state, cfg: ArchConfig):
     """One-token step.  x: (B, 1, D); ``state`` from ``mamba_init_state``
-    or a prefill.  Returns (out (B, 1, D), new state)."""
+    or a prefill.  Returns (out (B, 1, D), new state).
+
+    Partitioned (the decode layout: ``ssm`` heads over "model", the conv
+    window whole), the new column of x channels, cut over "model" by
+    ``x_proj``, is gathered whole (B, di) on every rank, so the conv and
+    its window run whole there; the SSD step then takes each rank's heads
+    of it (a slice) with its heads of the state (``local_map``)."""
     B_ = x.shape[0]
     di, n, h, p = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_n_heads,
                    cfg.ssm_head_dim)
     xn = rmsnorm(params.norm, x[:, 0], cfg.norm_eps)
     z = params.z_proj(xn)
-    xBC_raw = torch.cat([params.x_proj(xn), params.bc_proj(xn)], dim=-1)
+    xBC_raw = torch.cat([_batch_only(params.x_proj(xn)),
+                         _batch_only(params.bc_proj(xn))], dim=-1)
     conv_w = torch.cat([params.conv_x_w, params.conv_bc_w], dim=-1)
     conv_b = torch.cat([params.conv_x_b, params.conv_bc_b], dim=-1)
     xBC, conv_state = _conv_decode(state["conv"], xBC_raw, conv_w, conv_b)
@@ -205,7 +248,10 @@ def mamba_decode(params: Mamba, x, state, cfg: ArchConfig):
     Bm, Cm = xBC[..., di:di + n], xBC[..., di + n:]
     dt = F.softplus(params.dt_proj(xn).float() + params.dt_bias)
     A = -torch.exp(params.A_log)
-    y, ssm_state = ssd_decode_step(state["ssm"], xs, dt, A, Bm, Cm)
+    if isinstance(state["ssm"], DTensor):
+        y, ssm_state = _ssd_decode_on_shards(state["ssm"], xs, dt, A, Bm, Cm)
+    else:
+        y, ssm_state = ssd_decode_step(state["ssm"], xs, dt, A, Bm, Cm)
     y = y + xs * params.D[None, :, None].to(y.dtype)
     y = y.reshape(B_, di)
     y = rmsnorm(params.out_norm, y * F.silu(z), cfg.norm_eps)

@@ -24,7 +24,7 @@ callers pass the later arguments by keyword, and as the last keyword of
 the port's order.  A block of an MoE architecture (``n_experts`` set)
 holds ``moe`` where the others hold ``mlp``.
 
-Partitioning (the dense, vlm, ssm, hybrid and audio families): with
+Partitioning (every family): with
 parameters laid out by sharding/specs.py ``shard_params`` and inputs by
 ``shard_batch`` (``DTensor``s over a ``("data", "model")`` mesh), every
 function here runs on the global shapes and ``DTensor``'s sharding
@@ -33,13 +33,19 @@ jit over ``param_specs``: Megatron tensor parallelism over "model", FSDP
 over "data".  ``constrain`` pins an activation at JAX's call sites (it
 redistributes a ``DTensor``; a plain tensor or a runtime without a mesh
 passes through), and the kernels take their local parts through
-``local_map`` (kernels/flash_attention/ops.py, kernels/ssd_scan/ops.py).
+``local_map`` (kernels/flash_attention/ops.py, kernels/ssd_scan/ops.py);
+an MoE block takes its placed experts' local parts (models/moe.py).
+Decode takes the inference layout (``shard_params(inference=True)``)
+and a placed state: a prefill lays its state out for decode
+(``decode_layout``), and each decode step pins the residual stream
+where ``block_apply`` does.
 
 Prefill runs the full-sequence blocks (attention through the flash
 kernel on the card) and keeps each layer's K/V; the cache is a list of
 per-layer ``{"k", "v"}`` buffers (B, Hkv, C, dh), where JAX stacks them
 on a leading layer axis.
-Decode is plain torch, one token against the cache, as in JAX.
+Decode is plain torch, one token against the cache, as in JAX
+(models/attention.py ``decode_attention``).
 Training: ``cross_entropy`` and ``lm_loss`` (the full-sequence blocks
 with grad; on the card attention goes through the flash kernels' autograd
 route, kernels/flash_attention/ops.py).
@@ -55,6 +61,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import bridge
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
 from repro_torch.models import attention as attn
@@ -157,20 +164,22 @@ def block_apply(params: Block, x, cfg: ArchConfig, positions,
 def block_decode(params: Block, x, cache, pos: int, cfg: ArchConfig,
                  runtime: Runtime = CPU):
     """One token through a block against its cache.  Returns (x, new
-    cache)."""
+    cache).  Partitioned, the residual stream is pinned as in
+    ``block_apply`` (where JAX leaves the layout to XLA), so the
+    row-parallel outputs are all-reduced into it."""
     h = rmsnorm(params.norm1, x, cfg.norm_eps)
     a, cache = attn.decode_attention(
         params.attn, h, cache, pos, n_heads=cfg.n_heads,
         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
         theta=cfg.rope_theta, fraction=cfg.rope_fraction,
         window=cfg.sliding_window)
-    x = x + a
+    x = constrain(x + a, runtime, batch_spec(runtime))
     h = rmsnorm(params.norm2, x, cfg.norm_eps)
     if cfg.n_experts:
         m, _ = moe_apply(params.moe, h, cfg, runtime)
     else:
         m = mlp_apply(params.mlp, h, cfg.mlp_type)
-    return x + m, cache
+    return constrain(x + m, runtime, batch_spec(runtime)), cache
 
 
 def stacked_init(key: torch.Tensor, layers: Sequence[nn.Module],
@@ -335,7 +344,19 @@ def lm_prefill(params: LM, tokens, cfg: ArchConfig, runtime: Runtime = CPU,
     S = hidden.shape[1]
     C = cache_len or attn.cache_len_for(S, cfg.sliding_window)
     return logits_of(params, hidden[:, -1:, :], runtime), \
-        ring_cache(kvs, C, S)
+        decode_layout(ring_cache(kvs, C, S), cfg, runtime)
+
+
+def decode_layout(state, cfg: ArchConfig, runtime: Optional[Runtime]):
+    """A prefill's decode state laid out for decode on the runtime's mesh
+    (sharding/specs.py ``shard_decode_state``: caches by
+    ``kv_cache_spec``, SSM states by ``ssm_state_specs``); a state of
+    plain tensors, or off-mesh, as it is."""
+    first = bridge.leaves(state)[0]
+    if runtime is None or runtime.mesh is None or \
+            not isinstance(first, DTensor):
+        return state
+    return specs.shard_decode_state(runtime.mesh, cfg, first.shape[0], state)
 
 
 def init_lm_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=None,
@@ -351,7 +372,7 @@ def lm_decode_step(params: LM, token, cache, pos: int, cfg: ArchConfig,
     """token: (B, 1) integer; cache: per-layer ``{"k", "v"}``; ``pos``
     the token's position (a host int).  Returns (logits (B, 1, V), new
     cache)."""
-    x = embed(params.embed, token)
+    x = constrain(embed(params.embed, token), runtime, batch_spec(runtime))
     new_cache = []
     for layer, c in zip(params.layers, cache):
         x, c = block_decode(layer, x, c, pos, cfg, runtime)

@@ -39,11 +39,16 @@ HWIO as OIHW).  Decode-state leaves are per layer in the port, so their
 specs are JAX's without the leading stack entries.  Optimizer moments
 inherit the parameter specs.
 
-Applying them (``shard_params``, ``shard_batch``, ``place``): a tensor
-laid out by a spec is a ``DTensor`` whose placements are the sanitized
-spec's (``placements``), the counterpart of a ``jax.Array`` with a
-``NamedSharding``; models/transformer.py ``constrain`` pins activations
-the same way, and ``pin`` lays a tensor's gradient out as the tensor.
+Applying them (``shard_params``, ``shard_batch``, ``shard_decode_state``,
+``place``): a tensor laid out by a spec is a ``DTensor`` whose
+placements are the sanitized spec's (``placements``), the counterpart of
+a ``jax.Array`` with a ``NamedSharding``; models/transformer.py
+``constrain`` pins activations the same way, and ``pin`` lays a tensor's
+gradient out as the tensor.  ``shard_params(inference=True)`` and
+``shard_decode_state`` are the decode layout: weights tensor-parallel
+only, MoE experts by ``_RULES_3D_MOE_INFER`` (models/moe.py
+``moe_ep2d``), caches by ``kv_cache_spec`` (heads over "model" where it
+divides them, else the sequence), SSM states by ``ssm_state_specs``.
 """
 from __future__ import annotations
 
@@ -385,6 +390,24 @@ def shard_batch(mesh, batch):
     they divide it, replicated otherwise."""
     return {k: place(mesh, t, batch_spec_for(mesh, t.shape[0], t.ndim - 1))
             for k, t in batch.items()}
+
+
+def shard_decode_state(mesh, cfg, global_batch: int, state):
+    """A decode state (the port's per-layer lists of caches and SSM
+    states) laid out on ``mesh`` by ``decode_state_specs``, each leaf's
+    spec sanitized against its shape as ``with_sharding`` does: a plain
+    leaf placed (its local part a copy of this rank's slice), a placed
+    one (a prefill's) redistributed to that layout.  Returns the new
+    tree; the given one is not changed."""
+    from torch.distributed.tensor import DTensor
+
+    def one(leaf, spec):
+        spec = sanitize_spec(spec, tuple(leaf.shape), mesh)
+        if isinstance(leaf, DTensor):
+            return leaf.redistribute(mesh, placements(spec, mesh))
+        return place(mesh, leaf, spec, copy=True)
+    return zip_map(one, state,
+                   decode_state_specs(mesh, cfg, global_batch, state))
 
 
 def local_part(t):

@@ -417,8 +417,9 @@ def test_main_runs_every_phase_in_order():
     """The phases main() drives, in order: the evaluation scores what the
     training runtime trained, the MoE training path follows the MoE
     DiT's, the LM serving path runs after the DiT's and the MoE's kernel
-    shapes, the partitioned dense path after the LM's, then the
-    encoder-decoder and the examples, then the card check of the meta
+    shapes, the partitioned dense, decode and MoE paths after the LM's,
+    then the encoder-decoder and the examples, then the card check of the
+    meta
     route while the dry runs (started just before it, after every phase
     that times the host) run on the CPU, then the dry runs' checks."""
     import inspect
@@ -431,12 +432,14 @@ def test_main_runs_every_phase_in_order():
                      "phase_clients_mesh", "phase_eval", "phase_dit",
                      "phase_grouped_matmul", "phase_moe", "phase_moe_train",
                      "phase_lm_serve", "phase_lm_train",
-                     "phase_dense_partition", "phase_whisper",
+                     "phase_dense_partition", "phase_decode_partition",
+                     "phase_moe_partition", "phase_whisper",
                      "phase_examples", "phase_meta_check", "phase_dryrun"]
     assert cs.PATHS == ("serve", "train", "train_runtime", "eval", "dit",
                         "moe", "moe_train", "lm_serve", "lm_train",
                         "whisper_serve", "whisper_train", "examples",
-                        "clients_mesh", "dense_partition")
+                        "clients_mesh", "dense_partition",
+                        "decode_partition", "moe_partition")
     assert "partition_meta_check()" in inspect.getsource(cs.phase_meta_check)
     src = inspect.getsource(cs.main)
     assert src.index("phase_examples()") < src.index("start_dryrun()") \
@@ -449,7 +452,7 @@ def test_main_runs_every_phase_in_order():
 def test_kernels_line_carries_the_new_paths_and_lm_shapes():
     """``launches_by_path`` has an entry for every path of PATHS (eval,
     lm_serve, lm_train, whisper's two, the examples and the partitioned
-    dense path included); flash
+    dense, decode and MoE paths included); flash
     and the SSD
     scan carry their numbers at the LM prefill's shapes, flash and its
     backward theirs at whisper's encoder and decoder shapes."""
@@ -481,7 +484,11 @@ def test_kernels_line_carries_the_new_paths_and_lm_shapes():
            "clients_mesh": {"ddpm_step": 200, "ddpm_step_batched": 200},
            "dense_partition": {"flash_attention": 18,
                                "flash_attention_bwd": 12, "ssd_scan": 114,
-                               "ssd_scan_bwd": 76}}
+                               "ssd_scan_bwd": 76},
+           "decode_partition": {"flash_attention": 6, "ssd_scan": 38},
+           "moe_partition": {"grouped_matmul": 60, "grouped_matmul_bwd": 6,
+                             "flash_attention": 4,
+                             "flash_attention_bwd": 2}}
     enc = dict(shape=[4, 8, 1500, 64], causal=False, ms=0.05)
     bwd = dict(shape=[8, 8, 1500, 64], causal=False, ms=0.3, simt_ms=9.0)
     records["flash_attention"]["whisper_encoder"] = enc
@@ -513,6 +520,9 @@ def test_kernels_line_carries_the_new_paths_and_lm_shapes():
     assert line[2]["launches_by_path"]["dense_partition"] == 18
     assert line[6]["launches_by_path"]["dense_partition"] == 76
     assert line[0]["launches_by_path"]["dense_partition"] == 0
+    assert line[3]["launches_by_path"]["decode_partition"] == 38
+    assert line[7]["launches_by_path"]["moe_partition"] == 6
+    assert line[3]["launches_by_path"]["moe_partition"] == 0
     assert line[5]["launches_by_path"]["whisper_train"] == 240
     assert line[3]["launches_by_path"]["whisper_train"] == 0
     assert line[2]["whisper_encoder"] == enc

@@ -5,9 +5,13 @@
   worker): ``run_pair`` for granite-8b ``decode_32k``, mamba2-2.7b
   ``long_500k`` and dbrx-132b ``train_4k`` (expert-parallel, ``ep``) on
   the single-pod fake mesh comes out ``ok`` with every field and a
-  written record, ``"partitioner": "dtensor"`` where ``partitioned``
-  (none of these three) and null elsewhere; the MoE pair's census holds
-  the expert-parallel all-to-alls; a reduced granite-8b train step
+  written record, each ``"partitioner": "dtensor"``; the decode pairs'
+  census holds the all-reduces of the row-parallel outputs (and of
+  granite's attention over a cache cut by its slots), granite's decode
+  a sixth of the FLOPs of the same step with the batch cut alone and the
+  same bytes per device; the MoE pair's census holds the
+  expert-parallel all-to-alls, the experts' all-gathers over "data" and
+  their gradients' reduce-scatters; a reduced granite-8b train step
   partitioned on the fake mesh holds all-gathers, reduce-scatters and
   all-reduces, fewer FLOPs than the same step with the batch cut alone,
   and parameter bytes from its placed tensors equal to
@@ -38,7 +42,7 @@ from repro.configs.base import SHAPES as JSHAPES
 from repro.configs.base import get_arch as jget_arch
 from repro.launch.shapes import skip_reason as jskip_reason
 from repro_torch import kernels
-from repro_torch.configs.base import SHAPES, ShapeConfig, get_arch, reduced
+from repro_torch.configs.base import ShapeConfig, get_arch, reduced
 from repro_torch.kernels.ddpm_step import cost as ddpm_cost
 from repro_torch.kernels.ddpm_step import kernel as dkernel
 from repro_torch.kernels.ddpm_step import ops as dops
@@ -81,6 +85,8 @@ shape = ShapeConfig("t", 32, 32, "train")
 sizes = types.SimpleNamespace(shape={{"data": 16, "model": 16}})
 out.append({{"part": dryrun.reckon(cfg, shape, mesh),
             "plain": dryrun.reckon(cfg, shape, sizes),
+            "decode_plain": dryrun.reckon(get_arch("granite-8b"),
+                                          "decode_32k", sizes),
             "param_bytes": dryrun.device_bytes(
                 shapes.abstract_params(cfg, mesh), mesh)}})
 try:
@@ -103,20 +109,33 @@ def test_run_pair_on_the_fake_production_mesh(tmp_path):
     for rec in recs[:3]:
         assert rec["status"] == "ok" and set(rec) == FIELDS, rec
         assert rec["n_devices"] == 256 and rec["mesh"] == "pod16x16"
-        partitioned = dryrun.partitioned(get_arch(rec["arch"]),
-                                         SHAPES[rec["shape"]])
-        assert rec["partitioner"] == ("dtensor" if partitioned else None)
+        assert rec["partitioner"] == "dtensor"
         assert rec["flops"] > 0
         assert rec["bytes_per_device"]["total"] == sum(
             v for k, v in rec["bytes_per_device"].items() if k != "total")
         saved = json.loads((tmp_path / f"{rec['tag']}.json").read_text())
         assert saved == rec
     decode, long, moe = recs[:3]
-    assert decode["collectives"] == {} and long["collectives"] == {}
+    for rec in (decode, long):
+        assert rec["collectives"]["all-reduce"]["count"] > 0
+        assert "all-to-all" not in rec["collectives"]
     assert decode["saved_activation_bytes"] == {"per_device": 0,
                                                 "global": 0}
+    # granite's 8 K/V heads over 16 model ranks: the cache is cut by its
+    # slots, and each layer all-reduces the max and the two sums
+    assert decode["collectives"]["all-reduce"]["count"] >= \
+        4 * get_arch("granite-8b").n_layers
+    plain = red["decode_plain"]
+    assert plain["partitioner"] is None and plain["collectives"] == {}
+    assert 0 < 6 * decode["flops"] < plain["flops"]
+    assert decode["bytes_per_device"] == plain["bytes_per_device"]
     assert moe["moe_mode"] == "ep" and \
         moe["collectives"]["all-to-all"]["count"] > 0
+    # the experts gathered over "data" forward (three tensors a layer),
+    # their gradients reduce-scattered back
+    layers = get_arch("dbrx-132b").n_layers
+    assert moe["collectives"]["all-gather"]["count"] >= 3 * layers
+    assert moe["collectives"]["reduce-scatter"]["count"] >= 3 * layers
     assert moe["collective_bytes"] == sum(
         c["bytes"] for c in moe["collectives"].values()) > 0
     assert moe["collective_bound_s"] == moe["collective_bytes"] / NVLINK_BW
