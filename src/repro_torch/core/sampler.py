@@ -66,6 +66,7 @@ from repro_torch.core.sample_plan import (InjectTables, PlanTables,
                                           SamplePlan, strided_server_table)
 from repro_torch.core.schedules import DiffusionSchedule
 from repro_torch.core.splitting import CutPoint
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.sharding.specs import gather, local_part, whole
 from repro_torch.kernels.ddpm_step.ops import (ddpm_step as fused_ddpm_step,
                                                ddpm_step_keyed,
@@ -170,7 +171,8 @@ def _lead(v: torch.Tensor, ndim: int) -> torch.Tensor:
 
 def make_sample_engine(sched: DiffusionSchedule, apply_fn,
                        image_shape: Tuple[int, ...],
-                       server_ddim: bool = False, split: bool = False):
+                       server_ddim: bool = False, split: bool = False,
+                       tracer=NULL_TRACER, probe=None):
     """Build the batched executor:
 
         engine(server_params, client_params, key, tables, inject=None)
@@ -195,8 +197,23 @@ def make_sample_engine(sched: DiffusionSchedule, apply_fn,
     samples are gathered in request order.  Every row is keyed by its own
     seed and the kernel's rows are bitwise across K, so the outputs are
     the unplaced engine's, bit for bit, at any world size.
+
+    ``tracer`` (repro_torch.obs; the inert ``NULL_TRACER`` by default)
+    times each step of the two loops as a ``server_step`` or
+    ``client_step`` span (attrs ``step``, ``rows``: the rows its DDPM
+    launch advances) and, when enabled, each denoiser call as a
+    ``model_call`` span inside it.  ``probe`` (obs.probe.StarvationProbe,
+    or None) is opened at the start of each step and closed after its
+    DDPM launch.  Both are fixed when the engine is built, so the stages'
+    signatures do not change.
     """
     shape_of = lambda B: (B,) + tuple(image_shape)
+
+    def traced_call(params, x, t, y):
+        with tracer.span("model_call"):
+            return apply_fn(params, x, t, y)
+
+    call = traced_call if tracer.enabled else apply_fn
 
     @torch.no_grad()
     def server_stage(server_params, key, tables: PlanTables):
@@ -210,17 +227,22 @@ def make_sample_engine(sched: DiffusionSchedule, apply_fn,
         coefs = None if server_ddim else \
             step_coefficient_table(sched, gt, gtp)           # (G, S, 3)
         for s in range(gt.shape[1]):
-            t, active = gt[:, s], ga[:, s]
-            eps = torch.stack([
-                apply_fn(server_params, x[g], _full(t[g], B), gy[g])
-                for g in range(G)])
-            if server_ddim:
-                xn = sched.ddim_step(x, eps, _lead(t, x.ndim),
-                                     _lead(gtp[:, s], x.ndim))
-                x = torch.where(_lead(active, x.ndim) > 0, xn, x)
-            else:
-                x = ddpm_step_rowwise(x, eps.float(), gkeys, 1 + s,
-                                      coefs[:, s], active)
+            with tracer.span("server_step", step=s, rows=G * B):
+                if probe is not None:
+                    probe.open()
+                t, active = gt[:, s], ga[:, s]
+                eps = torch.stack([
+                    call(server_params, x[g], _full(t[g], B), gy[g])
+                    for g in range(G)])
+                if server_ddim:
+                    xn = sched.ddim_step(x, eps, _lead(t, x.ndim),
+                                         _lead(gtp[:, s], x.ndim))
+                    x = torch.where(_lead(active, x.ndim) > 0, xn, x)
+                else:
+                    x = ddpm_step_rowwise(x, eps.float(), gkeys, 1 + s,
+                                          coefs[:, s], active)
+                if probe is not None:
+                    probe.close()
         return x if cut_dim is None else gather(x, mesh, 0)
 
     @torch.no_grad()
@@ -245,12 +267,17 @@ def make_sample_engine(sched: DiffusionSchedule, apply_fn,
         R = x.shape[0]
         coefs = step_coefficient_table(sched, ct, ctp)       # (R, C, 3)
         for c in range(ct.shape[1]):
-            t = ct[:, c]
-            eps = torch.stack([
-                apply_fn(params_r[r], x[r], _full(t[r], B), y_r[r])
-                for r in range(R)])
-            x = ddpm_step_rowwise(x, eps.float(), rkeys, c, coefs[:, c],
-                                  ca[:, c])
+            with tracer.span("client_step", step=c, rows=R * B):
+                if probe is not None:
+                    probe.open()
+                t = ct[:, c]
+                eps = torch.stack([
+                    call(params_r[r], x[r], _full(t[r], B), y_r[r])
+                    for r in range(R)])
+                x = ddpm_step_rowwise(x, eps.float(), rkeys, c,
+                                      coefs[:, c], ca[:, c])
+                if probe is not None:
+                    probe.close()
         return x if cut_dim is None else gather(x, mesh, 0)
 
     def engine(server_params, client_params, key, tables: PlanTables,

@@ -10,28 +10,40 @@ through ONE subsystem:
   ``RecompileGuard`` signature counter the runtimes assert on).
 * ``obs.trace`` — nestable spans with injected clocks.  Serve waves
   decompose into straggle_stall / plan / cache_probe / server_scan /
-  client_scan / retire children; train rounds into cohort_sample /
-  plan / round_dispatch / barrier_stall / fedavg / checkpoint.  Wave
-  and round spans close at OBSERVED completion (the ready-probe
-  gauge) and are attributed to their retire frame.
+  client_scan / retire children; each scan into one ``server_step`` or
+  ``client_step`` a step of the engine's loop (attrs ``step``,
+  ``rows``), and each step into one ``model_call`` a call of the
+  denoiser (the stacking and the DDPM-step launch, the step's glue,
+  stay outside it).  Train rounds decompose into cohort_sample / plan /
+  round_dispatch / barrier_stall / fedavg / checkpoint.  Wave and round
+  spans close at OBSERVED completion (the ready-probe gauge) and are
+  attributed to their retire frame.  Every synchronous span is also a
+  ``repro.<name>`` range in any running ``torch.profiler`` session.
+* ``obs.probe`` — the starvation probe: while tracing is on, the
+  engine's ``probed_steps`` counter counts its steps and
+  ``starved_steps`` those the device had finished the previous step
+  before the host opened (a CUDA event after each step, queried without
+  blocking at the next).
 * ``obs.export`` — JSONL event stream, Perfetto/Chrome trace export,
   and an opt-in ``torch.profiler`` session.
 
 THE OBS CONTRACT (pinned by the serve tests and the CLI smoke):
 
 1. **Disabled is the default and structurally inert.**  A runtime built
-   without an ObsConfig holds the NullTracer singleton — no Span objects
-   on the hot path, no sink IO, and reports/samples bitwise-identical
+   without an ObsConfig holds the NullTracer singleton — no Span objects,
+   profiler ranges or probe events on the hot path, no sink IO, and
+   reports/samples bitwise-identical
    to the pre-obs runtime.  (The metrics registry itself always runs:
    it IS the report mechanism, and its cost is integer adds the old
    hand-maintained dicts paid anyway.)
 2. **Enabled never perturbs outputs.**  Tracing adds host-side clock
-   reads and buffer appends only: samples/params stay bitwise-identical
+   reads, buffer appends, profiler ranges and the probe's event
+   records and queries only: samples/params stay bitwise-identical
    to the disabled run and the engines see ZERO new signatures
    (asserted in both smokes).
 
 JSONL schema (``schema`` = obs.export.OBS_SCHEMA_VERSION = 1), one JSON
-object per line, flushed per write::
+object per line, flushed after each record or frame's batch of spans::
 
     {"schema":1,"kind":"meta","t":<s>, ...run header fields...}
     {"schema":1,"kind":"metrics","t":<s>,"frame":N,
@@ -54,9 +66,11 @@ Workflow::
 
     # then load /tmp/serve_trace.json in https://ui.perfetto.dev (or
     # chrome://tracing): each wave is a lane; its plan/cache_probe/
-    # server_scan/client_scan/straggle_stall children nest inside it.
+    # server_scan/client_scan/straggle_stall children nest inside it,
+    # and the steps and model calls inside the scans.
 
-    # device-level truth for the first 8 waves (TensorBoard-loadable):
+    # device-level truth for the first 8 waves (TensorBoard-loadable),
+    # the spans as repro.* ranges over the host's ops:
     ... --profile-waves 8 --profile-dir /tmp/torchprof
 """
 from __future__ import annotations
@@ -67,10 +81,13 @@ import tempfile
 import time
 from typing import Optional
 
+import torch
+
 from repro_torch.obs.export import (OBS_SCHEMA_VERSION, JsonlSink, ProfilerHook,
                               chrome_trace_events, write_chrome_trace)
 from repro_torch.obs.metrics import (DELTA, GAUGE, Counter, Gauge, Histogram,
                                MetricsRegistry, RecompileGuard, Snapshot)
+from repro_torch.obs.probe import StarvationProbe
 from repro_torch.obs.trace import NULL_TRACER, NullTracer, Span, Tracer
 
 
@@ -99,9 +116,11 @@ class Telemetry:
 
     def __init__(self, config: Optional[ObsConfig] = None,
                  clock=time.perf_counter,
-                 registry: Optional[MetricsRegistry] = None):
+                 registry: Optional[MetricsRegistry] = None,
+                 event=None):
         self.config = config or ObsConfig()
         self.clock = clock
+        self._event = event       # the starvation probe's event factory
         self.registry = registry if registry is not None \
             else MetricsRegistry()
         self.enabled = self.config.active
@@ -114,6 +133,18 @@ class Telemetry:
             outdir = self.config.profile_dir or os.path.join(
                 tempfile.gettempdir(), "repro_torch_obs_profile")
             self.profiler = ProfilerHook(self.config.profile_waves, outdir)
+
+    def starvation_probe(self, device) -> Optional[StarvationProbe]:
+        """The engine's starvation probe while tracing is on: over CUDA
+        events on a card, or over the injected ``event`` factory; None
+        when tracing is off or a CPU run was given no factory."""
+        if not self.enabled:
+            return None
+        if self._event is not None:
+            return StarvationProbe(self.registry, self._event)
+        if device.type == "cuda":
+            return StarvationProbe(self.registry, torch.cuda.Event)
+        return None
 
     def meta(self, **fields) -> None:
         if self._jsonl is not None:
@@ -167,5 +198,5 @@ class Telemetry:
 __all__ = ["DELTA", "GAUGE", "OBS_SCHEMA_VERSION", "Counter", "Gauge",
            "Histogram", "JsonlSink", "MetricsRegistry", "NullTracer",
            "NULL_TRACER", "ObsConfig", "ProfilerHook", "RecompileGuard",
-           "Snapshot", "Span", "Telemetry", "Tracer",
+           "Snapshot", "Span", "StarvationProbe", "Telemetry", "Tracer",
            "chrome_trace_events", "write_chrome_trace"]

@@ -6,8 +6,18 @@ actually overlap work:
 
 * ``with tracer.span("plan", parent=wave, wave=3):`` — synchronous
   host-side sections (planning, cache probes, the engine dispatch
-  calls, barrier stalls).  Nesting uses an explicit ``parent`` or, when
-  omitted, the innermost open context-manager span.
+  calls and steps, barrier stalls).  Nesting uses an explicit
+  ``parent`` or, when omitted, the innermost open context-manager span.
+  Each is also a ``repro.<name>`` range for its duration, so a
+  ``torch.profiler`` session shows the program's stages among its CPU
+  events, on the clock of the device activity.  The range is a
+  function-scope record (``torch._C._profiler._RecordFunctionFast``), a
+  CPU op like the aten ops it holds: ``torch.profiler.record_function``
+  makes a user annotation, which the CUDA profiler mirrors as a device
+  activity over every kernel launched inside it, and which so reads as
+  device time and hides the device's idle gaps from any reduction of
+  the trace's device activity.  A span opened while no profiler runs
+  has no range, even if a profiler starts before it closes.
 * ``s = tracer.start("wave", ...); ...; tracer.end(s, device_wait_s=w)``
   — asynchronous intervals that outlive the dispatching code path (a
   pipelined wave is dispatched in one poll and retires in a later one,
@@ -29,14 +39,17 @@ attribute lookup and a no-op call, and the obs contract (reports and
 samples bitwise-identical to pre-obs behavior) holds by construction.
 
 Completed spans buffer until a sink drains them (obs/export.py); the
-buffer is bounded only by frame cadence, which is fine at wave/round
-granularity (the hot loops emit a handful of spans per wave, not per
-step).
+buffer is bounded only by frame cadence.  The serve engine emits two
+spans a step (the step and its model call, more where a step calls
+the model once per group or request), so a frame of long waves holds
+thousands.
 """
 from __future__ import annotations
 
 import time
 from typing import Dict, List, Optional
+
+import torch
 
 
 class Span:
@@ -67,18 +80,29 @@ class Span:
 
 class _SpanContext:
     """Context manager for synchronous spans (allocated only when the
-    tracer is enabled)."""
-    __slots__ = ("_tracer", "span")
+    tracer is enabled), held open in the profiler as
+    ``repro.<name>``."""
+    __slots__ = ("_tracer", "span", "_range")
 
     def __init__(self, tracer: "Tracer", span: Span):
         self._tracer = tracer
         self.span = span
+        self._range = None
 
     def __enter__(self) -> Span:
         self._tracer._stack.append(self.span)
+        # the record asserts if a profiler starts between its enter and
+        # its exit, so a span opened with no profiler running has none
+        if torch.autograd._profiler_enabled():
+            self._range = torch._C._profiler._RecordFunctionFast(
+                "repro." + self.span.name)
+            self._range.__enter__()
         return self.span
 
     def __exit__(self, *exc) -> None:
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
         self._tracer._stack.pop()
         self._tracer.end(self.span)
 

@@ -57,8 +57,11 @@ repeated traffic, on one CUDA device (or the CPU when asked).
 * **Observability.**  Reports are derived views over the metrics registry
   (repro_torch.obs); with an active ObsConfig each wave opens a span
   decomposed into straggle_stall / plan / cache_probe / server_scan /
-  client_scan children that closes at observed completion.  Disabled is
-  structurally inert; enabled never perturbs outputs.
+  client_scan children that closes at observed completion; the engine
+  adds a span per step and per model call inside the scans and, on a
+  card, the starvation probe (``probed_steps`` / ``starved_steps``,
+  which stay 0 while tracing is off).  Disabled is structurally inert;
+  enabled never perturbs outputs.
 
 Every mode of this runtime (pipelined or sequential, any scheduler
 policy, cache on or off, obs on or off) produces bitwise-identical
@@ -112,6 +115,7 @@ _SERVE_REPORT_SCHEMA = {
     "cache_insertions": DELTA, "cache_evictions": DELTA,
     "cache_rejected": DELTA,
     "cache_entries": GAUGE, "cache_bytes": GAUGE,
+    "probed_steps": DELTA, "starved_steps": DELTA,
 }
 
 
@@ -280,7 +284,9 @@ class ServeRuntime:
 
         raw_server, raw_client = make_sample_engine(
             sched, apply_fn, config.image_shape,
-            server_ddim=config.server_stride > 1, split=True)
+            server_ddim=config.server_stride > 1, split=True,
+            tracer=self._obs.tracer,
+            probe=self._obs.starvation_probe(self.device))
 
         # the shared RecompileGuard (obs/metrics.py) counts the first
         # sighting of each stage's argument signature — the counterpart
@@ -391,6 +397,7 @@ class ServeRuntime:
             "server_calls_saved_by_cache": 0,
             "requests_from_cache": 0, "engine_traces": 0,
             "signatures_per_bucket": {}, "max_signatures_per_bucket": 0,
+            "probed_steps": 0, "starved_steps": 0,
         }
         if self.cache is not None:
             report.update({
@@ -457,6 +464,8 @@ class ServeRuntime:
                                       for b, s in f.sigs.items()},
             "max_signatures_per_bucket": max(
                 (len(s) for s in f.sigs.values()), default=0),
+            "probed_steps": d("probed_steps"),
+            "starved_steps": d("starved_steps"),
         })
         if self.cache is not None:
             d_hits, d_miss = d("cache_hits"), d("cache_misses")

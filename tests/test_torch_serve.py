@@ -4,7 +4,8 @@ contracts.
 * Same queue, same key, same toy denoiser: outputs within SAMPLE (the
   erfinv few-ulp noise differences of test_torch_prng.py, riding the
   sweep); every integer report counter, the signature counts and the
-  report's key set BITWISE equal.
+  report's key set BITWISE equal (the key set but for the port's
+  starvation-probe counters).
 * Inside the port, bitwise: warm == cold == fifo, pipelined ==
   sequential, continuous == depth, obs on == off; the CLI smoke passes
   in-process on the CPU.
@@ -22,7 +23,7 @@ from repro.serve import runtime as jax_runtime
 from repro_torch.core import prng
 from repro_torch.core.schedules import DiffusionSchedule
 from repro_torch.launch import collab_serve
-from repro_torch.obs import ObsConfig
+from repro_torch.obs import DELTA, ObsConfig
 from repro_torch.serve import ServeConfig, ServeRuntime
 from repro_torch.serve import runtime as torch_runtime
 
@@ -41,6 +42,9 @@ INT_KEYS = ("requests", "waves", "buckets", "server_calls_physical",
             "cache_hits", "cache_misses", "cache_insertions",
             "cache_evictions", "cache_rejected", "cache_entries",
             "cache_bytes")
+# the port's starvation probe (CUDA events between engine steps) has no
+# counterpart in the JAX package: its two report keys are the port's own
+PROBE_KEYS = {"probed_steps": DELTA, "starved_steps": DELTA}
 
 
 def apply_fn(p, x, t, y):
@@ -97,7 +101,7 @@ def assert_runtime_matches_jax(over, passes):
         to, trep = tr.process(_queue(torch_runtime))
         for a, b in zip(to, jo):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), **SAMPLE)
-        assert set(trep) == set(jrep)
+        assert set(trep) == set(jrep) | set(PROBE_KEYS)
         for k in INT_KEYS:
             if k in jrep:
                 assert trep[k] == jrep[k], k
@@ -112,8 +116,9 @@ def test_runtime_matches_jax(over, passes):
 
 def test_report_schema_matches_jax():
     assert torch_runtime._SERVE_REPORT_SCHEMA == \
-        jax_runtime._SERVE_REPORT_SCHEMA
-    assert set(_port()._empty_report()) == set(_jax()._empty_report())
+        dict(jax_runtime._SERVE_REPORT_SCHEMA, **PROBE_KEYS)
+    assert set(_port()._empty_report()) == \
+        set(_jax()._empty_report()) | set(PROBE_KEYS)
 
 
 def test_key_fingerprint_and_rotation_match_jax():
