@@ -91,7 +91,12 @@ package).  Phases, each of which fails the run on any error:
    and shapes that reach the wgmma variants (flash at head dim 128 and
    over three K/V tiles; the SSD scan's SSD_WGMMA, in bf16), float32 and
    bfloat16, with those tests' tolerances (SSD_WGMMA: SSD_BF16_RANGE);
-   both variants (wgmma, simt) of each must be launched;
+   both variants (wgmma, simt) of each must be launched; then the Mamba2
+   mixer's three glue kernels (``phase_mamba_mixer``: the causal conv +
+   SiLU, the input norm, the gated output norm) bitwise the eager route
+   at Zamba2-1.2B's widths in bf16 and the shapes of the DiT (64 x 64
+   tokens) and the LM prefills, planted faults of the eager version
+   differing, each timed beside its eager composition and its bound;
 11. the DiT path: server and three client Zamba2-1.2B DiTs at full width
    (configs/zamba2_1p2b.py, bf16, 38 Mamba2 layers, the shared
    attention+MLP block every 6) on 32x32x3 images in 4x4 patches (64
@@ -105,8 +110,10 @@ package).  Phases, each of which fails the run on any error:
    one ``ServeRuntime`` pass (T=60, cuts 8/15/30, three requests of
    batch 4, max_wave 4, depth policy, cache on), counters read just
    after: 6 flash and 38 SSD launches per forward, every one on the wgmma
-   variants.  Flash's and the SSD scan's rows of batch 1 must equal those
-   of batch 4 bitwise.  The pass's outputs must equal
+   variants, and 38 of each mixer glue kernel (none under the loss's
+   autograd, which keeps the eager route), their card ms a launch from
+   the forward's profile.  Flash's and the SSD scan's rows of batch 1
+   must equal those of batch 4 bitwise.  The pass's outputs must equal
    ``sample_plan_reference`` bitwise on the card;
 12. the grouped matmul against its plain version on the card at the JAX
    package's test shapes (tests/test_kernels.py sweep) and shapes that
@@ -172,12 +179,13 @@ package).  Phases, each of which fails the run on any error:
    state 64, the shared block every 6 layers, vocab 32,000, bf16,
    threefry seed 0): (a) the ``serve`` CLI twice (batch 4, 512 prompt
    tokens, 32 new, greedy), counters zeroed just before each: tokens
-   bitwise equal, 6 flash and 38 SSD launches (all wgmma) for the
-   prefill and none for the 31 decode steps; (b) prefill + one decode
-   step against the full forward at S, for S in LM_PROMPTS (512: two SSD
-   chunks; 333: a ragged tail); (c) four greedy decode steps against
-   repeated full forwards at 512; (d) flash and the SSD scan (y, its
-   tail rows and the final state) against their plain versions on each
+   bitwise equal, 6 flash and 38 SSD launches (all wgmma) and 38 of each
+   mixer glue kernel for the prefill and none for the 31 decode steps;
+   (b) prefill + one decode step against the full forward at S, for S in
+   LM_PROMPTS (512: two SSD chunks; 333: a ragged tail); (c) four greedy
+   decode steps against repeated full forwards at 512; (d) flash and the
+   SSD scan (y, its tail rows and the final state) against their plain
+   versions on each
    prefill's own inputs, rows bitwise across the batch, timed beside
    SDPA and the bound; (e) a model cut to LM_CPU_LAYERS layers on the
    card against the CPU port with the same weights; every logit gap
@@ -270,7 +278,7 @@ package).  Phases, each of which fails the run on any error:
    that ``skip_reason`` runs ``OK`` and every other ``SKIP`` with its
    reason, and launch/collab_dryrun.py at COLLAB_DRYRUN_ARGS writing its
    six programs;
-20. a ``kernels`` JSON line (eight kernels, ``launches_by_path`` over
+20. a ``kernels`` JSON line (eleven kernels, ``launches_by_path`` over
    the sixteen paths), the card line again, and the result line.
 
 Exits nonzero, printing no result line, without a CUDA device or outside
@@ -298,6 +306,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.kernels.ddpm_step import cost as ddpm_cost  # noqa: E402
 from repro_torch.kernels.flash_attention import cost as fa_cost  # noqa: E402
 from repro_torch.kernels.grouped_matmul import cost as gmm_cost  # noqa: E402
+from repro_torch.kernels.mamba_mixer import cost as mixer_cost  # noqa: E402
 from repro_torch.kernels.ssd_scan import cost as ssd_cost  # noqa: E402
 from repro_torch.launch import mesh as card  # noqa: E402
 TOL_BF16 = dict(atol=5e-2, rtol=5e-2)   # the JAX package's kernel tolerance
@@ -417,7 +426,8 @@ RT_DP = dict(clip=1.0, noise_multiplier=0.8)
 TRAIN_METRIC_RTOL = 1e-4
 # the backward kernels replace no TPU kernel (the JAX package
 # differentiates plain XLA code): each names the Pallas kernel of the
-# function it differentiates
+# function it differentiates; nor do the Mamba2 mixer's glue kernels (XLA
+# fuses that glue): they name the JAX function whose glue they take over
 REPLACES = {"ddpm_step": "src/repro/kernels/ddpm_step/kernel.py:43",
             "ddpm_step_batched": "src/repro/kernels/ddpm_step/kernel.py:85",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:76",
@@ -427,16 +437,23 @@ REPLACES = {"ddpm_step": "src/repro/kernels/ddpm_step/kernel.py:43",
                 "src/repro/kernels/flash_attention/kernel.py:76",
             "ssd_scan_bwd": "src/repro/kernels/ssd_scan/kernel.py:69",
             "grouped_matmul_bwd":
-                "src/repro/kernels/grouped_matmul/kernel.py:39"}
+                "src/repro/kernels/grouped_matmul/kernel.py:39",
+            "mamba_conv_silu": "src/repro/models/ssm.py:151",
+            "mamba_rmsnorm": "src/repro/models/ssm.py:171",
+            "mamba_rmsnorm_gated": "src/repro/models/ssm.py:171"}
 SOURCES = {"ddpm_step": "ddpm_step.cu", "ddpm_step_batched": "ddpm_step.cu",
            "flash_attention": "flash_attention.cu",
            "ssd_scan": "ssd_scan.cu", "grouped_matmul": "grouped_matmul.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
            "ssd_scan_bwd": "ssd_scan_bwd.cu",
-           "grouped_matmul_bwd": "grouped_matmul_bwd.cu"}
+           "grouped_matmul_bwd": "grouped_matmul_bwd.cu",
+           "mamba_conv_silu": "mamba_mixer.cu",
+           "mamba_rmsnorm": "mamba_mixer.cu",
+           "mamba_rmsnorm_gated": "mamba_mixer.cu"}
+MIXER_KERNELS = ("mamba_conv_silu", "mamba_rmsnorm", "mamba_rmsnorm_gated")
 KERNELS = ("ddpm_step_batched", "ddpm_step", "flash_attention", "ssd_scan",
            "grouped_matmul", "flash_attention_bwd", "ssd_scan_bwd",
-           "grouped_matmul_bwd")
+           "grouped_matmul_bwd") + MIXER_KERNELS
 
 
 def log(*a):
@@ -2159,6 +2176,122 @@ def phase_flash_ssd():
                                  f"expected launches of {sorted(want)}")
 
 
+def phase_mamba_mixer():
+    """The Mamba2 mixer's glue kernels (kernels/mamba_mixer) against the
+    eager route they take over (models/ssm.py ``_causal_conv`` and
+    ``layers.rmsnorm`` with the mixer's D skip and gate around it), at
+    LM_ARCH's widths in bf16 (d 2,048, d_inner 4,096, state 64, 64 heads
+    of 64, conv width 4) and the main paths' shapes: the benchmark DiT's
+    64 images x 64 tokens and the LM prefill's LM_BATCH x each of
+    LM_PROMPTS.  Each output bitwise the eager one; planted faults of the
+    eager version (the causal window shifted by one, the bias dropped, the
+    gate skipped, inv left in float32) must differ.  Each kernel timed
+    (events) beside its eager composition and its bound.  Returns the
+    three kernels' records at the DiT's shape, each with its numbers at
+    the first LM prefill (``lm_prefill``)."""
+    import types
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.mamba_mixer import kernel as mkernel
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import rmsnorm
+
+    cfg = get_arch(LM_ARCH)
+    d, di, n, h, p, k, eps = (cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state,
+                              cfg.ssm_n_heads, cfg.ssm_head_dim,
+                              cfg.ssm_conv_kernel, cfg.norm_eps)
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rn = lambda *shape, s=1.0: (torch.randn(shape, generator=g,
+                                            device="cuda") * s).to(bf16)
+    wx, bx, wbc, bbc = rn(k, di, s=0.5), rn(di, s=0.5), rn(k, 2 * n, s=0.5), \
+        rn(2 * n, s=0.5)
+    sc_d, sc_di = 1 + rn(d, s=0.1), 1 + rn(di, s=0.1)
+    D = torch.randn(h, generator=g, device="cuda")
+    norm = lambda t, sc: rmsnorm(types.SimpleNamespace(scale=sc), t, eps)
+
+    def gated(y, xc, z, gate=True):
+        b, s = y.shape[:2]
+        u = (y.reshape(b, s, h, p) + xc.reshape(b, s, h, p) *
+             D[None, None, :, None].to(bf16)).reshape(b, s, di)
+        return norm(u * F.silu(z) if gate else u, sc_di)
+
+    def conv(xr, bcr, shift=False, bias=True):
+        if shift:
+            xr = torch.cat([torch.zeros_like(xr[:, :1]), xr[:, :-1]], dim=1)
+        xc = ssm._causal_conv(xr, wx, bx if bias else torch.zeros_like(bx))
+        bc = ssm._causal_conv(bcr, wbc, bbc)
+        return xc, bc[..., :n].contiguous(), bc[..., n:].contiguous()
+
+    def inv_float32(x):
+        x32 = x.float()
+        inv = torch.rsqrt((x32 * x32).sum(-1, keepdim=True) / d + eps)
+        return (x * inv * sc_d).to(bf16)
+
+    shapes = {"dit": (64, 64), **{f"lm_prefill S={S}": (LM_BATCH, S)
+                                  for S in LM_PROMPTS}}
+    records = {}
+    for tag, (b, s) in shapes.items():
+        x, xr, bcr = rn(b, s, d), rn(b, s, di), rn(b, s, 2 * n)
+        y, z = rn(b, s, di), rn(b, s, di)
+        mkernel.reset_counts()
+        xc, Bm, Cm = mkernel.launch_conv_silu(xr, bcr, wx, bx, wbc, bbc)
+        got = {"xc": xc, "B": Bm, "C": Cm,
+               "xn": mkernel.launch_rmsnorm(x, sc_d, eps),
+               "out": mkernel.launch_rmsnorm(y, sc_di, eps, xc, D, z)}
+        ref_xc, ref_b, ref_c = conv(xr, bcr)
+        want = {"xc": ref_xc, "B": ref_b, "C": ref_c, "xn": norm(x, sc_d),
+                "out": gated(y, ref_xc, z)}
+        torch.cuda.synchronize()
+        if dict(mkernel.COUNTS) != dict.fromkeys(MIXER_KERNELS, 1):
+            raise AssertionError(f"mamba_mixer {tag}: launches "
+                                 f"{mkernel.COUNTS}")
+        bad = {o: int((got[o] != want[o]).sum()) for o in got
+               if not torch.equal(got[o], want[o])}
+        if bad:
+            raise AssertionError(f"mamba_mixer {tag}: values differing from "
+                                 f"the eager route {bad}")
+        faults = {"causal window shifted by one":
+                  ("xc", conv(xr, bcr, shift=True)[0]),
+                  "bias dropped": ("xc", conv(xr, bcr, bias=False)[0]),
+                  "gate skipped": ("out", gated(y, ref_xc, z, gate=False)),
+                  "inv left in float32": ("xn", inv_float32(x))}
+        caught = {f: int((got[o] != v).sum()) for f, (o, v) in faults.items()}
+        if not all(caught.values()):
+            raise AssertionError(f"mamba_mixer {tag}: planted faults not "
+                                 f"caught {caught}")
+        log(f"kernel/mamba_mixer at the {tag} shape ({b} x {s} tokens, bf16):"
+            f" conv_silu (x, B, C), the input norm and the gated output norm "
+            f"bitwise the eager route; planted faults differ in {caught} "
+            f"values")
+        parts = {
+            "mamba_conv_silu": (
+                lambda: mkernel.launch_conv_silu(xr, bcr, wx, bx, wbc, bbc),
+                lambda: conv(xr, bcr),
+                mixer_cost.conv_silu_cost(b * s, di + 2 * n, k, 2)),
+            "mamba_rmsnorm": (
+                lambda: mkernel.launch_rmsnorm(x, sc_d, eps),
+                lambda: norm(x, sc_d), mixer_cost.rmsnorm_cost(b * s, d, 2)),
+            "mamba_rmsnorm_gated": (
+                lambda: mkernel.launch_rmsnorm(y, sc_di, eps, xc, D, z),
+                lambda: gated(y, ref_xc, z),
+                mixer_cost.rmsnorm_cost(b * s, di, 2, h))}
+        for name, (fused, eager, (nbytes, flops)) in parts.items():
+            ms, plain = time_ms(fused), time_ms(eager)
+            bnd, by = _bound(nbytes, flops, FP32_FLOPS_PER_S)
+            rec = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd,
+                       bound_by=by, library_ms=None)
+            log(f"kernel/{name} at the {tag} shape: kernel {ms * 1e3:.2f} us "
+                f"(eager composition {plain * 1e3:.2f} us) bound "
+                f"{bnd * 1e3:.3f} us ({by}), {100 * bnd / ms:.1f}% of it")
+            if tag == "dit":
+                records[name] = rec
+            elif "lm_prefill" not in records[name]:
+                records[name]["lm_prefill"] = rec
+    return records
+
+
 @contextlib.contextmanager
 def capture_calls(targets, limit: int = 1, clone: bool = True):
     """While active, each op of ``targets`` ({name: (module, attribute)})
@@ -2631,6 +2764,7 @@ def phase_dit():
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.mamba_mixer import kernel as mkernel
     from repro_torch.kernels.ssd_scan import kernel as skernel
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
@@ -2645,7 +2779,9 @@ def phase_dit():
     per_fwd = {"flash_attention": n_attn, "flash_attention/wgmma": n_attn,
                "flash_attention/simt": 0, "ssd_scan": arch.n_layers,
                "ssd_scan/wgmma": arch.n_layers, "ssd_scan/simt": 0,
-               **no_bwd("flash_attention", "ssd_scan")}
+               **no_bwd("flash_attention", "ssd_scan"),
+               **dict.fromkeys(MIXER_KERNELS, arch.n_layers)}
+    kmods = (fkernel, skernel, mkernel)
     key = prng.PRNGKey(0, device="cuda")
     sp, cp = init_dits("dit", arch, dcfg, key)
     xty = dit_inputs(dcfg.n_classes)
@@ -2658,7 +2794,9 @@ def phase_dit():
         torch.cuda.synchronize()
     if eps.shape != xty[0].shape or not torch.isfinite(eps).all():
         raise AssertionError(f"dit: bad forward {tuple(eps.shape)}")
-    dit_grad_check("dit", apply_fn, sp, xty, per_fwd, (fkernel, skernel))
+    # with autograd every mixer keeps the eager route: no glue kernel
+    dit_grad_check("dit", apply_fn, sp, xty,
+                   {**per_fwd, **dict.fromkeys(MIXER_KERNELS, 0)}, kmods)
 
     records = {}
     (q, k, v), kw, out = captured["flash_attention"][0]
@@ -2713,18 +2851,21 @@ def phase_dit():
         "library_ms: null (no PyTorch call computes the SSD scan)")
 
     fwd_ms, card = dit_forward_stats(
-        "dit", apply_fn, sp, xty, per_fwd, (fkernel, skernel),
+        "dit", apply_fn, sp, xty, per_fwd, kmods,
         cards=[("flash_attention", "flash_wgmma_kernel"),
-               ("ssd_scan", "ssd_wgmma_kernel")])
+               ("ssd_scan", "ssd_wgmma_kernel"),
+               *((name, f"{name}_kernel") for name in MIXER_KERNELS)])
     records["flash_attention"]["card_ms"] = card["flash_attention"]
     records["ssd_scan"]["card_ms"] = card["ssd_scan"]
+    for name in MIXER_KERNELS:      # joined to phase_mamba_mixer's records
+        records[name] = {"card_ms": card[name]}
     if card["ssd_scan"] is not None:
         log(f"kernel/ssd_scan (wgmma) card {card['ssd_scan'] * 1e3:.2f} us a "
             f"launch in the forward against its bound {bnd * 1e3:.3f} us: "
             f"{100 * bnd / card['ssd_scan']:.1f}% of the bound's rate "
             f"(simt {simt * 1e3:.2f} us a launch, events)")
     launches = dit_serve_path("dit", sp, cp, apply_fn, dcfg.n_classes, key,
-                              fwd_ms, per_fwd, (fkernel, skernel))
+                              fwd_ms, per_fwd, kmods)
     return records, launches
 
 
@@ -3251,7 +3392,8 @@ def phase_lm_serve():
     block every 6 layers, vocab 32,000, bf16, threefry seed 0).
     (a) the CLI (``launch/serve.py``) twice, greedy, batch 4, 512 prompt
     tokens, 32 new: the tokens bitwise equal, 6 flash and 38 SSD launches
-    (all wgmma) for its one prefill and none in its 31 decode steps;
+    (all wgmma) and 38 of each mixer glue kernel for its one prefill and
+    none in its 31 decode steps;
     (b) prefill + one decode step against the full forward at position S,
     for S in LM_PROMPTS, the logits within LM_BF16_RTOL; (c) four greedy
     decode steps against repeated full forwards at S = 512; (d) flash and
@@ -3272,6 +3414,7 @@ def phase_lm_serve():
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.mamba_mixer import kernel as mkernel
     from repro_torch.kernels.ssd_scan import kernel as skernel
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
@@ -3290,8 +3433,9 @@ def phase_lm_serve():
     per_prefill = {"flash_attention": n_attn, "flash_attention/wgmma": n_attn,
                    "flash_attention/simt": 0, "ssd_scan": cfg.n_layers,
                    "ssd_scan/wgmma": cfg.n_layers, "ssd_scan/simt": 0,
-                   **no_bwd("flash_attention", "ssd_scan")}
-    kmods = (fkernel, skernel)
+                   **no_bwd("flash_attention", "ssd_scan"),
+                   **dict.fromkeys(MIXER_KERNELS, cfg.n_layers)}
+    kmods = (fkernel, skernel, mkernel)
 
     # (a) the CLI, twice
     argv = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
@@ -5763,6 +5907,7 @@ def main() -> int:
     phase_build()
     records = phase_keyed(phase_kernels())
     phase_flash_ssd()
+    mixer_records = phase_mamba_mixer()
     fwd_ms = phase_unet()
     launches, batched_card_ms = phase_main_path(fwd_ms)
     phase_contracts()
@@ -5798,6 +5943,9 @@ def main() -> int:
 
     records["ddpm_step"]["card_ms"] = ddpm_card_ms
     records["ddpm_step_batched"]["card_ms"] = batched_card_ms
+    for name in MIXER_KERNELS:
+        mixer_records[name].update(dit_records.pop(name))
+    records.update(mixer_records)
     records.update(dit_records)
     records["flash_attention"]["head_dim_128"] = \
         moe_records.pop("flash_attention@128")

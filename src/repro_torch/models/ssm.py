@@ -35,6 +35,8 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
 from repro_torch.core.schedules import linspace_f32
+from repro_torch.kernels.mamba_mixer import kernel as mixer_kernel
+from repro_torch.kernels.mamba_mixer import ops as mixer_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.layers import (dense, fill, fill_dense, rmsnorm,
                                        rmsnorm_init)
@@ -170,25 +172,44 @@ def mamba_forward(params: Mamba, x, cfg: ArchConfig,
     """Full-sequence mixer with its residual.  x: (B, S, D).  With
     ``return_state``, also the decode state it leaves: the scan's final
     state (``ssm``, float32) and the last K−1 RAW conv inputs, x_raw ‖
-    bc_raw (``conv``)."""
+    bc_raw (``conv``).
+
+    Where ``mixer_ops.takes_kernels`` says so (plain CUDA or meta tensors,
+    no gradient needed), the glue around the products and the scan runs
+    as three fused kernels: the input norm, both convs + SiLU in one
+    launch, and the D skip, gate and output norm in one; elsewhere the
+    eager code below, whose bits the fused kernels give."""
     B_, S, _ = x.shape
     di, n, h, p = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_n_heads,
                    cfg.ssm_head_dim)
-    xn = rmsnorm(params.norm, x, cfg.norm_eps)
+    eps = cfg.norm_eps
+    fused = mixer_ops.takes_kernels(x, params)
+    xn = mixer_kernel.launch_rmsnorm(x, params.norm.scale, eps) if fused \
+        else rmsnorm(params.norm, x, eps)
     z = params.z_proj(xn)
     x_raw = params.x_proj(xn)
     bc_raw = params.bc_proj(xn)
-    xc = _causal_conv(x_raw, params.conv_x_w, params.conv_x_b)
-    bc = _causal_conv(bc_raw, params.conv_bc_w, params.conv_bc_b)
+    if fused:
+        xc, Bm, Cm = mixer_kernel.launch_conv_silu(
+            x_raw, bc_raw, params.conv_x_w, params.conv_x_b,
+            params.conv_bc_w, params.conv_bc_b)
+    else:
+        xc = _causal_conv(x_raw, params.conv_x_w, params.conv_x_b)
+        bc = _causal_conv(bc_raw, params.conv_bc_w, params.conv_bc_b)
+        Bm, Cm = bc[..., :n], bc[..., n:]
     xs = xc.reshape(B_, S, h, p)
-    Bm, Cm = bc[..., :n], bc[..., n:]
     dt = F.softplus(params.dt_proj(xn).float() + params.dt_bias)
     A = -torch.exp(params.A_log)
     y, final_state = ssd_ops.ssd_scan(xs, dt, A, Bm, Cm,
                                       min(cfg.ssm_chunk, S))
-    y = y + xs * params.D[None, None, :, None].to(y.dtype)
-    y = y.reshape(B_, S, di)
-    y = rmsnorm(params.out_norm, y * F.silu(z), cfg.norm_eps)
+    if fused:
+        y = mixer_kernel.launch_rmsnorm(y.reshape(B_, S, di),
+                                        params.out_norm.scale, eps, xc,
+                                        params.D, z)
+    else:
+        y = y + xs * params.D[None, None, :, None].to(y.dtype)
+        y = y.reshape(B_, S, di)
+        y = rmsnorm(params.out_norm, y * F.silu(z), eps)
     out = x + params.out_proj(y)
     if return_state:
         K = cfg.ssm_conv_kernel

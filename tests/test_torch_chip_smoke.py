@@ -93,11 +93,14 @@ def test_kernels_line_lists_every_kernel_with_every_key():
     flash its numbers at head dim 128, the SSD scan its simt variant's
     time and the grouped matmul its three shapes; the two backward
     kernels their shape, card time and events a launch, their largest
-    row gap, its limit and the planted faults' gaps."""
+    row gap, its limit and the planted faults' gaps; the Mamba2 mixer's
+    three glue kernels their card time and their numbers at the LM
+    prefill, each naming the JAX function whose glue it takes over."""
     cs = _chip_smoke()
     names = ["ddpm_step_batched", "ddpm_step", "flash_attention",
              "ssd_scan", "grouped_matmul", "flash_attention_bwd",
-             "ssd_scan_bwd", "grouped_matmul_bwd"]
+             "ssd_scan_bwd", "grouped_matmul_bwd", "mamba_conv_silu",
+             "mamba_rmsnorm", "mamba_rmsnorm_gated"]
     records = {n: dict(max_abs_err=0.0, ms=1.0, plain_ms=2.0, bound_ms=0.5,
                        bound_by="bytes") for n in names}
     for n in ("flash_attention_bwd", "ssd_scan_bwd", "grouped_matmul_bwd"):
@@ -121,6 +124,9 @@ def test_kernels_line_lists_every_kernel_with_every_key():
                  given=dict(ms=0.015, launch_ms=0.012))
     records["ddpm_step"].update(card_ms=0.0016, **keyed)
     records["ddpm_step_batched"].update(card_ms=0.0021, **keyed)
+    for n in cs.MIXER_KERNELS:
+        records[n].update(library_ms=None, card_ms=0.005,
+                          lm_prefill=dict(ms=0.03, bound_ms=0.01))
     launches = {n: i + 1 for i, n in enumerate(names)}
     launches.update({"flash_attention/wgmma": 3, "flash_attention/simt": 0,
                      "grouped_matmul/wgmma": 5, "grouped_matmul/wmma": 0,
@@ -152,7 +158,8 @@ def test_kernels_line_lists_every_kernel_with_every_key():
                               "row_limit", "faults"},
              "grouped_matmul_bwd": {"launches_by_variant", "card_ms",
                                     "card_events", "shape", "row_gap",
-                                    "row_limit", "faults", "shapes"}}
+                                    "row_limit", "faults", "shapes"},
+             **dict.fromkeys(cs.MIXER_KERNELS, {"card_ms", "lm_prefill"})}
     for k in line["kernels"]:
         assert set(k) == keys | extra.get(k["name"], set())
         assert k["route"] == "cuda"
@@ -163,7 +170,9 @@ def test_kernels_line_lists_every_kernel_with_every_key():
         assert k["launches"] == launches[k["name"]]
     flash, ssd, gmm = line["kernels"][2], line["kernels"][3], \
         line["kernels"][4]
-    fbwd, sbwd, gbwd = line["kernels"][5:]
+    fbwd, sbwd, gbwd = line["kernels"][5:8]
+    assert {k["source"] for k in line["kernels"][8:]} == {
+        "src/repro_torch/csrc/mamba_mixer.cu"}
     assert gbwd["source"] == "src/repro_torch/csrc/grouped_matmul_bwd.cu"
     assert gbwd["replaces"] == gmm["replaces"] == \
         "src/repro/kernels/grouped_matmul/kernel.py:39"
@@ -414,7 +423,8 @@ def test_runtime_phase_configuration():
 
 
 def test_main_runs_every_phase_in_order():
-    """The phases main() drives, in order: the evaluation scores what the
+    """The phases main() drives, in order: the Mamba2 mixer's glue kernels
+    right after flash and the SSD scan, the evaluation scores what the
     training runtime trained, the MoE training path follows the MoE
     DiT's, the LM serving path runs after the DiT's and the MoE's kernel
     shapes, the partitioned dense, decode and MoE paths after the LM's,
@@ -427,7 +437,8 @@ def test_main_runs_every_phase_in_order():
     cs = _chip_smoke()
     calls = re.findall(r"\b(phase_\w+)\(", inspect.getsource(cs.main))
     assert calls == ["phase_build", "phase_keyed", "phase_kernels",
-                     "phase_flash_ssd", "phase_unet", "phase_main_path",
+                     "phase_flash_ssd", "phase_mamba_mixer", "phase_unet",
+                     "phase_main_path",
                      "phase_contracts", "phase_train", "phase_train_runtime",
                      "phase_clients_mesh", "phase_eval", "phase_dit",
                      "phase_grouped_matmul", "phase_moe", "phase_moe_train",

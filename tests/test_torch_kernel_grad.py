@@ -8,9 +8,11 @@ while grad is enabled — no fallback, no flag.  Flash attention, the SSD
 scan and the grouped matmul train on the card through their ops'
 autograd route instead (a ``torch.autograd.Function`` whose forward
 calls ``launch`` with grad off and whose backward is a backward kernel);
-the DDPM step has no backward.  Under ``no_grad`` (the samplers) or
-without such an input the refusal is silent, and the launch goes on to
-its own checks (here, on the CPU, the one that wants a CUDA device).
+the DDPM step has no backward, nor have the Mamba2 mixer's glue kernels
+(a mixer that needs a gradient keeps its eager route).  Under
+``no_grad`` (the samplers) or without such an input the refusal is
+silent, and the launch goes on to its own checks (here, on the CPU, the
+one that wants a CUDA device).
 The public ops on CPU tensors take the plain versions, which stay
 differentiable.
 """
@@ -23,6 +25,7 @@ from repro_torch.kernels.flash_attention import kernel as fkernel
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.grouped_matmul import kernel as gkernel
 from repro_torch.kernels.grouped_matmul import ops as gops
+from repro_torch.kernels.mamba_mixer import kernel as mkernel
 from repro_torch.kernels.ssd_scan import kernel as skernel
 from repro_torch.kernels.ssd_scan import ops as sops
 
@@ -53,8 +56,22 @@ def _gmm(grad):
     return gkernel.launch, (torch.randn(2, 5, 8), w)
 
 
+def _conv(grad):
+    w = torch.randn(4, 8, requires_grad=grad)     # the conv weights
+    return mkernel.launch_conv_silu, (torch.randn(1, 5, 8),
+                                      torch.randn(1, 5, 4), w,
+                                      torch.randn(8), torch.randn(4, 4),
+                                      torch.randn(4))
+
+
+def _norm(grad):
+    scale = torch.ones(128, requires_grad=grad)   # the norm's weight
+    return mkernel.launch_rmsnorm, (torch.randn(3, 128), scale, 1e-5)
+
+
 KERNELS = {"ddpm_step": _ddpm, "flash_attention": _flash, "ssd_scan": _ssd,
-           "grouped_matmul": _gmm}
+           "grouped_matmul": _gmm, "mamba_conv_silu": _conv,
+           "mamba_rmsnorm": _norm}
 
 
 @pytest.mark.parametrize("name", sorted(KERNELS))
